@@ -1,0 +1,27 @@
+"""vfr_tpu_torch — the PyTorch/CUDA port of vfr_tpu (text-to-video moment
+retrieval), for one NVIDIA H100.
+
+The JAX package ``vfr_tpu`` stays the reference; this package imports
+nothing of it and keeps its own copies of what it needs.  Plain tensor code
+is PyTorch; the TPU's Pallas kernels on the ported path are CUDA C++
+kernels under ``csrc/``, built by ``nvcc`` at first use
+(``kernels/build.py``).  Entry points run on CUDA unless the caller asks
+for the CPU (``--device cpu`` / ``device="cpu"``).
+
+Ported so far: the serving path (``cli index`` / ``cli serve``): the query
+LSTM kernel (fused mean pool and hs-emitting), the fused distance +
+strided-bin selection kernel, the factored moment tower, the index build,
+save, load and single-device serving.  See ROADMAP.md for what remains.
+"""
+
+__version__ = "0.1.0"
+
+from vfr_tpu_torch.config import (  # noqa: F401
+    PRESETS,
+    DataConfig,
+    EvalConfig,
+    ExperimentConfig,
+    ModelConfig,
+    TrainConfig,
+    get_preset,
+)

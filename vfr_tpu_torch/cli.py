@@ -1,0 +1,194 @@
+"""CLI of the PyTorch port: ``index`` and ``serve``.
+
+    python -m vfr_tpu_torch.cli index --preset didemo_flagship --out idx.npz
+    python -m vfr_tpu_torch.cli serve --preset didemo_flagship \
+        --index-path idx.npz --queries queries.txt --topk 10
+
+The flags are the JAX package's for these two subcommands, plus
+``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
+CPU).  With no real data under --data-dir the synthetic fixture is used.
+``--follow``, the live index, ``--shards > 1`` and the coarse prefilter are
+not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+from vfr_tpu_torch.config import PRESETS, get_preset
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="vfr_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--preset", default="didemo_rgb",
+                        choices=sorted(PRESETS))
+        sp.add_argument("--data-dir", default=None)
+        sp.add_argument("--checkpoint-dir", default=None,
+                        help="directory holding params.npz (see "
+                             "vfr_tpu_torch.bridge); seeded weights when "
+                             "absent")
+        sp.add_argument("--batch-size", type=int, default=None)
+        sp.add_argument("--seed", type=int, default=None)
+        sp.add_argument("--metrics-path", default=None)
+        sp.add_argument("--bank-dtype", default=None,
+                        choices=("float32", "bfloat16"))
+        sp.add_argument("--compute-dtype", default=None,
+                        choices=["float32", "bfloat16"])
+        sp.add_argument("--best", action="store_true",
+                        help="open <checkpoint-dir>/best.npz instead of "
+                             "params.npz")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda; raises "
+                             "when CUDA is absent unless 'cpu' is given)")
+
+    s = sub.add_parser("serve", help="answer free-text queries against the "
+                       "moment index (one JSON line per query)")
+    common(s)
+    s.add_argument("--queries", required=True,
+                   help="text file with one query per line, or '-' for stdin")
+    s.add_argument("--shards", type=int, default=None)
+    s.add_argument("--topk", type=int, default=10)
+    s.add_argument("--num-videos", type=int, default=None)
+    s.add_argument("--topk-method", default=None,
+                   choices=["exact", "approx", "fused"])
+    s.add_argument("--index-dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    s.add_argument("--index-path", default=None,
+                   help="load a prebuilt moment index (see `index`) instead "
+                        "of re-embedding the corpus")
+    s.add_argument("--coarse-path", default=None)
+    s.add_argument("--coarse-dim", type=int, default=None)
+    s.add_argument("--coarse-mode", choices=["blockmax", "centroid"],
+                   default="blockmax")
+    s.add_argument("--coarse-candidates", type=int, default=2048)
+    s.add_argument("--follow", action="store_true")
+    s.add_argument("--live-arena", default=None)
+    s.add_argument("--live-capacity-videos", type=int, default=0)
+    s.add_argument("--micro-batch", type=int, default=8)
+    s.add_argument("--length-buckets", default=None,
+                   help="group queries by token length and run each group "
+                        "with the token axis sliced to its bucket: 'auto' "
+                        "(multiples of 8) or a list '8,16'; results are "
+                        "identical to unbucketed serving")
+
+    ix = sub.add_parser("index", help="build and save the moment index")
+    common(ix)
+    ix.add_argument("--out", required=True, help="output .npz path")
+    ix.add_argument("--num-videos", type=int, default=None)
+    ix.add_argument("--index-dtype", default=None,
+                    choices=["float32", "bfloat16"])
+    ix.add_argument("--coarse-dim", type=int, default=0)
+    return p
+
+
+def apply_overrides(cfg, args):
+    data, model, train, ev = cfg.data, cfg.model, cfg.train, cfg.eval
+    if args.data_dir is not None:
+        data = dataclasses.replace(data, data_dir=args.data_dir)
+    if args.bank_dtype is not None:
+        data = dataclasses.replace(data, bank_dtype=args.bank_dtype)
+    if args.compute_dtype is not None:
+        model = dataclasses.replace(model, compute_dtype=args.compute_dtype)
+    tkw = {}
+    if args.checkpoint_dir is not None:
+        tkw["checkpoint_dir"] = args.checkpoint_dir
+    if args.batch_size is not None:
+        tkw["batch_size"] = args.batch_size
+    if args.seed is not None:
+        tkw["seed"] = args.seed
+    if args.metrics_path is not None:
+        tkw["metrics_path"] = args.metrics_path
+    if tkw:
+        train = dataclasses.replace(train, **tkw)
+    ekw = {}
+    if getattr(args, "topk", None) is not None:
+        ekw["corpus_topk"] = args.topk
+    if args.num_videos is not None:
+        ekw["corpus_num_videos"] = args.num_videos
+    if getattr(args, "topk_method", None) is not None:
+        ekw["topk_method"] = args.topk_method
+    if args.index_dtype is not None:
+        ekw["index_dtype"] = args.index_dtype
+    if args.bank_dtype is not None:
+        ekw["bank_dtype"] = args.bank_dtype
+    if ekw:
+        ev = dataclasses.replace(ev, **ekw)
+    return dataclasses.replace(cfg, data=data, model=model, train=train,
+                               eval=ev)
+
+
+def _not_ported(args):
+    """The serve/index options this port does not have yet, by flag."""
+    bad = []
+    if getattr(args, "follow", False):
+        bad.append("--follow")
+    if getattr(args, "live_arena", None) or getattr(
+            args, "live_capacity_videos", 0):
+        bad.append("--live-arena/--live-capacity-videos")
+    if (getattr(args, "shards", None) or 1) > 1:
+        bad.append("--shards > 1")
+    if getattr(args, "coarse_path", None) or (
+            getattr(args, "coarse_dim", None) or 0) > 0:
+        bad.append("--coarse-*")
+    return bad
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    bad = _not_ported(args)
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)}: not yet ported to vfr_tpu_torch")
+    cfg = apply_overrides(get_preset(args.preset), args)
+
+    from vfr_tpu_torch.checkpoint import load_for_eval
+    from vfr_tpu_torch.eval.corpus import (
+        build_moment_index,
+        load_index,
+        save_index,
+        serve_queries,
+    )
+
+    params, model, bundle = load_for_eval(cfg, prefer_best=args.best,
+                                          device=args.device)
+    if args.cmd == "index":
+        index = build_moment_index(
+            params, model, bundle.val,
+            num_videos=cfg.eval.corpus_num_videos,
+            index_dtype=cfg.eval.index_dtype)
+        path = save_index(index, args.out)
+        print(f"indexed {index.num_videos} videos ({index.num_rows} moments, "
+              f"{index.m.dtype}) -> {path}")
+        return 0
+
+    index = (load_index(args.index_path, device=args.device)
+             if args.index_path else None)
+    if args.queries == "-":
+        queries = [l.strip() for l in sys.stdin if l.strip()]
+    else:
+        with open(args.queries, "r", encoding="utf-8") as f:
+            queries = [l.strip() for l in f if l.strip()]
+    for rec in serve_queries(
+        params, model, bundle.val, bundle.vocab, queries,
+        k=args.topk,
+        batch_size=cfg.eval.corpus_query_batch,
+        max_query_len=cfg.data.max_query_len,
+        num_videos=cfg.eval.corpus_num_videos,
+        topk_method=cfg.eval.topk_method,
+        approx_recall=cfg.eval.approx_recall,
+        index_dtype=cfg.eval.index_dtype,
+        index=index,
+        length_buckets=args.length_buckets,
+    ):
+        print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""Dataset assembly, DiDeMo branch: real files when present, the synthetic
+fixture otherwise.
+
+Real layout (the same as the JAX package's):
+
+    <data_dir>/{train,val,test}_data.json   (DiDeMo schema)
+    <data_dir>/features_rgb.npz             [per video: [6, F]]
+    <data_dir>/features_flow.npz            (when the preset uses flow)
+    <data_dir>/glove.txt                    (optional, glove.*.300d format)
+
+Charades-STA and the packed feature store are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+from vfr_tpu_torch.config import DataConfig
+from vfr_tpu_torch.data.didemo import DidemoDataset, load_annotations
+from vfr_tpu_torch.data.features import FeatureStore
+from vfr_tpu_torch.data.glove import Vocab, load_glove, synthetic_glove
+from vfr_tpu_torch.data.synthetic import make_didemo_fixture
+
+
+@dataclass
+class DataBundle:
+    train: object
+    val: object
+    vocab: Vocab
+    glove: np.ndarray
+    feature_dim: int
+    source: str          # "real" | "synthetic"
+
+
+def _load_flow(data_dir: str, use_flow: bool):
+    if not use_flow:
+        return None
+    flow = FeatureStore.maybe_load(os.path.join(data_dir, "features_flow.npz"))
+    if flow is None:
+        raise FileNotFoundError(
+            f"use_flow=True but features_flow.npz does not exist under "
+            f"{data_dir}; provide the flow feature dump or use an rgb-only "
+            "preset (e.g. didemo_rgb)")
+    return flow
+
+
+def load_datasets(dcfg: DataConfig) -> DataBundle:
+    if dcfg.dataset == "charades_sta":
+        raise NotImplementedError(
+            "Charades-STA is not yet ported to vfr_tpu_torch")
+    return _load_didemo(dcfg)
+
+
+def _load_didemo(dcfg: DataConfig) -> DataBundle:
+    d = dcfg.data_dir
+    train_json = os.path.join(d, "train_data.json")
+    if os.path.exists(train_json):
+        train_anns = load_annotations(train_json)
+        val_path = next(
+            (p for p in ("val_data.json", "test_data.json")
+             if os.path.exists(os.path.join(d, p))),
+            None,
+        )
+        val_anns = (load_annotations(os.path.join(d, val_path))
+                    if val_path else train_anns)
+        rgb = FeatureStore.load(os.path.join(d, "features_rgb.npz"))
+        flow = _load_flow(d, dcfg.use_flow)
+        vocab = Vocab.from_corpus(
+            (a["description"] for a in train_anns), max_size=dcfg.vocab_size)
+        glove_path = os.path.join(d, "glove.txt")
+        glove = (load_glove(glove_path, vocab, dcfg.glove_dim)
+                 if os.path.exists(glove_path)
+                 else synthetic_glove(vocab, dcfg.glove_dim))
+        train_ds = DidemoDataset(train_anns, rgb, flow, vocab, dcfg)
+        val_ds = DidemoDataset(val_anns, rgb, flow, vocab, dcfg)
+        return DataBundle(train_ds, val_ds, vocab, glove, dcfg.feature_dim,
+                          "real")
+
+    fix = make_didemo_fixture(
+        num_videos=dcfg.synthetic_num_videos,
+        num_queries=dcfg.synthetic_num_queries,
+        feature_dim=dcfg.feature_dim,
+        glove_dim=dcfg.glove_dim,
+        num_clips=dcfg.num_clips,
+        clip_seconds=dcfg.clip_seconds,
+        noise=dcfg.synthetic_noise,
+        with_flow=dcfg.use_flow,
+        vocab_words=dcfg.synthetic_vocab_words,
+        seed=dcfg.synthetic_seed,
+    )
+    n_val = max(1, len(fix.annotations) // 5)
+    train_ds = DidemoDataset(fix.annotations[:-n_val], fix.rgb, fix.flow,
+                             fix.vocab, dcfg)
+    val_ds = DidemoDataset(fix.annotations[-n_val:], fix.rgb, fix.flow,
+                           fix.vocab, dcfg)
+    return DataBundle(train_ds, val_ds, fix.vocab, fix.glove,
+                      dcfg.feature_dim, "synthetic")

@@ -1,0 +1,465 @@
+"""Corpus-level retrieval and serving, single device.
+
+PASS 1 — ``build_moment_index``: embed every moment of every corpus video
+once into a cached index: per-stream rows ``[S, V*P, d]`` + ``|m|^2``
+(1e30 on invalid rows).  ``save_index`` / ``load_index`` persist it in the
+JAX package's npz format, bit-exact both ways.
+
+PASS 2 — retrieval: embed a query batch (GloVe -> LSTM kernel -> projection
+-> cosine normalization), score it against the whole index and select.
+``exact``/``approx``: one f32 score GEMM over the stream-concatenated index
++ ``torch.topk`` (``approx`` is exact in the port).  ``fused``: the CUDA
+distance+strided-bin kernel, then an exact top-k over its candidates.
+
+Not ported yet: the mesh (sharded) paths, coarse retrieval, the live index
+and ``serve_follow``, and the ``carrier_dtype="auto"`` policy (a TPU layout
+choice; the port always carries the score operand as f32, see
+``prep_score_operands``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vfr_tpu_torch.data.glove import tokenize
+from vfr_tpu_torch.models.mcn import Model, embed_moments, embed_queries_multi
+from vfr_tpu_torch.ops.kernels.select_kernel import distance_select
+from vfr_tpu_torch.ops.topk import top_k_select
+from vfr_tpu_torch.parallel.sharding import (
+    fuse_index_cat,
+    fused_corpus_scores,
+    query_sq_const,
+)
+from vfr_tpu_torch.utils.io import atomic_savez, to_numpy, tree_fingerprint
+
+
+@dataclass
+class MomentIndex:
+    m: torch.Tensor          # [S, N, d] per-stream moment embeddings
+    m_sq: torch.Tensor       # [S, N] squared norms (1e30 for invalid rows)
+    video_row: np.ndarray    # [N] int32 corpus video row per index row
+    prop_idx: np.ndarray     # [N] int32 proposal index within the video
+    spans_sec: np.ndarray    # [N, 2] float32 second interval of each row
+    weights: np.ndarray      # [S] stream fusion weights
+    # provenance (model config + params + corpus identity); serve paths
+    # validate it so an index from another checkpoint or corpus fails
+    # loudly.  None on indexes saved without one (validation skipped).
+    fingerprint: Optional[Dict] = None
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.video_row.shape[0])
+
+    @property
+    def num_videos(self) -> int:
+        return int(self.video_row.max()) + 1 if len(self.video_row) else 0
+
+
+def _model_key(model: Model):
+    def h(a):
+        return (hashlib.sha1(np.asarray(a).tobytes()).hexdigest()
+                if a is not None else None)
+
+    return (model.cfg, tuple(model.streams), model.freeze_embeddings,
+            h(model.pool_matrix), h(model.tef))
+
+
+def index_fingerprint(params, model: Model, dataset, num_videos: int) -> Dict:
+    """Provenance record stored inside every built index: a hash of the
+    model's semantic signature, of the parameter values and of the ordered
+    corpus video ids — the same record the JAX package writes for the same
+    config, weights and corpus."""
+    h = hashlib.sha1()
+    h.update(repr(_model_key(model)).encode())
+    hv = hashlib.sha1()
+    for vid in list(dataset.video_ids)[:num_videos]:
+        hv.update(str(vid).encode())
+        hv.update(b"\0")
+    return {
+        "model": h.hexdigest(),
+        "params": tree_fingerprint(params),
+        "num_videos": int(num_videos),
+        "videos": hv.hexdigest(),
+        "dataset": "charades" if hasattr(dataset, "windows") else "didemo",
+    }
+
+
+def validate_index(index: MomentIndex, params, model: Model, dataset):
+    """Raise when a (loaded) index does not match this process's
+    checkpoint, model or corpus; no-op for an index without fingerprint."""
+    fp = index.fingerprint
+    if fp is None:
+        return
+    want = index_fingerprint(params, model, dataset, fp.get("num_videos", 0))
+    checks = ["model", "params", "dataset"]
+    if "videos" in fp:
+        checks.append("videos")
+    for key in checks:
+        if fp.get(key) != want[key]:
+            what = {"params": "checkpoint",
+                    "videos": "corpus (video ids/order)"}.get(key, key)
+            raise ValueError(
+                f"moment index fingerprint mismatch on {key!r}: the index "
+                f"was built from a different {what} than this serving "
+                "process loaded (rebuild with `cli index` or pass the "
+                "matching --checkpoint-dir)")
+    n_vid = len(dataset.video_ids)
+    if fp.get("num_videos", 0) > n_vid:
+        raise ValueError(
+            f"moment index covers {fp['num_videos']} videos but the dataset "
+            f"has only {n_vid}: index/corpus mismatch")
+
+
+def _params_device(params) -> torch.device:
+    return params["embeddings"].device
+
+
+@torch.no_grad()
+def build_moment_index(
+    params, model: Model, dataset, batch_size: int = 128,
+    num_videos: int = 0, index_dtype: str = "float32",
+    with_fingerprint: bool = True,
+) -> MomentIndex:
+    """Embed the corpus (on the params' device) and finalize the index:
+    cosine rows L2-normalized (+1e-8), a bf16 index quantized BEFORE |m|^2
+    so the norm matches the stored rows, 1e30 on invalid rows."""
+    if index_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown index_dtype {index_dtype!r}")
+    if hasattr(dataset, "windows"):
+        raise NotImplementedError(
+            "Charades corpora are not yet ported to vfr_tpu_torch")
+    dev = _params_device(params)
+    V_all = dataset.rgb_feats.shape[0]
+    V = min(num_videos, V_all) if num_videos else V_all
+    P = dataset.num_proposals
+    blocks = []
+    for start in range(0, V, batch_size):
+        sl = slice(start, min(start + batch_size, V))
+        feats = {"rgb": torch.from_numpy(dataset.rgb_feats[sl]).to(dev)}
+        if "flow" in model.streams:
+            feats["flow"] = torch.from_numpy(dataset.flow_feats[sl]).to(dev)
+        m = embed_moments(params, model, feats)
+        blocks.append(torch.stack([m[s] for s in model.streams]))
+    all_m = torch.cat(blocks, dim=1)                         # [S, V, P, d]
+    S, _, _, d = all_m.shape
+    flat = all_m.reshape(S, V * P, d)
+    del all_m, blocks
+    if model.cfg.distance == "cosine":
+        flat = flat / (torch.linalg.norm(flat, dim=-1, keepdim=True) + 1e-8)
+    if index_dtype == "bfloat16":
+        flat = flat.to(torch.bfloat16).float()
+    m_sq = (flat * flat).sum(-1)
+    m = flat.to(torch.bfloat16) if index_dtype == "bfloat16" else flat
+    return MomentIndex(
+        m=m,
+        m_sq=m_sq,
+        video_row=np.repeat(np.arange(V, dtype=np.int32), P),
+        prop_idx=np.tile(np.arange(P, dtype=np.int32), V),
+        spans_sec=np.tile(np.asarray(dataset.span_seconds),
+                          (V, 1)).astype(np.float32),
+        weights=np.asarray(model.cfg.stream_weights, np.float32),
+        fingerprint=(index_fingerprint(params, model, dataset, V)
+                     if with_fingerprint else None),
+    )
+
+
+def save_index(index: MomentIndex, path: str) -> str:
+    """Persist the index as one .npz (the JAX package's format: a bf16 index
+    stored as its uint16 bit pattern with ``m_dtype="bfloat16"``); atomic;
+    returns the path written."""
+    m_dtype = "bfloat16" if index.m.dtype == torch.bfloat16 else "float32"
+    m_store = to_numpy(index.m if m_dtype == "bfloat16" else index.m.float())
+    extra = {}
+    if index.fingerprint is not None:
+        extra["fingerprint"] = np.asarray(json.dumps(index.fingerprint))
+    return atomic_savez(path, dict(
+        m=m_store,
+        m_dtype=np.asarray(m_dtype),
+        m_sq=to_numpy(index.m_sq.float()),
+        video_row=index.video_row,
+        prop_idx=index.prop_idx,
+        spans_sec=index.spans_sec,
+        weights=np.asarray(index.weights, np.float32),
+        **extra,
+    ))
+
+
+def load_index(path: str, device="cpu") -> MomentIndex:
+    """Inverse of ``save_index`` (bit-exact, incl. the bf16 pattern); the
+    embedding tensors go to ``device``."""
+    with np.load(path) as z:
+        if str(z["m_dtype"]) == "bfloat16":
+            m = torch.from_numpy(z["m"].view(np.int16)).view(torch.bfloat16)
+        else:
+            m = torch.from_numpy(np.asarray(z["m"], np.float32))
+        fingerprint = (json.loads(str(z["fingerprint"]))
+                       if "fingerprint" in z.files else None)
+        return MomentIndex(
+            m=m.to(device),
+            m_sq=torch.from_numpy(np.asarray(z["m_sq"], np.float32)).to(device),
+            video_row=z["video_row"],
+            prop_idx=z["prop_idx"],
+            spans_sec=z["spans_sec"],
+            weights=np.asarray(z["weights"], np.float32),
+            fingerprint=fingerprint,
+        )
+
+
+def _embed_query_streams(params, model: Model, tokens, lengths,
+                         rnn_kernel=None) -> torch.Tensor:
+    """[S, Q, d]; cosine mode normalizes (+1e-8) like the index rows."""
+    qs = embed_queries_multi(params, model, tokens, lengths, inference=True,
+                             rnn_kernel=rnn_kernel)
+    if model.cfg.distance == "cosine":
+        qs = qs / (torch.linalg.norm(qs, dim=-1, keepdim=True) + 1e-8)
+    return qs
+
+
+def _check_distance(model: Model):
+    if model.cfg.distance == "euclidean" and len(model.streams) > 1:
+        raise NotImplementedError(
+            "corpus retrieval with distance='euclidean' and multiple streams "
+            "is not rank-equivalent to the fused sqeuclidean scorer; use "
+            "sqeuclidean/cosine or a single stream")
+
+
+def fused_bin_size(num_rows: int, k: int) -> int:
+    """Bin size of the fused selection: 64, halved until >= 4k candidates
+    survive (tiny corpora would otherwise lose recall to coarse bins)."""
+    bin_size = 64
+    while bin_size > 1 and num_rows // bin_size < 4 * k:
+        bin_size //= 2
+    return bin_size
+
+
+def make_retriever(
+    model: Model,
+    index: MomentIndex,
+    k: int,
+    topk_method: str = "exact",
+    approx_recall: float = 0.95,
+    rnn_kernel: Optional[str] = None,
+):
+    """``(params, tokens [Q, T], lengths [Q]) -> (dists [Q, k], rows [Q, k])``.
+
+    ``topk_method="fused"`` runs the distance+selection kernel over the
+    per-stream index and an exact top-k over its candidates; otherwise the
+    one-GEMM score path of ``make_score_topk``."""
+    _check_distance(model)
+    if topk_method != "fused":
+        return make_score_topk(model, index, k, topk_method, approx_recall,
+                               rnn_kernel)
+    w = [float(x) for x in model.cfg.stream_weights]
+    bin_size = fused_bin_size(index.num_rows, k)
+
+    @torch.no_grad()
+    def retrieve(params, tokens, lengths):
+        qs = _embed_query_streams(params, model, tokens, lengths, rnn_kernel)
+        cand_d, cand_rows = distance_select(qs, index.m, index.m_sq, w,
+                                            bin_size=bin_size)
+        vals, pos = torch.topk(-cand_d, min(k, cand_d.shape[1]), dim=1)
+        return -vals, torch.gather(cand_rows, 1, pos)
+
+    return retrieve
+
+
+def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype):
+    """(m_cat [N, S*d] f32, msq_fused [N], in_dtype): the one-GEMM score
+    operands.  ``m_cat`` is rounded to the product dtype (bf16 for a bf16
+    index or bf16 compute) once and carried as f32 — exact, and the score
+    GEMM then gives f32 sums of the rounded products on every call."""
+    m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
+    in_dtype = (torch.bfloat16 if m_cat.dtype == torch.bfloat16
+                else compute_dtype)
+    m_cat = m_cat.to(in_dtype).float().contiguous()
+    return m_cat, msq_fused, in_dtype
+
+
+def _score_topk_with_operands(model: Model, index: MomentIndex, k: int,
+                              topk_method: str, approx_recall: float,
+                              rnn_kernel: Optional[str]):
+    """(fn(m_cat, msq_fused, params, toks, lens), m_cat, msq_fused)."""
+    _check_distance(model)
+    if topk_method == "fused":
+        raise ValueError(
+            "topk_method='fused' is not supported on the stream-retriever "
+            "path; use make_retriever (single-batch) or 'exact'/'approx'")
+    m_cat, msq_fused, in_dtype = prep_score_operands(index,
+                                                     model.compute_dtype)
+    weights = index.weights
+
+    @torch.no_grad()
+    def fn(m_cat, msq_fused, params, toks, lens):
+        qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
+        scores = fused_corpus_scores(qs, m_cat, msq_fused, weights,
+                                     in_dtype=in_dtype)
+        vals, rows = top_k_select(scores, k, topk_method, approx_recall)
+        return query_sq_const(qs, weights)[:, None] - vals, rows
+
+    return fn, m_cat, msq_fused
+
+
+def make_score_topk(model: Model, index: MomentIndex, k: int,
+                    topk_method: str = "exact", approx_recall: float = 0.95,
+                    rnn_kernel: Optional[str] = None):
+    """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
+    [Q, k], rows [Q, k])`` over operands prepared once."""
+    fn, m_cat, msq_fused = _score_topk_with_operands(
+        model, index, k, topk_method, approx_recall, rnn_kernel)
+
+    def score_topk(params, toks, lens):
+        return fn(m_cat, msq_fused, params, toks, lens)
+
+    return score_topk
+
+
+def make_stream_retriever(model: Model, index: MomentIndex, k: int,
+                          topk_method: str = "exact",
+                          approx_recall: float = 0.95,
+                          rnn_kernel: Optional[str] = None):
+    """Throughput serving: ``(params, tokens [M, Q, T], lengths [M, Q]) ->
+    (dists [M, Q, k], rows [M, Q, k])``, the M batches in a Python loop
+    over one set of operands prepared once (the JAX package scans them
+    inside one program)."""
+    score_topk = make_score_topk(model, index, k, topk_method,
+                                 approx_recall, rnn_kernel)
+
+    def retrieve_stream(params, tokens, lengths):
+        outs = [score_topk(params, tokens[b], lengths[b])
+                for b in range(tokens.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    return retrieve_stream
+
+
+def resolve_length_buckets(spec, max_query_len: int):
+    """Length-bucket spec -> sorted tuple terminated at ``max_query_len``:
+    None/"" -> None (off); "auto" -> multiples of 8 below max_query_len;
+    "8,16" or an int sequence -> as given.  Values >= max_query_len are
+    dropped, and max_query_len is always the last bucket."""
+    if spec in (None, "", False):
+        return None
+    if spec == "auto":
+        bs = list(range(8, max_query_len, 8))
+    elif isinstance(spec, str):
+        bs = [int(s) for s in spec.split(",") if s.strip()]
+    else:
+        bs = [int(b) for b in spec]
+    bs = sorted({b for b in bs if 0 < b < max_query_len})
+    bs.append(max_query_len)
+    return tuple(bs)
+
+
+def serve_queries(
+    params, model: Model, dataset, vocab, queries, k: int = 10,
+    mesh=None, batch_size: int = 128,
+    max_query_len: int = 24, num_videos: int = 0,
+    topk_method: str = "exact", approx_recall: float = 0.95,
+    index_dtype: str = "float32",
+    index: Optional[MomentIndex] = None,
+    coarse=None, coarse_dim: int = 0,
+    length_buckets=None,
+):
+    """Answer free-text queries against the moment index; returns a list of
+    ``{"query", "results": [{"video", "start", "end", "distance"}]}``.
+
+    ``index``: a prebuilt/loaded MomentIndex (validated against params,
+    model and corpus) skips PASS 1.  ``length_buckets`` (see
+    ``resolve_length_buckets``) groups queries by token length and runs
+    each group with the token axis sliced to its bucket; results are
+    identical to the unbucketed path (the sliced steps are frozen-carry
+    no-ops).  Batch tails are padded with token 0 and length 1."""
+    if mesh is not None or coarse is not None or coarse_dim > 0:
+        raise NotImplementedError(
+            "sharded and coarse serving are not yet ported to vfr_tpu_torch")
+    if len(queries) == 0:
+        return []
+    if index is None:
+        index = build_moment_index(params, model, dataset,
+                                   num_videos=num_videos,
+                                   index_dtype=index_dtype,
+                                   with_fingerprint=False)
+    else:
+        validate_index(index, params, model, dataset)
+    dev = _params_device(params)
+    video_ids = dataset.video_ids
+    k_eff = min(k, index.num_rows)
+    state = {}
+
+    def dispatch(toks_all, lens_all):
+        """[M, Q, T] blocks -> (d_all [M, Q, k'], rows_all [M, Q, k'])."""
+        toks = torch.from_numpy(toks_all).to(dev)
+        lens = torch.from_numpy(lens_all).to(dev)
+        if topk_method != "fused":
+            r = state.get("stream")
+            if r is None:
+                r = state["stream"] = make_stream_retriever(
+                    model, index, k_eff, topk_method=topk_method,
+                    approx_recall=approx_recall)
+            d, rows = r(params, toks, lens)
+            return d.cpu().numpy(), rows.cpu().numpy()
+        r = state.get("single")
+        if r is None:
+            r = state["single"] = make_retriever(
+                model, index, k_eff, topk_method=topk_method,
+                approx_recall=approx_recall)
+        outs = [r(params, toks[b], lens[b]) for b in range(toks.shape[0])]
+        return (np.stack([o[0].cpu().numpy() for o in outs]),
+                np.stack([o[1].cpu().numpy() for o in outs]))
+
+    Nq = len(queries)
+    enc_toks = np.zeros((Nq, max_query_len), np.int32)
+    enc_lens = np.ones((Nq,), np.int32)
+    for j, text in enumerate(queries):
+        enc_toks[j], enc_lens[j] = vocab.encode(tokenize(text), max_query_len)
+
+    buckets = resolve_length_buckets(length_buckets, max_query_len)
+    if buckets is None:
+        groups = [(max_query_len, list(range(Nq)))]
+    else:
+        groups = []
+        taken = np.zeros(Nq, bool)
+        for T_b in buckets:
+            idxs = [j for j in range(Nq)
+                    if not taken[j] and enc_lens[j] <= T_b]
+            taken[idxs] = True
+            groups.append((T_b, idxs))
+
+    qd = [None] * Nq
+    qr = [None] * Nq
+    for T_b, idxs in groups:
+        if not idxs:
+            continue
+        Mb = -(-len(idxs) // batch_size)
+        toks = np.zeros((Mb, batch_size, T_b), np.int32)
+        lens = np.ones((Mb, batch_size), np.int32)
+        for pos, j in enumerate(idxs):
+            b, i = divmod(pos, batch_size)
+            toks[b, i] = enc_toks[j, :T_b]
+            lens[b, i] = enc_lens[j]
+        d_all, rows_all = dispatch(toks, lens)
+        flat_d = d_all.reshape(-1, d_all.shape[-1])[: len(idxs)]
+        flat_r = rows_all.reshape(-1, rows_all.shape[-1])[: len(idxs)]
+        for pos, j in enumerate(idxs):
+            qd[j], qr[j] = flat_d[pos], flat_r[pos]
+
+    out = []
+    for j, text in enumerate(queries):
+        results = [
+            {
+                "video": video_ids[int(index.video_row[r])],
+                "start": float(index.spans_sec[r, 0]),
+                "end": float(index.spans_sec[r, 1]),
+                "distance": float(qd[j][jj]),
+            }
+            for jj, r in enumerate(qr[j])
+        ]
+        out.append({"query": text, "results": results})
+    return out

@@ -1,0 +1,130 @@
+"""Build the port's CUDA kernels from ``vfr_tpu_torch/csrc/*.cu`` and load
+them with ctypes.
+
+Each source compiles on first use into its own shared library with a plain
+C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+into ``vfr_tpu_torch/_build/`` (ignored by git).  The file name carries a
+hash of the source and the flags, so an edited source is rebuilt and never
+loaded stale.  Nothing is fetched: the sources in the package are all it
+builds from.  ``build_all`` starts one ``nvcc`` per source at once.
+
+``nvcc`` is found as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under
+``/usr/local/cuda``.  Without it the build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every entry point, by source name
+SIGNATURES = {
+    "lstm_recurrence": {
+        "vfr_lstm_layer": [_P] * 15 + [_I] * 6 + [_P],
+    },
+    "distance_select": {
+        "vfr_distance_select": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from vfr_tpu_torch/csrc at first use")
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        h = hashlib.sha1(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    """Popen of the nvcc that builds ``name`` (None when already built)."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, name + ".cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed building {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: List[str] = None) -> None:
+    """Compile every kernel source (one nvcc each, all started together)."""
+    names = list(SIGNATURES) if names is None else names
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            _finish(n, job)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(library_path(name))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
