@@ -17,7 +17,19 @@ Phases, one JSON line each:
               results against the same queries served through the
               kernels' plain versions.
   fused       `--topk-method fused` on the same index; recall@10 vs exact.
+  coarse      the coarse-to-fine prefilter (d_coarse 32) built on the same
+              index, save/load round trip, 1024 queries served with stage 1
+              blockmax (K4) and centroid at C=2048, blockmax held against
+              the same retriever with K4's plain version; recall@10 vs
+              exact.
   serving_10k last pool, bf16 compute, bf16 index, on a 2,000-video corpus.
+  coarse_2m   a 2.1M-row bf16 index (100,000 videos, S=2, d=128) drawn on
+              the card from a seeded normal, serving_10k weights: coarse
+              build seconds, ms per 256-query batch of the exact full scan
+              and of blockmax / centroid at C in {1024, 2048}.
+  gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
+              mean pool (K3a) and last pool (K3b), each held against the
+              kernels' plain versions.
 Every serving phase zeroes the kernels' launch counts just before it runs
 and fails unless each kernel of its path launched.  Then one
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
@@ -40,7 +52,9 @@ import numpy as np
 
 SEED = 0                 # weights, corpus and queries are made from it
 VIDEOS = 10_000          # flagship corpus: 210,000 index rows
-VIDEOS_10K = 2_000       # serving_10k corpus, cut to keep the run short
+VIDEOS_10K = 2_000       # serving_10k and gru corpora, cut to keep the run
+                         # short
+VIDEOS_2M = 100_000      # coarse_2m: 2.1M index rows
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "float32": 67e12}     # f32 outside the tensor cores
@@ -52,6 +66,12 @@ KERNEL_SOURCES = {
                 "vfr_tpu/ops/pallas/lstm_kernel.py:60"),
     "distance_select": ("vfr_tpu_torch/csrc/distance_select.cu",
                         "vfr_tpu/ops/pallas/select_kernel.py:41"),
+    "gru_pooled": ("vfr_tpu_torch/csrc/gru_recurrence.cu",
+                   "vfr_tpu/ops/pallas/gru_kernel.py:79"),
+    "gru_hs": ("vfr_tpu_torch/csrc/gru_recurrence.cu",
+               "vfr_tpu/ops/pallas/gru_kernel.py:62"),
+    "coarse_blockmax": ("vfr_tpu_torch/csrc/coarse_blockmax.cu",
+                        "vfr_tpu/ops/pallas/coarse_kernel.py:63"),
 }
 
 
@@ -102,15 +122,51 @@ def bound(bytes_moved: float, flops: float, dtype: str):
 
 # --------------------------------------------------------------- kernels
 
-def phase_lstm(results, seed: int):
+def _cudnn_rnn(cell: str, p, dtype, dev):
+    """torch.nn.LSTM / nn.GRU (cuDNN) holding the kernel's weights: the
+    library yardstick, never used by the port.  torch keeps the (i, f, g,
+    o) and (r, z, n) gate orders and b_hn inside r * (...), as the kernels
+    do; the LSTM's single bias goes to bias_ih."""
     import torch
 
-    from vfr_tpu_torch.ops.kernels.lstm_kernel import (
-        lstm_layer,
-        lstm_recurrence_plain,
-    )
-    from vfr_tpu_torch.ops.lstm import init_lstm_params
+    E, H = p["w_ih"].shape[0], p["w_hh"].shape[0]
+    mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
+        E, H, batch_first=True)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(p["w_ih"].float().T)
+        mod.weight_hh_l0.copy_(p["w_hh"].float().T)
+        if cell == "gru":
+            mod.bias_ih_l0.copy_(p["b_ih"])
+            mod.bias_hh_l0.copy_(p["b_hh"])
+        else:
+            mod.bias_ih_l0.copy_(p["b"])
+            mod.bias_hh_l0.zero_()
+    return mod.to(device=dev, dtype=dtype)
 
+
+def phase_rnn(results, seed: int, cell: str):
+    """K1 (cell="lstm") or K3 (cell="gru"), pooled and hs modes, against
+    the plain version with bf16 and f32 weights; cuDNN over a packed batch
+    of the same weights as the library time (fp16 operands, the 2-byte type
+    cuDNN's RNN takes, and f32)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    from vfr_tpu_torch.ops import lstm as rnn_ops
+
+    if cell == "gru":
+        from vfr_tpu_torch.ops.kernels.gru_kernel import (
+            gru_layer as layer,
+            gru_recurrence_plain as plain,
+        )
+        p_init, gates, bias_keys = rnn_ops.init_gru_params, 3, ("b_ih",
+                                                                "b_hh")
+    else:
+        from vfr_tpu_torch.ops.kernels.lstm_kernel import (
+            lstm_layer as layer,
+            lstm_recurrence_plain as plain,
+        )
+        p_init, gates, bias_keys = rnn_ops.init_lstm_params, 4, ("b",)
     B, T, E, H = 256, 24, 300, 1024
     rng = np.random.default_rng(seed)
     lengths_np = rng.integers(1, T + 1, size=B).astype(np.int32)
@@ -120,37 +176,56 @@ def phase_lstm(results, seed: int):
     x = torch.from_numpy(
         rng.standard_normal((B, T, E)).astype(np.float32) / np.sqrt(E)).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    p = init_lstm_params(torch.Generator().manual_seed(seed), E, H,
-                         device=dev)["layer0"]
-    w_ih = p["w_ih"].to(torch.bfloat16)
-    w_hh = p["w_hh"].to(torch.bfloat16)
-    b = p["b"]
+    p = p_init(torch.Generator().manual_seed(seed), E, H,
+               device=dev)["layer0"]
+    biases = tuple(p[key] for key in bias_keys)
+    args16 = (x, lengths, p["w_ih"].to(torch.bfloat16),
+              p["w_hh"].to(torch.bfloat16), *biases)
+    args32 = (x, lengths, p["w_ih"], p["w_hh"], *biases)
     live_steps = int(lengths_np.sum())
-    flops = 2.0 * live_steps * 4 * H * (E + H)
-    w_bytes = (E + H) * 4 * H * 2 + 4 * H * 4 + B * 4 + B * T * E * 4
+    flops = 2.0 * live_steps * gates * H * (E + H)
+    w_bytes = ((E + H) * gates * H * 2 + len(biases) * gates * H * 4 + B * 4
+               + B * T * E * 4)
+    lens_cpu = torch.as_tensor(lengths_np, dtype=torch.int64)
+    lib = {}
+    with torch.inference_mode():
+        for tag, dtype in (("", torch.float16), ("_f32", torch.float32)):
+            mod = _cudnn_rnn(cell, p, dtype, dev)
+            packed = pack_padded_sequence(x.to(dtype), lens_cpu,
+                                          batch_first=True,
+                                          enforce_sorted=False)
+            h_n = mod(packed)[1]
+            h_n = (h_n[0] if cell == "lstm" else h_n)[0].float()
+            lib[f"library{tag}_ms"] = cuda_ms(lambda: mod(packed))
+            lib[f"library{tag}_h_last"] = h_n
+            lib[f"library{tag}_cudnn"] = bool(
+                torch.backends.cudnn.is_acceptable(packed.data))
     for name, pool, out_bytes in (
-            ("lstm_pooled", "mean", 2 * B * H * 4),
-            ("lstm_hs", "none", B * H * 4 + B * T * H * 4)):
-        got = lstm_layer(x, lengths, w_ih, w_hh, b, pool=pool)
-        ref = lstm_recurrence_plain(x, lengths, w_ih, w_hh, b, pool=pool)
+            (f"{cell}_pooled", "mean", 2 * B * H * 4),
+            (f"{cell}_hs", "none", B * H * 4 + B * T * H * 4)):
+        got = layer(*args16, pool=pool)
+        ref = plain(*args16, pool=pool)
         torch.cuda.synchronize()
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        ms = cuda_ms(lambda: lstm_layer(x, lengths, w_ih, w_hh, b, pool=pool))
-        plain_ms = cuda_ms(lambda: lstm_recurrence_plain(
-            x, lengths, w_ih, w_hh, b, pool=pool))
+        ms = cuda_ms(lambda: layer(*args16, pool=pool))
+        plain_ms = cuda_ms(lambda: plain(*args16, pool=pool))
         # the f32-weight build of the same kernel (parity configurations)
-        got32 = lstm_layer(x, lengths, p["w_ih"], p["w_hh"], b, pool=pool,
-                           weights_dtype=torch.float32)
-        ref32 = lstm_recurrence_plain(x, lengths, p["w_ih"], p["w_hh"], b,
-                                      pool=pool, weights_dtype=torch.float32)
+        got32 = layer(*args32, pool=pool, weights_dtype=torch.float32)
+        ref32 = plain(*args32, pool=pool, weights_dtype=torch.float32)
         err32 = max(float((g - r).abs().max()) for g, r in zip(got32, ref32))
         bound_ms, bound_by = bound(w_bytes + out_bytes, flops, "bfloat16")
         rec = dict(name=name, shape=dict(B=B, T=T, E=E, H=H,
                                          weights="bfloat16"),
                    max_abs_err=err, max_abs_err_f32_weights=err32, tol=2e-3,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=None,
+                   bound_by=bound_by, library_ms=lib["library_ms"],
+                   library="cudnn fp16", library_f32_ms=lib["library_f32_ms"],
+                   library_is_cudnn=lib["library_cudnn"],
+                   library_h_last_max_abs_diff=float(
+                       (got[0] - lib["library_h_last"]).abs().max()),
+                   library_f32_h_last_max_abs_diff=float(
+                       (got[0] - lib["library_f32_h_last"]).abs().max()),
                    live_steps=live_steps)
         emit({"phase": f"kernel_{name}", **rec})
         require(finite, f"{name}: non-finite output")
@@ -158,6 +233,74 @@ def phase_lstm(results, seed: int):
                 f"{name}: max |diff| {err} (bf16 weights), {err32} (f32 "
                 "weights) > 2e-3")
         results[name] = rec
+
+
+def phase_coarse_kernel(results, seed: int):
+    """K4 at the coarse path's shapes: Q=256, d_c 32 and 64, 210,000 and
+    2,100,000 bf16 rows padded to the 16384-row alignment with msq = 1e30.
+    Relative diff is taken against max(|value|, 1): the rounding level is
+    set by msq ~ d_c, so values near 0 are held absolutely."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels.coarse_kernel import (
+        KERNEL_BLOCK_N,
+        coarse_blockmax,
+        coarse_blockmax_plain,
+    )
+
+    Q, B, top = 256, 128, 16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    recs = []
+    for N in (210_000, 2_100_000):
+        n_pad = (-N) % KERNEL_BLOCK_N
+        for d in (32, 64):
+            m = torch.randn(N + n_pad, d, generator=gen, device=dev).to(
+                torch.bfloat16)
+            m[N:] = 0
+            msq = (m.float() ** 2).sum(-1)
+            msq[N:] = 1e30
+            q = torch.randn(Q, d, generator=gen, device=dev)
+            got = coarse_blockmax(q, m, msq, B)
+            ref = coarse_blockmax_plain(q, m, msq, B)
+            torch.cuda.synchronize()
+            rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+            pv, pi = ref.topk(top + 1, dim=1)
+            ki = got.topk(top, dim=1).indices
+            same = (ki.sort(1).values == pi[:, :top].sort(1).values).all(1)
+            clear = (pv[:, top - 1] - pv[:, top]) > 1e-5 * pv[:, top - 1] \
+                .abs().clamp(min=1.0)
+            set_mism = int((~same & clear).sum())
+            ms = cuda_ms(lambda: coarse_blockmax(q, m, msq, B))
+            plain_ms = cuda_ms(lambda: coarse_blockmax_plain(q, m, msq, B),
+                               iters=5)
+            q_r, m_f, neg = q.to(torch.bfloat16).float(), m.float(), -msq
+            library_ms = cuda_ms(lambda: torch.addmm(
+                neg[None, :], q_r, m_f.T, alpha=2.0).view(Q, -1, B).amax(-1),
+                iters=5)
+            del q_r, m_f, neg
+            Np, G = m.shape[0], got.shape[1]
+            bound_ms, bound_by = bound(
+                Np * d * 2 + Np * 4 + Q * d * 4 + Q * G * 4,
+                2.0 * Q * Np * d, "bfloat16")
+            rec = dict(name="coarse_blockmax",
+                       shape=dict(Q=Q, N=N, Npad=Np, d_c=d, block_rows=B),
+                       max_abs_err=float((got - ref).abs().max()),
+                       max_rel_err=rel, tol=1e-5,
+                       top16_set_mismatches_outside_ties=set_mism, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library="addmm f32 + amax", bound_ms=bound_ms,
+                       bound_by=bound_by)
+            emit({"phase": "kernel_coarse_blockmax", **rec})
+            require(bool(torch.isfinite(got).all()),
+                    "coarse_blockmax: non-finite")
+            require(rel <= 1e-5, f"coarse_blockmax[N={N}, d={d}]: rel err "
+                    f"{rel}")
+            require(set_mism == 0, f"coarse_blockmax[N={N}, d={d}]: "
+                    f"{set_mism} top-{top} block sets differ")
+            recs.append(rec)
+            del m, msq, got, ref
+    results["coarse_blockmax"] = recs
 
 
 def _k2_library(q, m, m_sq, w, bin_size, block_n):
@@ -244,17 +387,51 @@ def phase_select(results, seed: int):
     results["distance_select"] = recs
 
 
-def phase_profile(seed: int):
-    """Device time by CUDA kernel name (torch.profiler) of one flagship
-    encode (K1a), one fused selection (K2) and the exact path's score GEMM
-    + top-10 at the main path's shapes — where a batch's time goes.  Not
-    part of the default run (``--phases profile``)."""
+def _device_profile(what: str, work, iters: int = 5):
+    """One JSON line: device time by CUDA kernel name (torch.profiler) of
+    ``work`` per iteration, their sum, the host wall time per iteration
+    and the device's busy share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    work()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            work()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0)
+        if dev_us:
+            rows.append({"name": ev.key[:80], "calls": ev.count // iters,
+                         "device_ms_per_iter": dev_us / iters / 1e3})
+    rows.sort(key=lambda r: -r["device_ms_per_iter"])
+    busy = sum(r["device_ms_per_iter"] for r in rows)
+    emit({"phase": "profile", "what": what, "wall_ms_per_iter": wall_ms,
+          "device_ms_per_iter": busy, "device_busy_share": busy / wall_ms,
+          "kernels": rows[:12]})
+
+
+def phase_profile(seed: int):
+    """Where a batch's time goes, by CUDA kernel name: one flagship encode
+    (K1a), one fused selection (K2) and the exact path's score GEMM +
+    top-10 at the main path's shapes; one GRU encode (K3a); and one
+    256-query batch at 2.1M rows through the exact full scan and the
+    coarse retriever (blockmax, centroid; C=2048).  Not part of the
+    default run (``--phases profile``)."""
+    import torch
+
+    from vfr_tpu_torch.eval.coarse import make_coarse_score_topk
+    from vfr_tpu_torch.eval.corpus import make_score_topk
+    from vfr_tpu_torch.ops.kernels.gru_kernel import gru_layer
     from vfr_tpu_torch.ops.kernels.lstm_kernel import lstm_layer
     from vfr_tpu_torch.ops.kernels.select_kernel import distance_select
-    from vfr_tpu_torch.ops.lstm import init_lstm_params
+    from vfr_tpu_torch.ops.lstm import init_gru_params, init_lstm_params
     from vfr_tpu_torch.ops.topk import top_k_select
     from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
 
@@ -268,6 +445,8 @@ def phase_profile(seed: int):
     p = init_lstm_params(torch.Generator().manual_seed(seed), E, H,
                          device=dev)["layer0"]
     w_ih, w_hh = p["w_ih"].to(torch.bfloat16), p["w_hh"].to(torch.bfloat16)
+    pg = init_gru_params(torch.Generator().manual_seed(seed), E, H,
+                         device=dev)["layer0"]
     q = torch.randn(2, 256, 128, device=dev)
     m = torch.randn(2, 210_000, 128, device=dev).to(torch.bfloat16)
     m_sq = (m.float() ** 2).sum(-1)
@@ -282,38 +461,48 @@ def phase_profile(seed: int):
                                      in_dtype=torch.float32)
         top_k_select(scores, 10)
 
-    work()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            work()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us:
-            rows.append({"name": ev.key[:80], "calls": ev.count // 5,
-                         "device_ms_per_iter": dev_us / 5 / 1e3})
-    rows.sort(key=lambda r: -r["device_ms_per_iter"])
-    emit({"phase": "profile", "kernels": rows[:12]})
+    _device_profile("flagship_stages", work)
+    del m, m_sq, m_cat, msq_fused
+    _device_profile("gru_pooled", lambda: gru_layer(
+        x, lengths, pg["w_ih"].to(torch.bfloat16),
+        pg["w_hh"].to(torch.bfloat16), pg["b_ih"], pg["b_hh"], pool="mean"))
+    w = _coarse_2m_setup(seed, VIDEOS_2M)
+    args = (w["params"], w["toks"], w["lens"])
+    full = make_score_topk(w["model"], w["index"], w["k"],
+                           w["cfg"].eval.topk_method)
+    _device_profile("2m_full_scan", lambda: full(*args))
+    del full
+    for mode in ("blockmax", "centroid"):
+        fn = make_coarse_score_topk(w["model"], w["coarse"], w["k"],
+                                    num_candidates=2048, mode=mode)
+        _device_profile(f"2m_coarse_{mode}_C2048", lambda: fn(*args))
 
 
 # --------------------------------------------------------------- serving
 
-def reset_counts():
-    from vfr_tpu_torch.ops.kernels import lstm_kernel, select_kernel
+def _count_dicts():
+    from vfr_tpu_torch.ops.kernels import (
+        coarse_kernel,
+        gru_kernel,
+        lstm_kernel,
+        select_kernel,
+    )
 
-    for counts in (lstm_kernel.LAUNCHES, select_kernel.LAUNCHES):
+    return (lstm_kernel.LAUNCHES, gru_kernel.LAUNCHES, select_kernel.LAUNCHES,
+            coarse_kernel.LAUNCHES)
+
+
+def reset_counts():
+    for counts in _count_dicts():
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
-    from vfr_tpu_torch.ops.kernels import lstm_kernel, select_kernel
-
-    return {**lstm_kernel.LAUNCHES, **select_kernel.LAUNCHES}
+    out = {}
+    for counts in _count_dicts():
+        out.update(counts)
+    return out
 
 
 def make_corpus(preset: str, num_videos: int, seed: int):
@@ -499,7 +688,261 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     emit(rec)
     require(recall >= 0.9, f"fused: recall@{k} vs exact {recall} < 0.9")
     results["fused"] = rec
-    del loaded
+    return dict(params=params, model=model, ds=ds, vocab=vocab,
+                index=loaded, queries=queries, toks=toks_d, lens=lens_d,
+                exact_rows=rows_k, k=k, batch=batch, T=T)
+
+
+def _served_ok(out, n, k, what):
+    first = out[0]["results"]
+    require(len(out) == n and len(first) == k
+            and all(np.isfinite(r["distance"]) for r in first)
+            and all(a["distance"] <= b["distance"]
+                    for a, b in zip(first, first[1:])),
+            f"{what}: malformed results")
+
+
+def _recall(rows, ref_rows):
+    rows = rows.reshape(-1, rows.shape[-1])
+    ref_rows = ref_rows.reshape(-1, ref_rows.shape[-1])
+    k = ref_rows.shape[1]
+    return float(np.mean([len(set(a[:k]) & set(b)) / k
+                          for a, b in zip(rows, ref_rows)]))
+
+
+def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
+                 C: int = 2048):
+    """The coarse prefilter on the flagship index: build, save/load, serve
+    with blockmax (K4) and centroid, blockmax against its plain stage 1."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch.eval import coarse as coarse_mod
+    from vfr_tpu_torch.eval.corpus import serve_queries
+    from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
+
+    params, model, index, k = (ctx["params"], ctx["model"], ctx["index"],
+                               ctx["k"])
+    toks, lens = ctx["toks"], ctx["lens"]
+    t0 = time.perf_counter()
+    coarse = coarse_mod.build_coarse_index(index, d_coarse=d_coarse)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    back = coarse_mod.load_coarse(coarse_mod.save_coarse(
+        coarse, os.path.join(workdir, "flagship.coarse.npz")), index)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    require(all(torch.equal(bits(getattr(back, f)), bits(getattr(coarse, f)))
+                for f in ("proj", "m_low", "msq_low", "m_blk", "msq_blk",
+                          "c_low", "csq", "perm")),
+            "coarse save/load round trip is not bit-exact")
+    kw = dict(k=k, batch_size=ctx["batch"], max_query_len=ctx["T"],
+              index=index, coarse=coarse, coarse_candidates=C)
+    rec = dict(phase="coarse", rows=index.num_rows, d_coarse=d_coarse,
+               candidates=C, blocks=coarse.num_blocks, build_s=build_s,
+               round_trip_bit_exact=True)
+    outs = {}
+    for mode in ("blockmax", "centroid"):
+        reset_counts()
+        out = serve_queries(params, model, ctx["ds"], ctx["vocab"],
+                            ctx["queries"], coarse_mode=mode, **kw)
+        counts = read_counts()
+        _served_ok(out, len(ctx["queries"]), k, f"coarse[{mode}]")
+        r = coarse_mod.make_coarse_stream_retriever(
+            model, coarse, k, num_candidates=C, mode=mode)
+        d_m, rows_m = (t.cpu().numpy() for t in r(params, toks, lens))
+        outs[mode] = (d_m, rows_m)
+        rec[mode] = dict(
+            launches=counts,
+            ms_per_batch=time_batches(lambda: r(params, toks, lens))
+            / len(toks),
+            recall_at_10_vs_exact=_recall(rows_m, ctx["exact_rows"]))
+    # the same retriever with K4's plain version as its stage 1
+    with mock.patch.object(coarse_mod, "coarse_blockmax",
+                           coarse_blockmax_plain):
+        r = coarse_mod.make_coarse_stream_retriever(
+            model, coarse, k, num_candidates=C, mode="blockmax")
+        d_p, rows_p = (t.cpu().numpy() for t in r(params, toks, lens))
+        rec["blockmax"]["plain_ms_per_batch"] = time_batches(
+            lambda: r(params, toks, lens)) / len(toks)
+    mism, ddiff = compare_to_plain(*outs["blockmax"], d_p, rows_p)
+    rec.update(rows_differing_from_plain=mism,
+               max_distance_diff_vs_plain=ddiff)
+    emit(rec)
+    require(rec["blockmax"]["launches"]["coarse_blockmax"] > 0,
+            "coarse: K4 (coarse_blockmax) never launched under blockmax")
+    require(rec["centroid"]["launches"]["coarse_blockmax"] == 0,
+            "coarse: K4 launched under centroid")
+    require(rec["blockmax"]["launches"]["lstm_pooled"] > 0,
+            "coarse: K1a never launched")
+    require(mism == 0 and ddiff <= 1e-3,
+            f"coarse: blockmax vs plain stage 1: {mism} rows differ, "
+            f"max |d diff| {ddiff}")
+    results["coarse"] = rec
+
+
+def _coarse_2m_setup(seed: int, num_videos: int, d_coarse: int = 32):
+    """Seeded serving_10k weights, a bf16 index of ``num_videos`` x 21 rows
+    (S=2, d=128) drawn on the card from a seeded normal (speed does not
+    depend on the data), its coarse prefilter, and one 256-query batch of
+    random tokens."""
+    import torch
+
+    from vfr_tpu_torch.config import get_preset
+    from vfr_tpu_torch.eval.coarse import build_coarse_index
+    from vfr_tpu_torch.eval.corpus import MomentIndex
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import init_model_params
+
+    dev = torch.device("cuda")
+    cfg = get_preset("serving_10k")
+    model = build_model(cfg)
+    rng = np.random.default_rng(seed)
+    vocab = 4096
+    glove = rng.standard_normal((vocab, cfg.data.glove_dim)).astype(
+        np.float32)
+    params = init_model_params(torch.Generator().manual_seed(seed), model,
+                               glove, cfg.data.feature_dim, device=dev)
+    P, S, d = 21, len(model.streams), cfg.model.joint_dim
+    N = num_videos * P
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.randn(S, N, d, generator=gen, device=dev).to(torch.bfloat16)
+    index = MomentIndex(
+        m=m, m_sq=(m.float() ** 2).sum(-1),
+        video_row=np.repeat(np.arange(num_videos, dtype=np.int32), P),
+        prop_idx=np.tile(np.arange(P, dtype=np.int32), num_videos),
+        spans_sec=np.tile(np.stack([np.arange(P), np.arange(P) + 1],
+                                   1).astype(np.float32), (num_videos, 1)),
+        weights=np.asarray(cfg.model.stream_weights, np.float32))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coarse = build_coarse_index(index, d_coarse=d_coarse)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    Q, T = cfg.eval.corpus_query_batch, cfg.data.max_query_len
+    toks = torch.from_numpy(rng.integers(1, vocab, size=(Q, T)).astype(
+        np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(4, T + 1, size=Q).astype(
+        np.int32)).to(dev)
+    return dict(cfg=cfg, model=model, params=params, index=index,
+                coarse=coarse, toks=toks, lens=lens, k=cfg.eval.corpus_topk,
+                setup_s=setup_s, build_s=build_s)
+
+
+def phase_coarse_2m(results, seed: int, num_videos: int):
+    """2.1M-row serving: exact full scan vs the coarse retriever."""
+    import torch
+
+    from vfr_tpu_torch.eval.coarse import make_coarse_score_topk
+    from vfr_tpu_torch.eval.corpus import make_score_topk
+
+    w = _coarse_2m_setup(seed, num_videos)
+    model, coarse, k = w["model"], w["coarse"], w["k"]
+    args = (w["params"], w["toks"], w["lens"])
+    Q, N = w["toks"].shape[0], w["index"].num_rows
+    full = make_score_topk(model, w["index"], k, w["cfg"].eval.topk_method)
+    _, rows_full = full(*args)
+    rec = dict(phase="coarse_2m", rows=N, videos=num_videos,
+               S=w["index"].m.shape[0], d=w["index"].m.shape[2],
+               queries_per_batch=Q, k=k, d_coarse=coarse.d_coarse,
+               blocks=coarse.num_blocks, setup_s=w["setup_s"],
+               coarse_build_s=w["build_s"],
+               full_scan_ms_per_batch=time_batches(lambda: full(*args)))
+    rows_full = rows_full.cpu().numpy()
+    del full
+    for mode in ("blockmax", "centroid"):
+        for C in (1024, 2048):
+            fn = make_coarse_score_topk(model, coarse, k, num_candidates=C,
+                                        mode=mode)
+            reset_counts()
+            d_c, rows_c = fn(*args)
+            counts = read_counts()
+            require(bool(torch.isfinite(d_c).all())
+                    and tuple(d_c.shape) == (Q, k)
+                    and int(rows_c.max()) < N,
+                    f"coarse_2m[{mode}, C={C}]: malformed results")
+            rec[f"{mode}_C{C}"] = dict(
+                launches=counts,
+                ms_per_batch=time_batches(lambda: fn(*args)),
+                recall_at_k_vs_full_scan=_recall(rows_c.cpu().numpy(),
+                                                 rows_full))
+            if mode == "blockmax":
+                require(counts["coarse_blockmax"] > 0,
+                        f"coarse_2m[C={C}]: K4 never launched")
+    emit(rec)
+    results["coarse_2m"] = rec
+
+
+def phase_gru(results, seed: int, num_videos: int):
+    """didemo_flagship with the GRU query cell: mean pool (K3a) and last
+    pool (K3b) served and held against the kernels' plain versions."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import (
+        build_moment_index,
+        make_stream_retriever,
+        serve_queries,
+    )
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import init_model_params
+
+    dev = torch.device("cuda")
+    cfg, ds, vocab, glove = make_corpus("didemo_flagship", num_videos,
+                                        seed + 5)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rnn_cell="gru"))
+    model = build_model(cfg)
+    params = init_model_params(torch.Generator().manual_seed(seed + 5),
+                               model, glove, cfg.data.feature_dim, device=dev)
+    require(params["lstm"]["layer0"]["w_hh"].shape[1]
+            == 3 * cfg.model.lstm_hidden, "gru: params are not a GRU's")
+    T = cfg.data.max_query_len
+    batch = cfg.eval.corpus_query_batch
+    k = 10
+    index = build_moment_index(params, model, ds,
+                               index_dtype=cfg.eval.index_dtype,
+                               with_fingerprint=False)
+    queries = make_queries(vocab, 1024, T, seed + 13)
+    toks, lens = encode(vocab, queries, batch, T)
+    toks_d = torch.from_numpy(toks).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    rec = dict(phase="gru", videos=num_videos, rows=index.num_rows,
+               queries=len(queries), k=k)
+    for pool, kname in (("mean", "gru_pooled"), ("last", "gru_hs")):
+        pool_model = build_model(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, query_pool=pool)))
+        reset_counts()
+        out = serve_queries(params, pool_model, ds, vocab, queries, k=k,
+                            batch_size=batch, max_query_len=T, index=index)
+        counts = read_counts()
+        _served_ok(out, len(queries), k, f"gru[{pool}]")
+        r_kernel = make_stream_retriever(pool_model, index, k, "exact")
+        r_plain = make_stream_retriever(pool_model, index, k, "exact",
+                                        rnn_kernel="plain")
+        d_k, rows_k = (t.cpu().numpy() for t in r_kernel(params, toks_d,
+                                                         lens_d))
+        d_p, rows_p = (t.cpu().numpy() for t in r_plain(params, toks_d,
+                                                        lens_d))
+        mism, ddiff = compare_to_plain(d_k, rows_k, d_p, rows_p)
+        rec[pool] = dict(
+            launches=counts,
+            ms_per_batch=time_batches(lambda: r_kernel(params, toks_d,
+                                                       lens_d)) / len(toks),
+            plain_ms_per_batch=time_batches(lambda: r_plain(
+                params, toks_d, lens_d)) / len(toks),
+            rows_differing_from_plain=mism, max_distance_diff_vs_plain=ddiff)
+        require(counts[kname] > 0, f"gru[{pool}]: {kname} never launched "
+                "on the serving path")
+        require(mism == 0 and ddiff <= 1e-3,
+                f"gru[{pool}]: kernel vs plain: {mism} rows differ, "
+                f"max |d diff| {ddiff}")
+    emit(rec)
+    results["gru"] = rec
 
 
 def phase_serving_10k(results, seed: int, num_videos: int):
@@ -558,23 +1001,30 @@ def phase_serving_10k(results, seed: int, num_videos: int):
 def kernels_line(results):
     """The {"kernels": [...]} summary: launches from the serving run of
     each kernel's path, times and errors from the kernel phase."""
+    def served(phase, *path):
+        r = results.get(phase, {})
+        for key in path:
+            r = r.get(key, {})
+        return r or 0
+
     launches = {
-        "lstm_pooled": results.get("flagship", {}).get("launches", {})
-        .get("lstm_pooled", 0),
-        "lstm_hs": results.get("serving_10k", {}).get("launches", {})
-        .get("lstm_hs", 0),
-        "distance_select": results.get("fused", {}).get("launches", {})
-        .get("distance_select", 0),
+        "lstm_pooled": served("flagship", "launches", "lstm_pooled"),
+        "lstm_hs": served("serving_10k", "launches", "lstm_hs"),
+        "distance_select": served("fused", "launches", "distance_select"),
+        "gru_pooled": served("gru", "mean", "launches", "gru_pooled"),
+        "gru_hs": served("gru", "last", "launches", "gru_hs"),
+        "coarse_blockmax": served("coarse", "blockmax", "launches",
+                                  "coarse_blockmax"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     out = []
-    for name in ("lstm_pooled", "lstm_hs"):
+    for name in ("lstm_pooled", "lstm_hs", "gru_pooled", "gru_hs"):
         r = results[name]
         src, rep = KERNEL_SOURCES[name]
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
                         launches=launches[name],
-                        max_abs_err=r["max_abs_err"], ms=r["ms"],
-                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"], library_ms=None))
+                        **{key: r[key] for key in keys}))
     # the fused cell's index is f32 (the flagship preset); the bf16-index
     # build of the same kernel is reported beside it
     src, rep = KERNEL_SOURCES["distance_select"]
@@ -582,21 +1032,31 @@ def kernels_line(results):
     f32, b16 = r["float32"], r["bfloat16"]
     out.append(dict(name="distance_select", route="cuda", source=src,
                     replaces=rep, launches=launches["distance_select"],
-                    max_abs_err=f32["max_abs_err"], ms=f32["ms"],
-                    plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-                    bound_by=f32["bound_by"], library_ms=f32["library_ms"],
-                    bf16_index=dict((k, b16[k]) for k in (
-                        "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms"))))
+                    **{key: f32[key] for key in keys},
+                    bf16_index={key: b16[key] for key in keys}))
+    # the coarse cell's shape (210,000 rows, d_c 32) first, the others beside
+    src, rep = KERNEL_SOURCES["coarse_blockmax"]
+    main_shape, *others = results["coarse_blockmax"]
+    out.append(dict(name="coarse_blockmax", route="cuda", source=src,
+                    replaces=rep, launches=launches["coarse_blockmax"],
+                    **{key: main_shape[key] for key in keys},
+                    other_shapes=[dict(shape=o["shape"],
+                                       **{key: o[key] for key in keys})
+                                  for o in others]))
     return {"kernels": out}
+
+
+ALL_PHASES = ("kernels", "flagship", "coarse", "serving_10k", "gru",
+              "coarse_2m")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,flagship,serving_10k",
-                    help="comma list of kernels, flagship, serving_10k and "
-                         "profile; the default runs all but profile and is "
-                         "the only one that ends with the ok line")
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma list of " + ", ".join(ALL_PHASES)
+                         + " and profile (coarse needs flagship); the "
+                           "default runs all but profile and is the only "
+                           "one that ends with the ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -615,22 +1075,42 @@ def main(argv=None) -> int:
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "seconds": time.perf_counter() - t_start})
+
+    def settle():
+        # each phase starts on an idle card with an empty allocator cache
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     results = {}
     if "profile" in phases:
         phase_profile(SEED)
+        settle()
     if "kernels" in phases:
-        phase_lstm(results, SEED)
+        phase_rnn(results, SEED, "lstm")
+        phase_rnn(results, SEED, "gru")
         phase_select(results, SEED)
+        phase_coarse_kernel(results, SEED)
+        settle()
     with tempfile.TemporaryDirectory() as workdir:
         if "flagship" in phases:
-            phase_serving(results, SEED, VIDEOS, workdir)
+            ctx = phase_serving(results, SEED, VIDEOS, workdir)
+            if "coarse" in phases:
+                phase_coarse(results, ctx, workdir)
+            del ctx
+            settle()
     if "serving_10k" in phases:
         phase_serving_10k(results, SEED, VIDEOS_10K)
-    if not {"kernels", "flagship", "serving_10k"} <= phases:
+        settle()
+    if "gru" in phases:
+        phase_gru(results, SEED, VIDEOS_10K)
+        settle()
+    if "coarse_2m" in phases:
+        phase_coarse_2m(results, SEED, VIDEOS_2M)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    if not set(ALL_PHASES) <= phases:
         emit({"partial": sorted(phases)})
         return 0
     emit(kernels_line(results))

@@ -167,7 +167,9 @@ def test_port_imports_nothing_of_jax():
         "import sys\n"
         "import vfr_tpu_torch, vfr_tpu_torch.cli, vfr_tpu_torch.bridge\n"
         "import vfr_tpu_torch.checkpoint, vfr_tpu_torch.eval.corpus\n"
-        "import vfr_tpu_torch.kernels.build\n"
+        "import vfr_tpu_torch.kernels.build, vfr_tpu_torch.eval.coarse\n"
+        "import vfr_tpu_torch.ops.kernels.gru_kernel\n"
+        "import vfr_tpu_torch.ops.kernels.coarse_kernel\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('cs', 'chip_smoke.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"

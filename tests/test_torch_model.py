@@ -134,10 +134,19 @@ def test_seeded_params_have_the_jax_tree_structure():
 
 
 def test_gru_not_ported():
-    _, tmodel, _ = _setup(rnn_cell="gru")
-    with pytest.raises(NotImplementedError):
-        init_model_params(torch.Generator(), tmodel,
-                          np.zeros((40, E), np.float32), F)
+    """rnn_cell="gru" seeds the JAX package's GRU tree: the same paths
+    (``lstm/layer{l}/{w_ih, w_hh, b_ih, b_hh}``) and shapes."""
+    _, tmodel, tree = _setup(rnn_cell="gru", lstm_layers=2)
+    params = init_model_params(torch.Generator().manual_seed(0), tmodel,
+                               np.zeros((40, E), np.float32), F)
+    flat_t = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: np.zeros(tuple(t.shape)), params))[0]
+    flat_j = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert [(p, a.shape) for p, a in flat_t] == \
+        [(p, a.shape) for p, a in flat_j]
+    assert params["lstm"]["layer1"]["w_hh"].shape == (H, 3 * H)
+    assert sorted(params["lstm"]["layer0"]) == ["b_hh", "b_ih", "w_hh",
+                                                "w_ih"]
 
 
 def test_fixture_and_dataset_byte_identical():

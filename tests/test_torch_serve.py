@@ -121,7 +121,7 @@ def test_unported_paths_raise(tmp_path):
                       mesh=object())
     q = tmp_path / "q.txt"
     q.write_text("w0001\n")
-    for extra in (["--follow"], ["--shards", "2"], ["--coarse-dim", "16"]):
+    for extra in (["--follow"], ["--shards", "2"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             cli_main(["serve", "--queries", str(q), "--device", "cpu",
                       *extra])

@@ -4,8 +4,9 @@ format.
 The JAX package's parameter tree, as nested numpy dicts (what its
 ``train.checkpoint.load_payload`` returns under ``params`` / ``ema``, or
 ``jax.device_get`` of ``init_model_params``), keeps its keys and layouts
-here: ``embeddings``; ``lstm/layer{l}/{w_ih [E, 4H], w_hh [H, 4H], b [4H]}``;
-``query_proj`` or ``query_proj_{s}`` / ``{w, b}``; ``moment_proj_{s}`` /
+here: ``embeddings``; ``lstm/layer{l}/{w_ih [E, 4H], w_hh [H, 4H], b [4H]}``,
+or for a GRU model (``rnn_cell="gru"``) ``lstm/layer{l}/{w_ih [E, 3H],
+w_hh [H, 3H], b_ih [3H], b_hh [3H]}``; ``query_proj`` or ``query_proj_{s}`` / ``{w, b}``; ``moment_proj_{s}`` /
 ``{w, b}``; ``query_attn``.
 
 A checkpoint of the port is one ``.npz``: ``params/<a>/<b>/...`` keys (the

@@ -4,11 +4,17 @@
     python -m vfr_tpu_torch.cli serve --preset didemo_flagship \
         --index-path idx.npz --queries queries.txt --topk 10
 
+``index --coarse-dim D`` also writes the coarse prefilter to
+``<out>.coarse.npz``; ``serve --index-path idx.npz --coarse-path
+idx.coarse.npz`` (or ``--coarse-dim D`` to build it in-process) serves
+through the two-stage retriever (``--coarse-mode``,
+``--coarse-candidates``).
+
 The flags are the JAX package's for these two subcommands, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
 CPU).  With no real data under --data-dir the synthetic fixture is used.
-``--follow``, the live index, ``--shards > 1`` and the coarse prefilter are
-not ported yet and raise.
+``--follow``, the live index and ``--shards > 1`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -133,9 +139,6 @@ def _not_ported(args):
         bad.append("--live-arena/--live-capacity-videos")
     if (getattr(args, "shards", None) or 1) > 1:
         bad.append("--shards > 1")
-    if getattr(args, "coarse_path", None) or (
-            getattr(args, "coarse_dim", None) or 0) > 0:
-        bad.append("--coarse-*")
     return bad
 
 
@@ -165,10 +168,30 @@ def main(argv=None) -> int:
         path = save_index(index, args.out)
         print(f"indexed {index.num_videos} videos ({index.num_rows} moments, "
               f"{index.m.dtype}) -> {path}")
+        if args.coarse_dim > 0:
+            from vfr_tpu_torch.eval.coarse import (
+                build_coarse_index,
+                save_coarse,
+            )
+
+            coarse = build_coarse_index(index, d_coarse=args.coarse_dim)
+            cpath = save_coarse(coarse,
+                                path[: -len(".npz")] + ".coarse.npz")
+            print(f"coarse prefilter rank {coarse.d_coarse} -> {cpath}")
         return 0
 
     index = (load_index(args.index_path, device=args.device)
              if args.index_path else None)
+    coarse = None
+    if args.coarse_path:
+        if index is None:
+            print("error: --coarse-path needs --index-path (the coarse "
+                  "file stores only the prefilter; stage-2 operands "
+                  "come from the moment index)", file=sys.stderr)
+            return 2
+        from vfr_tpu_torch.eval.coarse import load_coarse
+
+        coarse = load_coarse(args.coarse_path, index)
     if args.queries == "-":
         queries = [l.strip() for l in sys.stdin if l.strip()]
     else:
@@ -184,6 +207,10 @@ def main(argv=None) -> int:
         approx_recall=cfg.eval.approx_recall,
         index_dtype=cfg.eval.index_dtype,
         index=index,
+        coarse=coarse,
+        coarse_dim=args.coarse_dim or 0,
+        coarse_candidates=args.coarse_candidates,
+        coarse_mode=args.coarse_mode,
         length_buckets=args.length_buckets,
     ):
         print(json.dumps(rec))

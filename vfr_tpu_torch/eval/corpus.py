@@ -11,8 +11,10 @@ PASS 2 — retrieval: embed a query batch (GloVe -> LSTM kernel -> projection
 + ``torch.topk`` (``approx`` is exact in the port).  ``fused``: the CUDA
 distance+strided-bin kernel, then an exact top-k over its candidates.
 
-Not ported yet: the mesh (sharded) paths, coarse retrieval, the live index
-and ``serve_follow``, and the ``carrier_dtype="auto"`` policy (a TPU layout
+Coarse-to-fine retrieval (the two-stage prefilter for large corpora) lives
+in ``eval/coarse.py``; ``serve_queries`` routes to it when given a coarse
+index.  Not ported yet: the mesh (sharded) paths, the live index and
+``serve_follow``, and the ``carrier_dtype="auto"`` policy (a TPU layout
 choice; the port always carries the score operand as f32, see
 ``prep_score_operands``).
 """
@@ -364,21 +366,26 @@ def serve_queries(
     topk_method: str = "exact", approx_recall: float = 0.95,
     index_dtype: str = "float32",
     index: Optional[MomentIndex] = None,
-    coarse=None, coarse_dim: int = 0,
+    coarse=None, coarse_dim: int = 0, coarse_candidates: int = 2048,
+    coarse_mode: str = "blockmax",
     length_buckets=None,
 ):
     """Answer free-text queries against the moment index; returns a list of
     ``{"query", "results": [{"video", "start", "end", "distance"}]}``.
 
     ``index``: a prebuilt/loaded MomentIndex (validated against params,
-    model and corpus) skips PASS 1.  ``length_buckets`` (see
+    model and corpus) skips PASS 1.  ``coarse`` (a CoarseIndex of
+    ``eval/coarse.py``) or ``coarse_dim > 0`` (build that prefilter
+    in-process) routes retrieval through the two-stage coarse-to-fine path
+    with ``coarse_candidates`` rows per query and stage 1 ``coarse_mode``;
+    it takes precedence over ``topk_method``.  ``length_buckets`` (see
     ``resolve_length_buckets``) groups queries by token length and runs
     each group with the token axis sliced to its bucket; results are
     identical to the unbucketed path (the sliced steps are frozen-carry
     no-ops).  Batch tails are padded with token 0 and length 1."""
-    if mesh is not None or coarse is not None or coarse_dim > 0:
+    if mesh is not None:
         raise NotImplementedError(
-            "sharded and coarse serving are not yet ported to vfr_tpu_torch")
+            "sharded serving is not yet ported to vfr_tpu_torch")
     if len(queries) == 0:
         return []
     if index is None:
@@ -388,6 +395,10 @@ def serve_queries(
                                    with_fingerprint=False)
     else:
         validate_index(index, params, model, dataset)
+    if coarse is None and coarse_dim > 0:
+        from vfr_tpu_torch.eval.coarse import build_coarse_index
+
+        coarse = build_coarse_index(index, d_coarse=coarse_dim)
     dev = _params_device(params)
     video_ids = dataset.video_ids
     k_eff = min(k, index.num_rows)
@@ -397,6 +408,16 @@ def serve_queries(
         """[M, Q, T] blocks -> (d_all [M, Q, k'], rows_all [M, Q, k'])."""
         toks = torch.from_numpy(toks_all).to(dev)
         lens = torch.from_numpy(lens_all).to(dev)
+        if coarse is not None:
+            from vfr_tpu_torch.eval.coarse import make_coarse_stream_retriever
+
+            r = state.get("coarse_stream")
+            if r is None:
+                r = state["coarse_stream"] = make_coarse_stream_retriever(
+                    model, coarse, k_eff, num_candidates=coarse_candidates,
+                    mode=coarse_mode)
+            d, rows = r(params, toks, lens)
+            return d.cpu().numpy(), rows.cpu().numpy()
         if topk_method != "fused":
             r = state.get("stream")
             if r is None:

@@ -8,8 +8,8 @@ C interface:
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 into ``vfr_tpu_torch/_build/`` (ignored by git).  The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and never
-loaded stale.  Nothing is fetched: the sources in the package are all it
+hash of the source, of the shared headers (``csrc/*.cuh``) and of the
+flags, so an edited source or header is rebuilt and never loaded stale.  Nothing is fetched: the sources in the package are all it
 builds from.  ``build_all`` starts one ``nvcc`` per source at once.
 
 ``nvcc`` is found as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under
@@ -41,9 +41,15 @@ SIGNATURES = {
     "lstm_recurrence": {
         "vfr_lstm_layer": [_P] * 15 + [_I] * 6 + [_P],
     },
+    "gru_recurrence": {
+        "vfr_gru_layer": [_P] * 15 + [_I] * 6 + [_P],
+    },
     "distance_select": {
         "vfr_distance_select": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I,
                                 _I, _P, _P, _P],
+    },
+    "coarse_blockmax": {
+        "vfr_coarse_blockmax": [_P] * 4 + [_I] * 5 + [_P],
     },
 }
 
@@ -67,8 +73,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha1(f.read())
+    h = hashlib.sha1()
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for src in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 

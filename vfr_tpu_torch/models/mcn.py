@@ -1,6 +1,6 @@
 """Two-tower joint-embedding model (MCN lineage), inference towers.
 
-Query tower:  GloVe lookup -> LSTM -> Linear -> joint space R^d.
+Query tower:  GloVe lookup -> LSTM or GRU -> Linear -> joint space R^d.
 Moment tower: per stream (rgb / flow), the factored form: because segment
               pooling and the projection are both linear,
               ``concat(local, global, tef) @ W`` = ``poolmix(feats @
@@ -8,8 +8,7 @@ Moment tower: per stream (rgb / flow), the factored form: because segment
 
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts (``bridge.params_from_numpy`` converts its trees).  Not ported yet:
-the direct moment form, ``pooling="max"``, the GRU cell and training-time
-dropout.
+the direct moment form, ``pooling="max"`` and training-time dropout.
 """
 
 from __future__ import annotations
@@ -23,6 +22,8 @@ import torch
 from vfr_tpu_torch.config import ModelConfig
 from vfr_tpu_torch.device import mm_f32, torch_dtype
 from vfr_tpu_torch.ops.lstm import (
+    gru_forward,
+    init_gru_params,
     init_lstm_params,
     lstm_forward,
     masked_mean_pool,
@@ -71,21 +72,20 @@ def init_model_params(
     feature_dim: int,
     device="cpu",
 ) -> Dict:
-    """Seeded parameters (draw order: LSTM, query projection(s), moment
-    projections).  ``torch.Generator`` draws differ from ``jax.random``'s
-    at the same seed: the same seed gives different weights in the two
-    packages; carry weights across with ``bridge.params_from_numpy``."""
+    """Seeded parameters (draw order: recurrence, query projection(s),
+    moment projections).  The recurrence sits under "lstm" for both cells,
+    as in the JAX package.  ``torch.Generator`` draws differ from
+    ``jax.random``'s at the same seed: the same seed gives different
+    weights in the two packages; carry weights across with
+    ``bridge.params_from_numpy``."""
     cfg = model.cfg
-    if cfg.rnn_cell != "lstm":
-        raise NotImplementedError(
-            f"rnn_cell={cfg.rnn_cell!r} is not yet ported to vfr_tpu_torch")
     dtype = torch_dtype(cfg.param_dtype)
+    init_rnn = init_gru_params if cfg.rnn_cell == "gru" else init_lstm_params
     params: Dict = {
         "embeddings": torch.as_tensor(
             np.asarray(glove_table, np.float32)).to(dtype).to(device),
-        "lstm": init_lstm_params(generator, glove_table.shape[1],
-                                 cfg.lstm_hidden, cfg.lstm_layers,
-                                 dtype=dtype, device=device),
+        "lstm": init_rnn(generator, glove_table.shape[1], cfg.lstm_hidden,
+                         cfg.lstm_layers, dtype=dtype, device=device),
     }
     if cfg.per_stream_query_proj:
         for s in model.streams:
@@ -119,23 +119,25 @@ def _query_hidden(
     params: Dict, model: Model, tokens: torch.Tensor, lengths: torch.Tensor,
     inference: bool, rnn_kernel: Optional[str] = None,
 ) -> torch.Tensor:
-    """GloVe -> LSTM trunk; the pooled query representation [B, H]
-    (cfg.query_pool: last, mean or attn).
+    """GloVe -> LSTM or GRU trunk (cfg.rnn_cell); the pooled query
+    representation [B, H] (cfg.query_pool: last, mean or attn).
 
     ``rnn_kernel``: None = the ``use_pallas`` policy on inference paths;
-    "scan" = the f32 step twin (``ops.lstm.lstm_forward``); "pallas" = the
-    CUDA kernel (its plain version for CPU tensors); "plain" = the
-    kernel's plain version on any device, for holding the kernel against
-    it on the card."""
-    from vfr_tpu_torch.ops.kernels.lstm_kernel import (
-        cuda_lstm,
-        lstm_recurrence_plain,
-    )
+    "scan" = the f32 step twin (``ops.lstm.lstm_forward`` /
+    ``gru_forward``); "pallas" = the CUDA kernel (its plain version for CPU
+    tensors); "plain" = the kernel's plain version on any device, for
+    holding the kernel against it on the card."""
+    from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel
 
     cfg = model.cfg
-    if cfg.rnn_cell != "lstm":
-        raise NotImplementedError(
-            f"rnn_cell={cfg.rnn_cell!r} is not yet ported to vfr_tpu_torch")
+    if cfg.rnn_cell == "gru":
+        kernel_fn, plain_fn, scan_fn = (gru_kernel.cuda_gru,
+                                        gru_kernel.gru_recurrence_plain,
+                                        gru_forward)
+    else:
+        kernel_fn, plain_fn, scan_fn = (lstm_kernel.cuda_lstm,
+                                        lstm_kernel.lstm_recurrence_plain,
+                                        lstm_forward)
     x = params["embeddings"][tokens.long()]                  # [B, T, E]
     if rnn_kernel is None:
         want_kernel = inference and use_pallas(cfg, x.device)
@@ -150,12 +152,11 @@ def _query_hidden(
     if want_kernel:
         layer_fn = {}
         if rnn_kernel == "plain":
-            layer_fn["layer_fn"] = lstm_recurrence_plain
-        h_last, hs = cuda_lstm(params["lstm"], x, lengths, pool=kernel_pool,
+            layer_fn["layer_fn"] = plain_fn
+        h_last, hs = kernel_fn(params["lstm"], x, lengths, pool=kernel_pool,
                                **layer_fn)
     else:
-        h_last, hs = lstm_forward(params["lstm"], x, lengths,
-                                  model.compute_dtype)
+        h_last, hs = scan_fn(params["lstm"], x, lengths, model.compute_dtype)
     if cfg.query_pool == "mean":
         return hs if want_kernel else masked_mean_pool(hs, lengths)
     if cfg.query_pool == "attn":

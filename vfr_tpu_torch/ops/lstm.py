@@ -1,10 +1,12 @@
-"""LSTM over token embeddings: the plain step-by-step twin of the JAX
-package's ``ops/lstm.py::lstm_forward`` (f32 training precision by default).
+"""LSTM and GRU over token embeddings: the plain step-by-step twins of the
+JAX package's ``ops/lstm.py::lstm_forward`` / ``gru_forward`` (f32 training
+precision by default).
 
-Gate layout follows torch's (i, f, g, o) chunk order; padded steps
-(t >= length) freeze the carry, so ``h_last`` is the state after each
-sequence's last real token.  The serving kernel lives in
-``ops/kernels/lstm_kernel.py``.
+Gate layouts follow torch's chunk orders, (i, f, g, o) for the LSTM and
+(r, z, n) for the GRU; padded steps (t >= length) freeze the carry, so
+``h_last`` is the state after each sequence's last real token.  The
+serving kernels live in ``ops/kernels/lstm_kernel.py`` and
+``ops/kernels/gru_kernel.py``.
 """
 
 from __future__ import annotations
@@ -55,6 +57,71 @@ def cell_update(gates: torch.Tensor, c: torch.Tensor
     o = torch.sigmoid(gates[:, 3 * H : 4 * H])
     c_new = f * c + i * g
     return o * torch.tanh(c_new), c_new
+
+
+def init_gru_params(
+    generator: torch.Generator, input_dim: int, hidden: int,
+    num_layers: int = 1, dtype: torch.dtype = torch.float32, device="cpu",
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """GRU params in torch layout: gates (r, z, n), ``w_ih [E, 3H]``,
+    ``w_hh [H, 3H]`` and separate ``b_ih``, ``b_hh [3H]`` (the n gate needs
+    r * (h W_hn + b_hn), so the two biases do not merge).  Uniform(-k, k),
+    k = 1/sqrt(hidden); draws come from ``generator`` (CPU)."""
+    k = 1.0 / math.sqrt(hidden)
+
+    def uniform(*shape):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return (u * (2 * k) - k).to(dtype).to(device)
+
+    params = {}
+    for layer in range(num_layers):
+        in_dim = input_dim if layer == 0 else hidden
+        params[f"layer{layer}"] = {
+            "w_ih": uniform(in_dim, 3 * hidden),
+            "w_hh": uniform(hidden, 3 * hidden),
+            "b_ih": uniform(3 * hidden),
+            "b_hh": uniform(3 * hidden),
+        }
+    return params
+
+
+def gru_cell_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor
+                    ) -> torch.Tensor:
+    """(r, z, n) pre-activations gi = x W_ih + b_ih and gh = h W_hh + b_hh
+    [B, 3H] + h -> h'.  b_hn stays inside r * (...)."""
+    H = h.shape[-1]
+    r = torch.sigmoid(gi[:, 0 * H : 1 * H] + gh[:, 0 * H : 1 * H])
+    z = torch.sigmoid(gi[:, 1 * H : 2 * H] + gh[:, 1 * H : 2 * H])
+    n = torch.tanh(gi[:, 2 * H : 3 * H] + r * gh[:, 2 * H : 3 * H])
+    return (1.0 - z) * n + z * h
+
+
+def gru_forward(
+    params: Dict[str, Dict[str, torch.Tensor]],
+    x: torch.Tensor,                 # [B, T, E]
+    lengths: torch.Tensor,           # [B] int
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GRU twin of ``lstm_forward``: (h_last [B, H], hs [B, T, H]), x, h and
+    the weights rounded to ``compute_dtype`` before each product, f32 sums,
+    frozen carry on padded steps."""
+    B, T, _ = x.shape
+    hs = x
+    h_last = None
+    for layer in range(len(params)):
+        p = params[f"layer{layer}"]
+        H = p["w_hh"].shape[0]
+        h = torch.zeros(B, H, dtype=torch.float32, device=x.device)
+        seq = []
+        for t in range(T):
+            gi = mm_f32(hs[:, t], p["w_ih"], compute_dtype) + p["b_ih"]
+            gh = mm_f32(h, p["w_hh"], compute_dtype) + p["b_hh"]
+            h = torch.where((t < lengths)[:, None],
+                            gru_cell_update(gi, gh, h), h)
+            seq.append(h)
+        hs = torch.stack(seq, dim=1)
+        h_last = h
+    return h_last, hs
 
 
 def lstm_forward(
