@@ -8,7 +8,8 @@ Phases, one JSON line each:
   build       nvcc of every kernel source (one process each, in parallel).
   kernel_*    each CUDA kernel against its plain PyTorch version on the
               card at the main path's shapes (max |diff|, kernel / plain /
-              library ms by CUDA events).
+              library ms by CUDA events); the LSTM and GRU recurrences in
+              both variants (persistent, stepwise), timed in turns.
   flagship    didemo_flagship at full width (E=300, H=1024, F=2048, joint
               128, two streams, cosine, mean pool), seeded weights, a
               synthetic 10,000-video corpus (210,000 index rows): build,
@@ -35,6 +36,11 @@ and fails unless each kernel of its path launched.  Then one
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no ok line.
 Without a CUDA device it exits 2 and prints no result.
+
+Not in the default run (``--phases``): ``rnn`` (the K1 / K3 checks alone),
+``profile`` (device time by kernel name), ``steps`` (the persistent
+kernels' per-step time split), ``wgmma_rate`` (the tensor cores' own time
+for a step's products).
 """
 
 from __future__ import annotations
@@ -144,13 +150,10 @@ def _cudnn_rnn(cell: str, p, dtype, dev):
     return mod.to(device=dev, dtype=dtype)
 
 
-def phase_rnn(results, seed: int, cell: str):
-    """K1 (cell="lstm") or K3 (cell="gru"), pooled and hs modes, against
-    the plain version with bf16 and f32 weights; cuDNN over a packed batch
-    of the same weights as the library time (fp16 operands, the 2-byte type
-    cuDNN's RNN takes, and f32)."""
+def _rnn_case(cell: str, seed: int, B: int, T: int, E: int, H: int):
+    """Seeded inputs of one K1 / K3 layer call: (layer, plain, p, args16,
+    args32, lengths_np)."""
     import torch
-    from torch.nn.utils.rnn import pack_padded_sequence
 
     from vfr_tpu_torch.ops import lstm as rnn_ops
 
@@ -159,22 +162,20 @@ def phase_rnn(results, seed: int, cell: str):
             gru_layer as layer,
             gru_recurrence_plain as plain,
         )
-        p_init, gates, bias_keys = rnn_ops.init_gru_params, 3, ("b_ih",
-                                                                "b_hh")
+        p_init, bias_keys = rnn_ops.init_gru_params, ("b_ih", "b_hh")
     else:
         from vfr_tpu_torch.ops.kernels.lstm_kernel import (
             lstm_layer as layer,
             lstm_recurrence_plain as plain,
         )
-        p_init, gates, bias_keys = rnn_ops.init_lstm_params, 4, ("b",)
-    B, T, E, H = 256, 24, 300, 1024
+        p_init, bias_keys = rnn_ops.init_lstm_params, ("b",)
     rng = np.random.default_rng(seed)
     lengths_np = rng.integers(1, T + 1, size=B).astype(np.int32)
     lengths_np[:8] = 1
     lengths_np[8:16] = T
     dev = torch.device("cuda")
-    x = torch.from_numpy(
-        rng.standard_normal((B, T, E)).astype(np.float32) / np.sqrt(E)).to(dev)
+    x = torch.from_numpy((rng.standard_normal((B, T, E))
+                          / np.sqrt(E)).astype(np.float32)).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
     p = p_init(torch.Generator().manual_seed(seed), E, H,
                device=dev)["layer0"]
@@ -182,11 +183,44 @@ def phase_rnn(results, seed: int, cell: str):
     args16 = (x, lengths, p["w_ih"].to(torch.bfloat16),
               p["w_hh"].to(torch.bfloat16), *biases)
     args32 = (x, lengths, p["w_ih"], p["w_hh"], *biases)
+    return layer, plain, p, args16, args32, lengths_np
+
+
+def _max_diff(got, ref) -> float:
+    return max(float((g - r).abs().max()) for g, r in zip(got, ref))
+
+
+def phase_rnn(results, seed: int, cell: str):
+    """K1 (cell="lstm") or K3 (cell="gru"), pooled and hs modes: both
+    kernel variants (persistent, stepwise) against the plain version with
+    bf16 weights, the f32-weight build (stepwise), a ragged shape with
+    zero-length rows, and the times taken in turns (stepwise, persistent,
+    persistent, stepwise) beside cuDNN over a packed batch of the same
+    weights (fp16 operands, the 2-byte type cuDNN's RNN takes, and f32).
+    The persistent variant is also timed with its input product unfused
+    and on the same batch sorted by length (whole 64-row tiles then go
+    dead early and skip their products)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel
+
+    mod_k = gru_kernel if cell == "gru" else lstm_kernel
+    gates = 3 if cell == "gru" else 4
+    B, T, E, H = 256, 24, 300, 1024
+    layer, plain, p, args16, args32, lengths_np = _rnn_case(
+        cell, seed, B, T, E, H)
+    x = args16[0]
+    dev = x.device
+    n_bias = len(args16) - 4
     live_steps = int(lengths_np.sum())
     flops = 2.0 * live_steps * gates * H * (E + H)
-    w_bytes = ((E + H) * gates * H * 2 + len(biases) * gates * H * 4 + B * 4
+    w_bytes = ((E + H) * gates * H * 2 + n_bias * gates * H * 4 + B * 4
                + B * T * E * 4)
     lens_cpu = torch.as_tensor(lengths_np, dtype=torch.int64)
+    order = torch.argsort(args16[1], descending=True, stable=True)
+    sorted16 = (x[order].contiguous(), args16[1][order].contiguous(),
+                *args16[2:])
     lib = {}
     with torch.inference_mode():
         for tag, dtype in (("", torch.float16), ("_f32", torch.float32)):
@@ -200,39 +234,154 @@ def phase_rnn(results, seed: int, cell: str):
             lib[f"library{tag}_h_last"] = h_n
             lib[f"library{tag}_cudnn"] = bool(
                 torch.backends.cudnn.is_acceptable(packed.data))
+    # a ragged shape: B, H off the tile sizes, rows of length 0, T = 7;
+    # then T = 1
+    ragged = {}
+    for rb, rt, re_, rh in ((200, 7, 52, 1000), (70, 1, 300, 1024)):
+        r_layer, r_plain, _, r16, _, _ = _rnn_case(cell, seed + 2, rb, rt,
+                                                   re_, rh)
+        r_len = r16[1].clone()
+        r_len[3:40:5] = 0
+        r16 = (r16[0], r_len, *r16[2:])
+        for pool in ("mean", "none"):
+            ref = r_plain(*r16, pool=pool)
+            for variant in ("persistent", "stepwise"):
+                got = r_layer(*r16, pool=pool, variant=variant)
+                torch.cuda.synchronize()
+                ragged[f"B{rb}_T{rt}_E{re_}_H{rh}_{pool}_{variant}"] = \
+                    _max_diff(got, ref)
+    ragged_err = max(ragged.values())
     for name, pool, out_bytes in (
             (f"{cell}_pooled", "mean", 2 * B * H * 4),
             (f"{cell}_hs", "none", B * H * 4 + B * T * H * 4)):
-        got = layer(*args16, pool=pool)
         ref = plain(*args16, pool=pool)
+        errs, plans = {}, {}
+        for variant in ("persistent", "stepwise"):
+            got = layer(*args16, pool=pool, variant=variant)
+            torch.cuda.synchronize()
+            errs[variant] = _max_diff(got, ref)
+            plans[variant] = mod_k.LAST_PLAN
+            require(plans[variant].variant == variant,
+                    f"{name}: asked for {variant}, ran "
+                    f"{plans[variant].variant}")
+            require(all(bool(torch.isfinite(g).all()) for g in got),
+                    f"{name}[{variant}]: non-finite output")
+        # the persistent variant's other forms
+        got = layer(*args16, pool=pool, variant="persistent",
+                    fuse_input=False)
         torch.cuda.synchronize()
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
-        ms = cuda_ms(lambda: layer(*args16, pool=pool))
+        errs["persistent_unfused"] = _max_diff(got, ref)
+        got = layer(*sorted16, pool=pool, variant="persistent")
+        torch.cuda.synchronize()
+        errs["persistent_sorted_rows"] = _max_diff(
+            got, tuple(r[order] for r in ref))
+        got = layer(*args16, pool=pool)
+        torch.cuda.synchronize()
+        auto_plan = mod_k.LAST_PLAN
+        lib_diff = {tag: float((got[0] - lib[f"library{tag}_h_last"])
+                               .abs().max()) for tag in ("", "_f32")}
+        turns = []
+        for variant in ("stepwise", "persistent", "persistent", "stepwise"):
+            turns.append(cuda_ms(lambda: layer(*args16, pool=pool,
+                                               variant=variant)))
+        stepwise_ms = (turns[0] + turns[3]) / 2
+        ms = (turns[1] + turns[2]) / 2
+        unfused_ms = cuda_ms(lambda: layer(*args16, pool=pool,
+                                           variant="persistent",
+                                           fuse_input=False))
+        sorted_ms = cuda_ms(lambda: layer(*sorted16, pool=pool,
+                                          variant="persistent"))
         plain_ms = cuda_ms(lambda: plain(*args16, pool=pool))
         # the f32-weight build of the same kernel (parity configurations)
         got32 = layer(*args32, pool=pool, weights_dtype=torch.float32)
+        plan32 = mod_k.LAST_PLAN
         ref32 = plain(*args32, pool=pool, weights_dtype=torch.float32)
-        err32 = max(float((g - r).abs().max()) for g, r in zip(got32, ref32))
+        err32 = _max_diff(got32, ref32)
         bound_ms, bound_by = bound(w_bytes + out_bytes, flops, "bfloat16")
+        pp = plans["persistent"]
         rec = dict(name=name, shape=dict(B=B, T=T, E=E, H=H,
                                          weights="bfloat16"),
-                   max_abs_err=err, max_abs_err_f32_weights=err32, tol=2e-3,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   variant=auto_plan.variant,
+                   plan=dict(u=pp.u, batch_group=pp.batch_group,
+                             grid=list(pp.grid), smem_bytes=pp.smem_bytes,
+                             fuse_input=pp.fuse_input),
+                   f32_weights_variant=plan32.variant,
+                   max_abs_err=errs["persistent"],
+                   max_abs_err_stepwise=errs["stepwise"],
+                   max_abs_err_unfused=errs["persistent_unfused"],
+                   max_abs_err_sorted_rows=errs["persistent_sorted_rows"],
+                   max_abs_err_f32_weights=err32,
+                   max_abs_err_ragged=ragged_err, ragged=ragged, tol=2e-3,
+                   ms=ms, stepwise_ms=stepwise_ms, turns_ms=turns,
+                   persistent_unfused_ms=unfused_ms,
+                   persistent_sorted_rows_ms=sorted_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=lib["library_ms"],
                    library="cudnn fp16", library_f32_ms=lib["library_f32_ms"],
                    library_is_cudnn=lib["library_cudnn"],
-                   library_h_last_max_abs_diff=float(
-                       (got[0] - lib["library_h_last"]).abs().max()),
-                   library_f32_h_last_max_abs_diff=float(
-                       (got[0] - lib["library_f32_h_last"]).abs().max()),
+                   library_h_last_max_abs_diff=lib_diff[""],
+                   library_f32_h_last_max_abs_diff=lib_diff["_f32"],
                    live_steps=live_steps)
         emit({"phase": f"kernel_{name}", **rec})
-        require(finite, f"{name}: non-finite output")
-        require(max(err, err32) <= 2e-3,
-                f"{name}: max |diff| {err} (bf16 weights), {err32} (f32 "
-                "weights) > 2e-3")
+        require(auto_plan.variant == "persistent",
+                f"{name}: the plan chose {auto_plan.variant} at the "
+                f"flagship shape ({auto_plan.reason})")
+        worst = max(*errs.values(), err32, ragged_err)
+        require(worst <= 2e-3,
+                f"{name}: max |diff| vs plain {errs}, f32 weights {err32}, "
+                f"ragged {ragged} > 2e-3")
         results[name] = rec
+
+
+def phase_steps(seed: int):
+    """Where a persistent step's time goes (``--phases steps``; not part of
+    the default run): the kernel's own nanosecond stamps from one thread of
+    block (0, 0), K1a and K3a at the flagship shape with the input product
+    fused and unfused.  Medians over steps 1..T-2, in microseconds."""
+    import torch
+
+    B, T, E, H = 256, 24, 300, 1024
+    names = ("recurrent_product", "cell_update", "store_and_arrive",
+             "next_input_part", "barrier_wait")
+    for cell in ("lstm", "gru"):
+        layer, _, _, args16, _, _ = _rnn_case(cell, seed, B, T, E, H)
+        for fuse in (True, False):
+            kw = dict(pool="mean", variant="persistent", fuse_input=fuse)
+            for _ in range(3):
+                layer(*args16, **kw)
+            tl = torch.zeros(T, 5, dtype=torch.int64, device="cuda")
+            layer(*args16, timeline=tl, **kw)
+            torch.cuda.synchronize()
+            st = tl.cpu().numpy().astype(np.float64) / 1e3
+            mid = slice(1, T - 1)
+            spans = [st[mid, i + 1] - st[mid, i] for i in range(4)]
+            spans.append(st[2:T, 0] - st[1:T - 1, 4])
+            emit({"phase": "steps", "kernel": f"{cell}_pooled",
+                  "fuse_input": fuse,
+                  "median_us": {n: float(np.median(s))
+                                for n, s in zip(names, spans)},
+                  "step_us": float(np.median(st[2:T, 0] - st[1:T - 1, 0])),
+                  "steps_total_ms": float(st[T - 1, 2] - st[0, 0]) / 1e3,
+                  "kernel_ms": cuda_ms(lambda: layer(*args16, **kw))})
+
+
+def phase_wgmma_rate():
+    """The tensor cores' own time for one persistent step's products
+    (``--phases wgmma_rate``; not part of the default run): builds the
+    stand-alone ``csrc/tools/wgmma_rate.cu`` and prints its lines."""
+    from vfr_tpu_torch.kernels import build
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    exe = os.path.join(build.BUILD_DIR, "wgmma_rate")
+    src = os.path.join(build.CSRC, "tools", "wgmma_rate.cu")
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([build.nvcc_path(), *flags, "-o", exe, src], check=True,
+                   capture_output=True, text=True, timeout=600)
+    out = subprocess.run([exe], check=True, capture_output=True, text=True,
+                         timeout=120)
+    for line in out.stdout.splitlines():
+        emit({"phase": "wgmma_rate", **json.loads(line)})
 
 
 def phase_coarse_kernel(results, seed: int):
@@ -438,8 +587,8 @@ def phase_profile(seed: int):
     B, T, E, H = 256, 24, 300, 1024
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((B, T, E)).astype(
-        np.float32) / np.sqrt(E)).to(dev)
+    x = torch.from_numpy((rng.standard_normal((B, T, E)) / np.sqrt(E)).astype(
+        np.float32)).to(dev)
     lengths = torch.from_numpy(
         rng.integers(1, T + 1, size=B).astype(np.int32)).to(dev)
     p = init_lstm_params(torch.Generator().manual_seed(seed), E, H,
@@ -463,9 +612,13 @@ def phase_profile(seed: int):
 
     _device_profile("flagship_stages", work)
     del m, m_sq, m_cat, msq_fused
+    gw_ih, gw_hh = (pg["w_ih"].to(torch.bfloat16),
+                    pg["w_hh"].to(torch.bfloat16))
     _device_profile("gru_pooled", lambda: gru_layer(
-        x, lengths, pg["w_ih"].to(torch.bfloat16),
-        pg["w_hh"].to(torch.bfloat16), pg["b_ih"], pg["b_hh"], pool="mean"))
+        x, lengths, gw_ih, gw_hh, pg["b_ih"], pg["b_hh"], pool="mean"))
+    for variant in ("stepwise", "persistent"):
+        _device_profile(f"lstm_pooled_{variant}", lambda: lstm_layer(
+            x, lengths, w_ih, w_hh, p["b"], pool="mean", variant=variant))
     w = _coarse_2m_setup(seed, VIDEOS_2M)
     args = (w["params"], w["toks"], w["lens"])
     full = make_score_topk(w["model"], w["index"], w["k"],
@@ -492,17 +645,34 @@ def _count_dicts():
             coarse_kernel.LAUNCHES)
 
 
+def _variant_dicts():
+    from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel
+
+    return {"lstm": lstm_kernel.VARIANT_LAUNCHES,
+            "gru": gru_kernel.VARIANT_LAUNCHES}
+
+
 def reset_counts():
-    for counts in _count_dicts():
+    for counts in (*_count_dicts(), *_variant_dicts().values()):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
+    """Launches by kernel since ``reset_counts``, and under "variants" the
+    K1 / K3 launches by kernel variant."""
     out = {}
     for counts in _count_dicts():
         out.update(counts)
+    out["variants"] = {cell: dict(v) for cell, v in _variant_dicts().items()}
     return out
+
+
+def require_persistent(counts, cell: str, what: str) -> None:
+    v = counts["variants"][cell]
+    require(v["persistent"] > 0 and v["stepwise"] == 0,
+            f"{what}: the {cell} recurrence ran {v}, expected the "
+            "persistent variant only")
 
 
 def make_corpus(preset: str, num_videos: int, seed: int):
@@ -551,7 +721,10 @@ def encode(vocab, queries, batch: int, max_len: int):
 
 
 def compare_to_plain(d_k, r_k, d_p, r_p, tol=1e-3):
-    """(#rows differing outside near-ties, max |distance diff|)."""
+    """(#rows differing outside near-ties, max |distance diff|).  A near-tie
+    is a position whose plain distance lies within 2*tol of a neighbour's;
+    at the last position the tie partner is the first row left out, so
+    another row there at the plain distance (within tol) is one too."""
     diff = float(np.abs(d_k - d_p).max())
     mism = 0
     for dk, rk, dp, rp in zip(d_k.reshape(-1, d_k.shape[-1]),
@@ -561,6 +734,8 @@ def compare_to_plain(d_k, r_k, d_p, r_p, tol=1e-3):
         for j in np.nonzero(rk != rp)[0]:
             near = [abs(dp[j] - dp[jj]) for jj in (j - 1, j + 1)
                     if 0 <= jj < len(dp)]
+            if j == len(dp) - 1:
+                near.append(2 * abs(dk[j] - dp[j]))
             if not near or min(near) > 2 * tol:
                 mism += 1
     return mism, diff
@@ -593,7 +768,10 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
         serve_queries,
     )
     from vfr_tpu_torch.models.build import build_model
-    from vfr_tpu_torch.models.mcn import init_model_params
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -628,6 +806,7 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     counts = read_counts()
     require(counts["lstm_pooled"] > 0, "flagship: K1a (lstm_pooled) never "
             "launched on the serving path")
+    require_persistent(counts, "lstm", "flagship")
     bucketed = serve_queries(params, model, ds, vocab, queries,
                              length_buckets="auto", **kw)
     require(bucketed == exact, "flagship: bucketed results differ from "
@@ -636,15 +815,19 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     toks, lens = encode(vocab, queries, batch, T)
     toks_d = torch.from_numpy(toks).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
+    q_params = prepare_query_params(params, model)  # as serve_queries does
     r_kernel = make_stream_retriever(model, loaded, k, "exact")
     r_plain = make_stream_retriever(model, loaded, k, "exact",
                                     rnn_kernel="plain")
-    d_k, rows_k = (t.cpu().numpy() for t in r_kernel(params, toks_d, lens_d))
-    d_p, rows_p = (t.cpu().numpy() for t in r_plain(params, toks_d, lens_d))
+    d_k, rows_k = (t.cpu().numpy()
+                   for t in r_kernel(q_params, toks_d, lens_d))
+    d_p, rows_p = (t.cpu().numpy()
+                   for t in r_plain(q_params, toks_d, lens_d))
     mism, ddiff = compare_to_plain(d_k, rows_k, d_p, rows_p)
-    ms_batch = time_batches(lambda: r_kernel(params, toks_d, lens_d)) / len(toks)
+    ms_batch = time_batches(
+        lambda: r_kernel(q_params, toks_d, lens_d)) / len(toks)
     plain_ms_batch = time_batches(
-        lambda: r_plain(params, toks_d, lens_d)) / len(toks)
+        lambda: r_plain(q_params, toks_d, lens_d)) / len(toks)
     first = exact[0]["results"]
     rec = dict(phase="flagship", videos=num_videos, rows=loaded.num_rows,
                queries=n_queries, batch=batch, k=k, launches=counts,
@@ -681,15 +864,15 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     recall = hit / (k * len(exact))
     r_fused = make_retriever(model, loaded, k, "fused")
     fused_ms = time_batches(
-        lambda: [r_fused(params, toks_d[b], lens_d[b])
+        lambda: [r_fused(q_params, toks_d[b], lens_d[b])
                  for b in range(len(toks))]) / len(toks)
     rec = dict(phase="fused", launches=counts, recall_at_10_vs_exact=recall,
                ms_per_batch=fused_ms)
     emit(rec)
     require(recall >= 0.9, f"fused: recall@{k} vs exact {recall} < 0.9")
     results["fused"] = rec
-    return dict(params=params, model=model, ds=ds, vocab=vocab,
-                index=loaded, queries=queries, toks=toks_d, lens=lens_d,
+    return dict(params=params, q_params=q_params, model=model, ds=ds,
+                vocab=vocab, index=loaded, queries=queries, toks=toks_d, lens=lens_d,
                 exact_rows=rows_k, k=k, batch=batch, T=T)
 
 
@@ -724,7 +907,7 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
 
     params, model, index, k = (ctx["params"], ctx["model"], ctx["index"],
                                ctx["k"])
-    toks, lens = ctx["toks"], ctx["lens"]
+    toks, lens, q_params = ctx["toks"], ctx["lens"], ctx["q_params"]
     t0 = time.perf_counter()
     coarse = coarse_mod.build_coarse_index(index, d_coarse=d_coarse)
     torch.cuda.synchronize()
@@ -753,11 +936,11 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
         _served_ok(out, len(ctx["queries"]), k, f"coarse[{mode}]")
         r = coarse_mod.make_coarse_stream_retriever(
             model, coarse, k, num_candidates=C, mode=mode)
-        d_m, rows_m = (t.cpu().numpy() for t in r(params, toks, lens))
+        d_m, rows_m = (t.cpu().numpy() for t in r(q_params, toks, lens))
         outs[mode] = (d_m, rows_m)
         rec[mode] = dict(
             launches=counts,
-            ms_per_batch=time_batches(lambda: r(params, toks, lens))
+            ms_per_batch=time_batches(lambda: r(q_params, toks, lens))
             / len(toks),
             recall_at_10_vs_exact=_recall(rows_m, ctx["exact_rows"]))
     # the same retriever with K4's plain version as its stage 1
@@ -765,9 +948,9 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
                            coarse_blockmax_plain):
         r = coarse_mod.make_coarse_stream_retriever(
             model, coarse, k, num_candidates=C, mode="blockmax")
-        d_p, rows_p = (t.cpu().numpy() for t in r(params, toks, lens))
+        d_p, rows_p = (t.cpu().numpy() for t in r(q_params, toks, lens))
         rec["blockmax"]["plain_ms_per_batch"] = time_batches(
-            lambda: r(params, toks, lens)) / len(toks)
+            lambda: r(q_params, toks, lens)) / len(toks)
     mism, ddiff = compare_to_plain(*outs["blockmax"], d_p, rows_p)
     rec.update(rows_differing_from_plain=mism,
                max_distance_diff_vs_plain=ddiff)
@@ -795,7 +978,10 @@ def _coarse_2m_setup(seed: int, num_videos: int, d_coarse: int = 32):
     from vfr_tpu_torch.eval.coarse import build_coarse_index
     from vfr_tpu_torch.eval.corpus import MomentIndex
     from vfr_tpu_torch.models.build import build_model
-    from vfr_tpu_torch.models.mcn import init_model_params
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
 
     dev = torch.device("cuda")
     cfg = get_preset("serving_10k")
@@ -804,8 +990,9 @@ def _coarse_2m_setup(seed: int, num_videos: int, d_coarse: int = 32):
     vocab = 4096
     glove = rng.standard_normal((vocab, cfg.data.glove_dim)).astype(
         np.float32)
-    params = init_model_params(torch.Generator().manual_seed(seed), model,
-                               glove, cfg.data.feature_dim, device=dev)
+    params = prepare_query_params(
+        init_model_params(torch.Generator().manual_seed(seed), model, glove,
+                          cfg.data.feature_dim, device=dev), model)
     P, S, d = 21, len(model.streams), cfg.model.joint_dim
     N = num_videos * P
     t0 = time.perf_counter()
@@ -889,7 +1076,10 @@ def phase_gru(results, seed: int, num_videos: int):
         serve_queries,
     )
     from vfr_tpu_torch.models.build import build_model
-    from vfr_tpu_torch.models.mcn import init_model_params
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
 
     dev = torch.device("cuda")
     cfg, ds, vocab, glove = make_corpus("didemo_flagship", num_videos,
@@ -901,6 +1091,7 @@ def phase_gru(results, seed: int, num_videos: int):
                                model, glove, cfg.data.feature_dim, device=dev)
     require(params["lstm"]["layer0"]["w_hh"].shape[1]
             == 3 * cfg.model.lstm_hidden, "gru: params are not a GRU's")
+    q_params = prepare_query_params(params, model)
     T = cfg.data.max_query_len
     batch = cfg.eval.corpus_query_batch
     k = 10
@@ -924,20 +1115,21 @@ def phase_gru(results, seed: int, num_videos: int):
         r_kernel = make_stream_retriever(pool_model, index, k, "exact")
         r_plain = make_stream_retriever(pool_model, index, k, "exact",
                                         rnn_kernel="plain")
-        d_k, rows_k = (t.cpu().numpy() for t in r_kernel(params, toks_d,
+        d_k, rows_k = (t.cpu().numpy() for t in r_kernel(q_params, toks_d,
                                                          lens_d))
-        d_p, rows_p = (t.cpu().numpy() for t in r_plain(params, toks_d,
+        d_p, rows_p = (t.cpu().numpy() for t in r_plain(q_params, toks_d,
                                                         lens_d))
         mism, ddiff = compare_to_plain(d_k, rows_k, d_p, rows_p)
         rec[pool] = dict(
             launches=counts,
-            ms_per_batch=time_batches(lambda: r_kernel(params, toks_d,
+            ms_per_batch=time_batches(lambda: r_kernel(q_params, toks_d,
                                                        lens_d)) / len(toks),
             plain_ms_per_batch=time_batches(lambda: r_plain(
-                params, toks_d, lens_d)) / len(toks),
+                q_params, toks_d, lens_d)) / len(toks),
             rows_differing_from_plain=mism, max_distance_diff_vs_plain=ddiff)
         require(counts[kname] > 0, f"gru[{pool}]: {kname} never launched "
                 "on the serving path")
+        require_persistent(counts, "gru", f"gru[{pool}]")
         require(mism == 0 and ddiff <= 1e-3,
                 f"gru[{pool}]: kernel vs plain: {mism} rows differ, "
                 f"max |d diff| {ddiff}")
@@ -954,7 +1146,10 @@ def phase_serving_10k(results, seed: int, num_videos: int):
         serve_queries,
     )
     from vfr_tpu_torch.models.build import build_model
-    from vfr_tpu_torch.models.mcn import init_model_params
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
 
     dev = torch.device("cuda")
     cfg, ds, vocab, glove = make_corpus("serving_10k", num_videos, seed + 3)
@@ -967,6 +1162,7 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     index = build_moment_index(params, model, ds,
                                index_dtype=cfg.eval.index_dtype)
     require(index.m.dtype == torch.bfloat16, "serving_10k: index not bf16")
+    q_params = prepare_query_params(params, model)
     queries = make_queries(vocab, 1024, T, seed + 11)
     reset_counts()
     out = serve_queries(params, model, ds, vocab, queries, k=k,
@@ -975,16 +1171,20 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     counts = read_counts()
     require(counts["lstm_hs"] > 0, "serving_10k: K1b (lstm_hs) never "
             "launched on the serving path")
+    require_persistent(counts, "lstm", "serving_10k")
     toks, lens = encode(vocab, queries, batch, T)
     toks_d = torch.from_numpy(toks).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
     r_kernel = make_stream_retriever(model, index, k, cfg.eval.topk_method)
     r_plain = make_stream_retriever(model, index, k, cfg.eval.topk_method,
                                     rnn_kernel="plain")
-    d_k, rows_k = (t.cpu().numpy() for t in r_kernel(params, toks_d, lens_d))
-    d_p, rows_p = (t.cpu().numpy() for t in r_plain(params, toks_d, lens_d))
+    d_k, rows_k = (t.cpu().numpy()
+                   for t in r_kernel(q_params, toks_d, lens_d))
+    d_p, rows_p = (t.cpu().numpy()
+                   for t in r_plain(q_params, toks_d, lens_d))
     mism, ddiff = compare_to_plain(d_k, rows_k, d_p, rows_p)
-    ms_batch = time_batches(lambda: r_kernel(params, toks_d, lens_d)) / len(toks)
+    ms_batch = time_batches(
+        lambda: r_kernel(q_params, toks_d, lens_d)) / len(toks)
     rec = dict(phase="serving_10k", videos=num_videos, rows=index.num_rows,
                queries=len(queries), k=k, launches=counts,
                ms_per_batch=ms_batch, rows_differing_from_plain=mism,
@@ -1024,7 +1224,8 @@ def kernels_line(results):
         src, rep = KERNEL_SOURCES[name]
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
                         launches=launches[name],
-                        **{key: r[key] for key in keys}))
+                        **{key: r[key] for key in keys},
+                        variant=r["variant"], stepwise_ms=r["stepwise_ms"]))
     # the fused cell's index is f32 (the flagship preset); the bf16-index
     # build of the same kernel is reported beside it
     src, rep = KERNEL_SOURCES["distance_select"]
@@ -1056,7 +1257,13 @@ def main(argv=None) -> int:
                     help="comma list of " + ", ".join(ALL_PHASES)
                          + " and profile (coarse needs flagship); the "
                            "default runs all but profile and is the only "
-                           "one that ends with the ok line")
+                           "one that ends with the ok line; rnn runs the "
+                           "K1 / K3 kernel checks alone, steps prints the "
+                           "persistent kernels' per-step time split, "
+                           "wgmma_rate the tensor cores' own time for it")
+    ap.add_argument("--resource-usage", action="store_true",
+                    help="print ptxas's registers, shared memory and spills "
+                         "of every kernel after the build")
     args = ap.parse_args(argv)
 
     import torch
@@ -1076,8 +1283,11 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     t_start = time.perf_counter()
-    build_all()
+    logs = build_all(resource_usage=args.resource_usage)
     emit({"phase": "build", "seconds": time.perf_counter() - t_start})
+    if args.resource_usage:
+        for name, log in logs.items():
+            print(f"--- {name}\n{log}", flush=True)
 
     def settle():
         # each phase starts on an idle card with an empty allocator cache
@@ -1088,9 +1298,15 @@ def main(argv=None) -> int:
     if "profile" in phases:
         phase_profile(SEED)
         settle()
-    if "kernels" in phases:
+    if "steps" in phases:
+        phase_steps(SEED)
+        settle()
+    if "wgmma_rate" in phases:
+        phase_wgmma_rate()
+    if phases & {"kernels", "rnn"}:
         phase_rnn(results, SEED, "lstm")
         phase_rnn(results, SEED, "gru")
+    if "kernels" in phases:
         phase_select(results, SEED)
         phase_coarse_kernel(results, SEED)
         settle()

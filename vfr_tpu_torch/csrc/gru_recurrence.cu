@@ -13,23 +13,29 @@
 // sum_{t<len} h_t / max(len, 1); hs mode writes h_t for every t (the
 // frozen carry on padded steps) and h_last.
 //
-// What bounds it on this card: the gate products, 2*live_steps*3H*(E+H)
-// flops (at B=256, T=24, E=300, H=1024 at most 50 GFLOP), against ~16 MB
-// of weights and activations, so operations at the bf16 tensor-core rate.
+// What bounds it on this card: by the roofline the gate products,
+// 2*live_steps*3H*(E+H) flops against ~16 MB of weights and activations,
+// so operations at the bf16 tensor-core rate; in practice what a step
+// fetches again and how often the grid is launched or synchronised.
 //
-// Design: K1's (lstm_recurrence.cu) with three gates.  The input product
-// gx = round(x) @ W_ih + b_ih runs once for all T (rnn_common.cuh).  Then
-// one launch per step: each block owns 32 hidden units j and 32 batch rows
-// and computes the three gate columns j, H+j, 2H+j of round(h_{t-1}) @
-// W_hh, so the gate math, b_hh and the frozen-carry select stay in the
-// thread that owns (b, j).  h ping-pongs between two buffers (other blocks
-// still read h_{t-1}); the pooled sum is owned by one thread per element,
-// so no atomics.  With bf16 weights the step product runs on the tensor
-// cores (WMMA 16x16x16 bf16 -> f32; three warps, warp g owns gate g) fed
-// by a 3-stage cp.async pipeline, and each step also writes h_t in bf16
-// for the next step's product.  With f32 weights (parity checks) it runs
-// as tiled f32 FMAs.  Kernels launch on the caller's stream, allocate
-// nothing, and the host entry point returns the first CUDA error.
+// Design: K1's (lstm_recurrence.cu) with three gates, in the same two
+// variants chosen by the caller's plan (ops/kernels/rnn_plan.py):
+//   persistent  (bf16 weights; rnn_common.cuh::rnn_persistent with the
+//      GruCell below) the block's [H x 48] slice of W_hh (and of W_ih, when
+//      it fits) resident in shared memory, h and the pooled sum in
+//      registers, one cooperative launch per layer with one grid barrier
+//      per step, wgmma m64n48k16 with r, z, n of a cell in one thread's
+//      accumulator registers.  The input part and the recurrent part keep
+//      separate accumulators (b_ih starts the one, b_hh the other), so
+//      b_hn stays inside r * (...).
+//   stepwise  (f32 weights, or shapes the resident design does not take)
+//      the hoisted input product (rnn_common.cuh), then one launch per
+//      step: each block owns 32 hidden units and 32 batch rows and the
+//      three gate columns of round(h_{t-1}) @ W_hh (WMMA bf16 -> f32, three
+//      warps, warp g owns gate g, 3-stage cp.async ring; or f32 FMAs); h
+//      ping-pongs between two buffers.
+// Kernels launch on the caller's stream, allocate nothing, and the host
+// entry points return the first CUDA error.
 
 #include "rnn_common.cuh"
 
@@ -304,9 +310,52 @@ int run_layer_bf16(const float* x, const Bf16* w_ih, const Bf16* w_hh,
   return 0;
 }
 
+// Gate math of the persistent variant: a = x W_ih + b_ih, g = h W_hh +
+// b_hh; b_hn stays inside r * (...).
+struct GruCell {
+  static constexpr int G = 3;
+  static __device__ __forceinline__ float update(const float (&a)[3],
+                                                 const float (&g)[3],
+                                                 float h_old, float&) {
+    const float r = fast_sigmoid(a[0] + g[0]);
+    const float z = fast_sigmoid(a[1] + g[1]);
+    const float n = fast_tanh(a[2] + r * g[2]);
+    return (1.0f - z) * n + z * h_old;
+  }
+};
+
 }  // namespace
 
-// One GRU layer.  x [B, T, E] f32; w_ih [E, 3H], w_hh [H, 3H] in bf16
+// One GRU layer, persistent variant (bf16 weights, H % 8 == 0).  Arguments
+// as vfr_lstm_layer_persistent (lstm_recurrence.cu) with three gates and
+// the two biases b_ih, b_hh [3H].
+extern "C" int vfr_gru_layer_persistent(
+    const float* x, const void* w_ih, const void* w_hh, const float* b_ih,
+    const float* b_hh, const int* lengths, void* xb, float* gx, void* hb,
+    unsigned* counter, float* hs, float* h_last, float* pooled, int B, int T,
+    int E, int H, int pool, int nwg, int fuse,
+    int grid_x, int grid_y, int smem, void* stream, long long* timeline) {
+  PersistentArgs a{};
+  a.w_ih = static_cast<const Bf16*>(w_ih);
+  a.w_hh = static_cast<const Bf16*>(w_hh);
+  a.b_ih = b_ih;
+  a.b_hh = b_hh;
+  a.lengths = lengths;
+  a.hb = static_cast<Bf16*>(hb);
+  a.hs = hs;
+  a.h_last = h_last;
+  a.pooled = pooled;
+  a.counter = counter;
+  a.B = B; a.T = T; a.E = E; a.Ep = (E + PKC - 1) / PKC * PKC; a.H = H;
+  a.pool = pool;
+  a.timeline = timeline;
+  return launch_persistent<GruCell>(x, a, static_cast<Bf16*>(xb), gx, nwg,
+                                    fuse, grid_x, grid_y, smem,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// One GRU layer, stepwise variant.  x [B, T, E] f32; w_ih [E, 3H], w_hh
+// [H, 3H] in bf16
 // (weights_bf16 = 1, needs H % 8 == 0) or f32; b_ih, b_hh [3H] f32;
 // lengths [B] int32.  Scratch from the caller: gx [B, T, 3H] f32; h_a, h_b
 // [B, H] f32 with h_a zeroed; for bf16 weights also xb [B*T, round8(E)]

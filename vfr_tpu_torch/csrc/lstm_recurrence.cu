@@ -8,32 +8,32 @@
 // Pooled mode returns h_last and sum_{t<len} h_t / max(len, 1); hs mode
 // writes h_t for every t (the frozen carry on padded steps) and h_last.
 //
-// What bounds it on this card: the gate products, 2*B*T*4H*(E+H) flops
-// (66.6 GFLOP at B=256, T=24, E=300, H=1024), against ~20 MB of bytes, so
-// operations at the bf16 tensor-core rate.
+// What bounds it on this card: by the roofline the gate products,
+// 2*live_steps*4H*(E+H) flops against ~20 MB of bytes, so operations at the
+// bf16 tensor-core rate.  In practice a step's product is ~2 us of that
+// rate, and a step costs what it has to fetch again and how often the
+// grid has to be launched or synchronised.
 //
-// Design.  The TPU kernel keeps all weights in one core's VMEM and walks T
-// in its grid; here the bf16 W_hh alone is 8 MiB against 227 KB of shared
-// memory per block, so the work is cut differently:
-//   1. The input product gx = round(x) @ W_ih + b for all T at once
-//      ([B*T, E] x [E, 4H]), hoisted out of the recurrence because it does
-//      not depend on h.
-//   2. One launch per time step: each block owns 32 hidden units j and 32
-//      batch rows and computes all four gate columns j, H+j, 2H+j, 3H+j of
-//      round(h_{t-1}) @ W_hh, so the cell update and the frozen-carry
-//      select stay inside the block.  h_{t-1} / h_t live in ping-pong
-//      buffers (other blocks still read h_{t-1}); c and the pooled sum are
-//      owned by one thread each and are updated in place, so no atomics.
-// With bf16 weights (the serving case) both products run on the tensor
-// cores as WMMA 16x16x16 bf16 fragments with f32 accumulators (a product
-// of two bf16 values is exact in f32, so only the summation order differs
-// from the plain version), fed through a 3-stage cp.async pipeline of
-// 16-byte copies; x is rounded once into a padded bf16 copy and each step
-// also writes h_t in bf16 for the next step's product.  With f32 weights
-// (parity checks) the products run as tiled f32 FMAs.  The input product
-// and the cp.async helpers are shared with the GRU (rnn_common.cuh).
-// Kernels launch on the caller's stream, allocate nothing and the host
-// entry point returns cudaGetLastError().
+// Design.  Two variants, chosen by the caller's plan (ops/kernels/
+// rnn_plan.py) from shapes and device properties:
+//   persistent  (bf16 weights; rnn_common.cuh::rnn_persistent with the
+//      LstmCell below) what the TPU kernel keeps in VMEM stays on chip for
+//      all T steps: a block's [H x 64] slice of W_hh (and of W_ih, when it
+//      fits) lives in shared memory, c / h / the pooled sum in registers;
+//      one cooperative launch per layer with one grid barrier per step;
+//      the recurrent product is wgmma m64n64k16 with the four gates of a
+//      cell in one thread's accumulator registers; 64-row tiles with no
+//      live row skip their product.
+//   stepwise  (f32 weights, or shapes whose slice does not fit shared
+//      memory or whose grid exceeds the SMs) the input product gx =
+//      round(x) @ W_ih + b hoisted over all T, then one launch per step:
+//      each block owns 32 hidden units and 32 batch rows and computes all
+//      four gate columns of round(h_{t-1}) @ W_hh (WMMA bf16 fragments fed
+//      by a 3-stage cp.async ring, or tiled f32 FMAs), h ping-pongs
+//      between two buffers, c and the pooled sum are updated in place by
+//      their owning thread.  W_hh is re-read from L2 every step.
+// Kernels launch on the caller's stream, allocate nothing, and the host
+// entry points return the first CUDA error.
 
 #include "rnn_common.cuh"
 
@@ -313,9 +313,59 @@ int run_layer_bf16(const float* x, const Bf16* w_ih, const Bf16* w_hh,
   return 0;
 }
 
+// Gate math of the persistent variant: a = x W_ih + b, g = h W_hh.
+struct LstmCell {
+  static constexpr int G = 4;
+  static __device__ __forceinline__ float update(const float (&a)[4],
+                                                 const float (&g)[4],
+                                                 float h_old, float& c) {
+    const float ig = fast_sigmoid(a[0] + g[0]);
+    const float fg = fast_sigmoid(a[1] + g[1]);
+    const float gg = fast_tanh(a[2] + g[2]);
+    const float og = fast_sigmoid(a[3] + g[3]);
+    c = fg * c + ig * gg;
+    return og * fast_tanh(c);
+  }
+};
+
 }  // namespace
 
-// One LSTM layer.  x [B, T, E] f32; w_ih [E, 4H], w_hh [H, 4H] in bf16
+// One LSTM layer, persistent variant (bf16 weights, H % 8 == 0).  x
+// [B, T, E] f32; w_ih [E, 4H], w_hh [H, 4H] bf16; b [4H] f32; lengths [B]
+// int32.  Scratch: xb
+// bf16 [B*T, Ep] (fuse = 1, Ep = E rounded up to 64) or [B*T, round8(E)]
+// with gx f32 [B*T, 4H] (fuse = 0); hb bf16 [2, B, H]; counter, one zeroed
+// uint32.  hs [B, T, H] (pool = 0); h_last [B, H]; pooled [B, H] (pool =
+// 1).  The plan: nwg warpgroups of 64 rows per block, grid and dynamic
+// shared memory bytes.  timeline: null, or [T, 5] int64 for
+// the per-step time stamps (rnn_common.cuh::stamp).
+extern "C" int vfr_lstm_layer_persistent(
+    const float* x, const void* w_ih, const void* w_hh, const float* b,
+    const int* lengths, void* xb, float* gx, void* hb, unsigned* counter,
+    float* hs, float* h_last, float* pooled, int B, int T, int E, int H,
+    int pool, int nwg, int fuse, int grid_x, int grid_y,
+    int smem, void* stream, long long* timeline) {
+  PersistentArgs a{};
+  a.w_ih = static_cast<const Bf16*>(w_ih);
+  a.w_hh = static_cast<const Bf16*>(w_hh);
+  a.b_ih = b;
+  a.b_hh = nullptr;
+  a.lengths = lengths;
+  a.hb = static_cast<Bf16*>(hb);
+  a.hs = hs;
+  a.h_last = h_last;
+  a.pooled = pooled;
+  a.counter = counter;
+  a.B = B; a.T = T; a.E = E; a.Ep = (E + PKC - 1) / PKC * PKC; a.H = H;
+  a.pool = pool;
+  a.timeline = timeline;
+  return launch_persistent<LstmCell>(x, a, static_cast<Bf16*>(xb), gx, nwg,
+                                     fuse, grid_x, grid_y, smem,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// One LSTM layer, stepwise variant.  x [B, T, E] f32; w_ih [E, 4H], w_hh
+// [H, 4H] in bf16
 // (weights_bf16 = 1, needs H % 8 == 0) or f32; b [4H] f32; lengths [B]
 // int32.  Scratch from the caller: gx [B, T, 4H] f32; h_a, h_b, c [B, H]
 // f32 with h_a and c zeroed; for bf16 weights also xb [B*T, round8(E)]

@@ -30,7 +30,12 @@ import numpy as np
 import torch
 
 from vfr_tpu_torch.data.glove import tokenize
-from vfr_tpu_torch.models.mcn import Model, embed_moments, embed_queries_multi
+from vfr_tpu_torch.models.mcn import (
+    Model,
+    embed_moments,
+    embed_queries_multi,
+    prepare_query_params,
+)
 from vfr_tpu_torch.ops.kernels.select_kernel import distance_select
 from vfr_tpu_torch.ops.topk import top_k_select
 from vfr_tpu_torch.parallel.sharding import (
@@ -311,7 +316,10 @@ def make_score_topk(model: Model, index: MomentIndex, k: int,
                     topk_method: str = "exact", approx_recall: float = 0.95,
                     rnn_kernel: Optional[str] = None):
     """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
-    [Q, k], rows [Q, k])`` over operands prepared once."""
+    [Q, k], rows [Q, k])`` over operands prepared once.  Hand it (and every
+    retriever of this module and of ``eval.coarse``) a tree that went
+    through ``prepare_query_params`` once, as ``serve_queries`` does, and no
+    batch casts the recurrence weights again."""
     fn, m_cat, msq_fused = _score_topk_with_operands(
         model, index, k, topk_method, approx_recall, rnn_kernel)
 
@@ -403,6 +411,8 @@ def serve_queries(
     video_ids = dataset.video_ids
     k_eff = min(k, index.num_rows)
     state = {}
+    # the recurrence kernel's bf16 weights, cast once for all batches
+    params = prepare_query_params(params, model)
 
     def dispatch(toks_all, lens_all):
         """[M, Q, T] blocks -> (d_all [M, Q, k'], rows_all [M, Q, k'])."""

@@ -40,9 +40,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lstm_recurrence": {
         "vfr_lstm_layer": [_P] * 15 + [_I] * 6 + [_P],
+        "vfr_lstm_layer_persistent": [_P] * 12 + [_I] * 10 + [_P, _P],
     },
     "gru_recurrence": {
         "vfr_gru_layer": [_P] * 15 + [_I] * 6 + [_P],
+        "vfr_gru_layer_persistent": [_P] * 13 + [_I] * 10 + [_P, _P],
     },
     "distance_select": {
         "vfr_distance_select": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I,
@@ -82,23 +84,24 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str):
+def _start(name: str, extra_flags=()):
     """Popen of the nvcc that builds ``name`` (None when already built)."""
     out = library_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
            os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish(name: str, job) -> None:
+def _finish(name: str, job) -> str:
+    """Wait for ``job``; the compiler's output ("" when already built)."""
     if job is None:
-        return
+        return ""
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -106,15 +109,19 @@ def _finish(name: str, job) -> None:
             os.remove(tmp)
         raise RuntimeError(f"nvcc failed building {name}.cu:\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build_all(names: List[str] = None) -> None:
-    """Compile every kernel source (one nvcc each, all started together)."""
+def build_all(names: List[str] = None,
+              resource_usage: bool = False) -> Dict[str, str]:
+    """Compile every kernel source (one nvcc each, all started together).
+    Returns each compiler's output; with ``resource_usage`` that holds
+    ptxas's registers, shared memory and spills of every kernel."""
     names = list(SIGNATURES) if names is None else names
+    extra = ("-Xptxas", "-v") if resource_usage else ()
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        for n, job in jobs.items():
-            _finish(n, job)
+        jobs = {n: _start(n, extra) for n in names}
+        return {n: _finish(n, job) for n, job in jobs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

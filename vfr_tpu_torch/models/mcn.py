@@ -115,6 +115,29 @@ def use_pallas(cfg: ModelConfig, device: torch.device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+def prepare_query_params(params: Dict, model: Model,
+                         rnn_kernel: Optional[str] = None) -> Dict:
+    """``params`` with the recurrence weights the inference kernel path
+    multiplies with (W_ih, W_hh of every layer) cast once to the kernel's
+    bf16, so that no batch converts them again; the tree itself when that
+    path would not run (``rnn_kernel``, ``use_pallas`` and the params'
+    device decide, as in ``_query_hidden``).  Results are those of the
+    unprepared tree: the kernel and its plain version round to bf16
+    themselves.  Every other path (the f32 scan twin, training) needs the
+    original tree."""
+    from vfr_tpu_torch.ops.kernels.rnn_plan import prepare_rnn_weights
+
+    cfg = model.cfg
+    if rnn_kernel is None:
+        want = use_pallas(cfg, params["embeddings"].device)
+    else:
+        want = rnn_kernel in ("pallas", "plain") and cfg.use_pallas != "never"
+    if not want:
+        return params
+    return {**params,
+            "lstm": prepare_rnn_weights(params["lstm"], torch.bfloat16)}
+
+
 def _query_hidden(
     params: Dict, model: Model, tokens: torch.Tensor, lengths: torch.Tensor,
     inference: bool, rnn_kernel: Optional[str] = None,

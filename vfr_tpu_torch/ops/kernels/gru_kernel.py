@@ -6,22 +6,32 @@ gru_recurrence.cu``), the port of the JAX package's Pallas
 raises); on a CPU tensor it runs ``gru_recurrence_plain``, the same
 arithmetic step by step in PyTorch.  ``cuda_gru`` chains layers like
 ``pallas_gru``: inner layers emit hs, the last one pools when
-``pool="mean"``.  As for the LSTM kernel there is no VMEM budget, so any
-batch runs in one call and nothing falls back to the scan twin.
+``pool="mean"``.  As for the LSTM kernel there are two variants,
+``persistent`` and ``stepwise``, picked by ``rnn_plan.plan_recurrence``
+from shapes and device properties or held by ``variant=``; nothing falls
+back.
 
 ``LAUNCHES`` counts kernel launches (one per layer call on CUDA), keyed
-"gru_pooled" (K3a) and "gru_hs" (K3b).
+"gru_pooled" (K3a) and "gru_hs" (K3b); ``VARIANT_LAUNCHES`` counts the
+same launches by variant, and ``LAST_PLAN`` is the plan of the last one.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from vfr_tpu_torch.ops.kernels.rnn_plan import (
+    CHUNK,
+    RecurrencePlan,
+    device_plan,
+)
 from vfr_tpu_torch.ops.lstm import gru_cell_update
 
 LAUNCHES = {"gru_pooled": 0, "gru_hs": 0}
+VARIANT_LAUNCHES = {"persistent": 0, "stepwise": 0}
+LAST_PLAN: Optional[RecurrencePlan] = None
 
 
 def gru_recurrence_plain(
@@ -62,9 +72,13 @@ def gru_layer(
     x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
     w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
     pool: str = "none", weights_dtype: torch.dtype = torch.bfloat16,
+    variant: str = "auto", fuse_input: Optional[bool] = None,
+    timeline: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  Same signature and results as ``gru_recurrence_plain``."""
+    CPU tensors.  Same results as ``gru_recurrence_plain``; ``variant``,
+    ``fuse_input`` and ``timeline`` as for ``lstm_layer``."""
+    global LAST_PLAN
     if pool not in ("none", "mean"):
         raise ValueError(f"unknown pool {pool!r}")
     if x.device.type == "cpu":
@@ -100,35 +114,68 @@ def gru_layer(
     bf16 = weights_dtype == torch.bfloat16
     if bf16 and H % 8:
         raise ValueError(f"bf16 GRU kernel needs hidden % 8 == 0, got {H}")
+    plan = device_plan(dev, B, E, H, 3, bf16, variant, fuse_input)
     f32 = dict(dtype=torch.float32, device=dev)
     b16 = dict(dtype=torch.bfloat16, device=dev)
-    gx = torch.empty(B, T, 3 * H, **f32)
-    h_a = torch.zeros(B, H, **f32)
-    h_b = torch.empty(B, H, **f32)
     h_last = torch.empty(B, H, **f32)
     pooled = pool == "mean"
-    if pooled:
-        seq = torch.zeros(B, H, **f32)          # live-step sum
-        out = torch.empty(B, H, **f32)
-    else:
-        seq = torch.empty(B, T, H, **f32)
-        out = seq
-    if bf16:   # the tensor-core path's bf16 operand copies of x and h
-        xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
-        hb_a = torch.zeros(B, H, **b16)
-        hb_b = torch.empty(B, H, **b16)
-        bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
-    else:
-        bf16_ptrs = (0, 0, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = load("gru_recurrence").vfr_gru_layer(
-        x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-        b_hh.data_ptr(), lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(),
-        h_a.data_ptr(), h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2],
-        seq.data_ptr(), h_last.data_ptr(), out.data_ptr() if pooled else 0,
-        B, T, E, H, int(bf16), int(pooled), stream)
-    check(err, "gru_recurrence")
+    lib = load("gru_recurrence")
+    if plan.variant == "persistent":
+        timeline_ptr = 0
+        if timeline is not None:
+            if (timeline.device != dev or timeline.dtype != torch.int64
+                    or tuple(timeline.shape) != (T, 5)
+                    or not timeline.is_contiguous()):
+                raise ValueError("timeline must be a contiguous CUDA int64 "
+                                 f"tensor [{T}, 5]")
+            timeline_ptr = timeline.data_ptr()
+        out = torch.empty((B, H) if pooled else (B, T, H), **f32)
+        if plan.fuse_input:
+            xb = torch.empty(B * T, -(-E // CHUNK) * CHUNK, **b16)
+            gx_ptr = 0
+        else:
+            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
+            gx = torch.empty(B, T, 3 * H, **f32)
+            gx_ptr = gx.data_ptr()
+        hb = torch.empty(2, B, H, **b16)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = lib.vfr_gru_layer_persistent(
+            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
+            b_hh.data_ptr(), lengths.data_ptr(), xb.data_ptr(), gx_ptr,
+            hb.data_ptr(), counter.data_ptr(),
+            0 if pooled else out.data_ptr(), h_last.data_ptr(),
+            out.data_ptr() if pooled else 0, B, T, E, H, int(pooled),
+            plan.warpgroups,
+            int(plan.fuse_input), plan.grid[0], plan.grid[1],
+            plan.smem_bytes, stream, timeline_ptr)
+    else:
+        gx = torch.empty(B, T, 3 * H, **f32)
+        h_a = torch.zeros(B, H, **f32)
+        h_b = torch.empty(B, H, **f32)
+        if pooled:
+            seq = torch.zeros(B, H, **f32)          # live-step sum
+            out = torch.empty(B, H, **f32)
+        else:
+            seq = torch.empty(B, T, H, **f32)
+            out = seq
+        if bf16:   # the tensor-core path's bf16 operand copies of x and h
+            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
+            hb_a = torch.zeros(B, H, **b16)
+            hb_b = torch.empty(B, H, **b16)
+            bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
+        else:
+            bf16_ptrs = (0, 0, 0)
+        err = lib.vfr_gru_layer(
+            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
+            b_hh.data_ptr(), lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(),
+            h_a.data_ptr(), h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2],
+            seq.data_ptr(), h_last.data_ptr(), out.data_ptr() if pooled else 0,
+            B, T, E, H, int(bf16), int(pooled), stream)
+    check(err, f"gru_recurrence[{plan.variant}]")
     LAUNCHES["gru_pooled" if pooled else "gru_hs"] += 1
+    VARIANT_LAUNCHES[plan.variant] += 1
+    LAST_PLAN = plan
     return h_last, out
 
 

@@ -6,22 +6,33 @@ lstm_recurrence.cu``), the port of the JAX package's Pallas
 raises); on a CPU tensor it runs ``lstm_recurrence_plain``, the same
 arithmetic step by step in PyTorch.  ``cuda_lstm`` chains layers like
 ``pallas_lstm``: inner layers emit hs, the last one pools when
-``pool="mean"``.  Unlike the TPU kernel there is no VMEM budget, so any
-batch runs in one call and nothing falls back to the scan twin.
+``pool="mean"``.  The kernel has two variants, ``persistent`` (W_hh
+resident in shared memory, one cooperative launch per layer) and
+``stepwise`` (one launch per step); ``rnn_plan.plan_recurrence`` picks one
+from shapes and device properties, and ``variant=`` holds a call to one.
+Nothing falls back: a variant that cannot run raises.
 
 ``LAUNCHES`` counts kernel launches (one per layer call on CUDA), keyed
-"lstm_pooled" (K1a) and "lstm_hs" (K1b).
+"lstm_pooled" (K1a) and "lstm_hs" (K1b); ``VARIANT_LAUNCHES`` counts the
+same launches by variant, and ``LAST_PLAN`` is the plan of the last one.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from vfr_tpu_torch.ops.kernels.rnn_plan import (
+    CHUNK,
+    RecurrencePlan,
+    device_plan,
+)
 from vfr_tpu_torch.ops.lstm import cell_update
 
 LAUNCHES = {"lstm_pooled": 0, "lstm_hs": 0}
+VARIANT_LAUNCHES = {"persistent": 0, "stepwise": 0}
+LAST_PLAN: Optional[RecurrencePlan] = None
 
 
 def lstm_recurrence_plain(
@@ -65,9 +76,17 @@ def lstm_layer(
     x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
     w_hh: torch.Tensor, b: torch.Tensor, pool: str = "none",
     weights_dtype: torch.dtype = torch.bfloat16,
+    variant: str = "auto", fuse_input: Optional[bool] = None,
+    timeline: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  Same signature and results as ``lstm_recurrence_plain``."""
+    CPU tensors.  Same results as ``lstm_recurrence_plain``.  ``variant``
+    ("auto", "persistent", "stepwise") holds the call to one kernel variant
+    ("persistent" raises where the plan refuses it); ``fuse_input`` forces
+    the persistent variant's resident W_ih on or off; ``timeline``, a CUDA
+    int64 tensor [T, 5], receives the persistent kernel's per-step time
+    stamps (``csrc/rnn_common.cuh::stamp``)."""
+    global LAST_PLAN
     if pool not in ("none", "mean"):
         raise ValueError(f"unknown pool {pool!r}")
     if x.device.type == "cpu":
@@ -101,36 +120,68 @@ def lstm_layer(
     bf16 = weights_dtype == torch.bfloat16
     if bf16 and H % 8:
         raise ValueError(f"bf16 LSTM kernel needs hidden % 8 == 0, got {H}")
+    plan = device_plan(dev, B, E, H, 4, bf16, variant, fuse_input)
     f32 = dict(dtype=torch.float32, device=dev)
     b16 = dict(dtype=torch.bfloat16, device=dev)
-    gx = torch.empty(B, T, 4 * H, **f32)
-    h_a = torch.zeros(B, H, **f32)
-    h_b = torch.empty(B, H, **f32)
-    c = torch.zeros(B, H, **f32)
     h_last = torch.empty(B, H, **f32)
     pooled = pool == "mean"
-    if pooled:
-        seq = torch.zeros(B, H, **f32)          # live-step sum
-        out = torch.empty(B, H, **f32)
-    else:
-        seq = torch.empty(B, T, H, **f32)
-        out = seq
-    if bf16:   # the tensor-core path's bf16 operand copies of x and h
-        xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
-        hb_a = torch.zeros(B, H, **b16)
-        hb_b = torch.empty(B, H, **b16)
-        bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
-    else:
-        bf16_ptrs = (0, 0, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = load("lstm_recurrence").vfr_lstm_layer(
-        x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
-        lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(), h_a.data_ptr(),
-        h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2], c.data_ptr(),
-        seq.data_ptr(), h_last.data_ptr(), out.data_ptr() if pooled else 0,
-        B, T, E, H, int(bf16), int(pooled), stream)
-    check(err, "lstm_recurrence")
+    lib = load("lstm_recurrence")
+    if plan.variant == "persistent":
+        timeline_ptr = 0
+        if timeline is not None:
+            if (timeline.device != dev or timeline.dtype != torch.int64
+                    or tuple(timeline.shape) != (T, 5)
+                    or not timeline.is_contiguous()):
+                raise ValueError("timeline must be a contiguous CUDA int64 "
+                                 f"tensor [{T}, 5]")
+            timeline_ptr = timeline.data_ptr()
+        out = torch.empty((B, H) if pooled else (B, T, H), **f32)
+        if plan.fuse_input:
+            xb = torch.empty(B * T, -(-E // CHUNK) * CHUNK, **b16)
+            gx_ptr = 0
+        else:
+            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
+            gx = torch.empty(B, T, 4 * H, **f32)
+            gx_ptr = gx.data_ptr()
+        hb = torch.empty(2, B, H, **b16)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = lib.vfr_lstm_layer_persistent(
+            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+            lengths.data_ptr(), xb.data_ptr(), gx_ptr, hb.data_ptr(),
+            counter.data_ptr(), 0 if pooled else out.data_ptr(),
+            h_last.data_ptr(), out.data_ptr() if pooled else 0, B, T, E, H,
+            int(pooled), plan.warpgroups,
+            int(plan.fuse_input), plan.grid[0], plan.grid[1],
+            plan.smem_bytes, stream, timeline_ptr)
+    else:
+        gx = torch.empty(B, T, 4 * H, **f32)
+        h_a = torch.zeros(B, H, **f32)
+        h_b = torch.empty(B, H, **f32)
+        c = torch.zeros(B, H, **f32)
+        if pooled:
+            seq = torch.zeros(B, H, **f32)          # live-step sum
+            out = torch.empty(B, H, **f32)
+        else:
+            seq = torch.empty(B, T, H, **f32)
+            out = seq
+        if bf16:   # the tensor-core path's bf16 operand copies of x and h
+            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
+            hb_a = torch.zeros(B, H, **b16)
+            hb_b = torch.empty(B, H, **b16)
+            bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
+        else:
+            bf16_ptrs = (0, 0, 0)
+        err = lib.vfr_lstm_layer(
+            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+            lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(), h_a.data_ptr(),
+            h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2], c.data_ptr(),
+            seq.data_ptr(), h_last.data_ptr(), out.data_ptr() if pooled else 0,
+            B, T, E, H, int(bf16), int(pooled), stream)
+    check(err, f"lstm_recurrence[{plan.variant}]")
     LAUNCHES["lstm_pooled" if pooled else "lstm_hs"] += 1
+    VARIANT_LAUNCHES[plan.variant] += 1
+    LAST_PLAN = plan
     return h_last, out
 
 
