@@ -8,8 +8,9 @@ Phases, one JSON line each:
   build       nvcc of every kernel source (one process each, in parallel).
   kernel_*    each CUDA kernel against its plain PyTorch version on the
               card at the main path's shapes (max |diff|, kernel / plain /
-              library ms by CUDA events); the LSTM and GRU recurrences in
-              both variants (persistent, stepwise), timed in turns.
+              library ms by CUDA events), both variants of each (LSTM / GRU:
+              persistent, stepwise; distance-select / coarse block-max: mma,
+              simt), timed in turns, and at ragged shapes.
   flagship    didemo_flagship at full width (E=300, H=1024, F=2048, joint
               128, two streams, cosine, mean pool), seeded weights, a
               synthetic 10,000-video corpus (210,000 index rows): build,
@@ -38,6 +39,7 @@ and fails unless each kernel of its path launched.  Then one
 Without a CUDA device it exits 2 and prints no result.
 
 Not in the default run (``--phases``): ``rnn`` (the K1 / K3 checks alone),
+``select`` (K2's), ``coarse_kernel`` (K4's),
 ``profile`` (device time by kernel name), ``steps`` (the persistent
 kernels' per-step time split), ``wgmma_rate`` (the tensor cores' own time
 for a step's products).
@@ -63,6 +65,7 @@ VIDEOS_10K = 2_000       # serving_10k and gru corpora, cut to keep the run
 VIDEOS_2M = 100_000      # coarse_2m: 2.1M index rows
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
+              "tf32": 495e12,       # dense tensor-core rate
               "float32": 67e12}     # f32 outside the tensor cores
 
 KERNEL_SOURCES = {
@@ -120,8 +123,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound(bytes_moved: float, flops: float, dtype: str):
+    """(ms, "bytes" | "operations").  f32 products can run as f32 FMAs or,
+    to the same accuracy, as three TF32 tensor-core products of hi/lo
+    splits: the operations time of "float32" is the lesser of the two."""
     t_bytes = bytes_moved / H100_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
+    if dtype == "float32":
+        t_ops = min(t_ops, 3.0 * flops / PEAK_FLOPS["tf32"])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -384,11 +392,59 @@ def phase_wgmma_rate():
         emit({"phase": "wgmma_rate", **json.loads(line)})
 
 
+def _turns(fn_by_variant, order=("simt", "mma", "mma", "simt"), **kw):
+    """Times of the two variants taken in turns inside one call: (mma ms,
+    simt ms, the four turns)."""
+    turns = [cuda_ms(fn_by_variant(v), **kw) for v in order]
+    by = {v: [t for o, t in zip(order, turns) if o == v] for v in set(order)}
+    return (sum(by["mma"]) / len(by["mma"]),
+            sum(by["simt"]) / len(by["simt"]), turns)
+
+
+def unit_rows(x):
+    return x / (x.norm(dim=-1, keepdim=True) + 1e-8)
+
+
+def _coarse_check(q, m, msq, B, variant, top=16):
+    """One K4 call of ``variant`` against the plain version: (plan, max
+    |diff|, max diff relative to max(|value|, 1), top-16 block sets that
+    differ outside ties)."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import coarse_kernel
+
+    got = coarse_kernel.coarse_blockmax(q, m, msq, B, variant=variant)
+    plan = coarse_kernel.LAST_PLAN
+    ref = coarse_kernel.coarse_blockmax_plain(q, m, msq, B)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+            f"coarse_blockmax[{variant}]: non-finite or misshapen")
+    rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    top = min(top, ref.shape[1] - 1)
+    pv, pi = ref.topk(top + 1, dim=1)
+    ki = got.topk(top, dim=1).indices
+    same = (ki.sort(1).values == pi[:, :top].sort(1).values).all(1)
+    clear = (pv[:, top - 1] - pv[:, top]) > 1e-5 * pv[:, top - 1] \
+        .abs().clamp(min=1.0)
+    return (plan, float((got - ref).abs().max()), rel,
+            int((~same & clear).sum()))
+
+
 def phase_coarse_kernel(results, seed: int):
-    """K4 at the coarse path's shapes: Q=256, d_c 32 and 64, 210,000 and
-    2,100,000 bf16 rows padded to the 16384-row alignment with msq = 1e30.
+    """K4, both variants (mma, simt) against the plain version.  At the
+    coarse path's shapes (Q=256, d_c 32 and 64, 210,000 and 2,100,000 bf16
+    rows padded to the 16384-row alignment with msq = 1e30) the variants
+    are also timed in turns (simt, mma, mma, simt).  Ragged shapes (Q =
+    200, block_rows 32 and 64, N not a multiple of anything, d_c 16 and 48,
+    and f32 rows or d_c 24, which the plan gives to simt) are checked only.
     Relative diff is taken against max(|value|, 1): the rounding level is
-    set by msq ~ d_c, so values near 0 are held absolutely."""
+    set by msq ~ d_c, so values near 0 are held absolutely.  Queries are
+    unit vectors, as the serving path's are (cosine distance; q_low is a
+    projection of them), held to 1e-5.  The tensor cores sum a k-step's
+    products with truncation, ~6 ulp of the sum where the f32 FMA order of
+    simt and the plain matmul agree exactly, so with unnormalised normal
+    queries (|q| ~ sqrt(d_c), sums of ~14 against results near 0) the mma
+    variant is off by ~1e-5 and is held to 1e-4 there (``stress``)."""
     import torch
 
     from vfr_tpu_torch.ops.kernels.coarse_kernel import (
@@ -397,9 +453,37 @@ def phase_coarse_kernel(results, seed: int):
         coarse_blockmax_plain,
     )
 
-    Q, B, top = 256, 128, 16
+    Q, B = 256, 128
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    ragged = {}
+    for rq, rn, rd, rb, rdt, want in (
+            (200, 209_999, 32, 128, torch.bfloat16, "mma"),
+            (200, 209_999, 64, 32, torch.bfloat16, "mma"),
+            (200, 50_001, 48, 64, torch.bfloat16, "mma"),
+            (300, 5_000, 16, 32, torch.bfloat16, "mma"),
+            (37, 100, 32, 128, torch.bfloat16, "mma"),
+            (200, 50_001, 24, 64, torch.bfloat16, "simt"),
+            (200, 50_001, 32, 128, torch.float32, "simt")):
+        m = torch.randn(rn, rd, generator=gen, device=dev).to(rdt)
+        msq = (m.float() ** 2).sum(-1)
+        msq[rn - 3:] = 1e30                   # invalid rows inside N
+        q = unit_rows(torch.randn(rq, rd, generator=gen, device=dev))
+        for variant in ("auto", "simt"):
+            plan, _, rel, mism = _coarse_check(q, m, msq, rb, variant)
+            key = (f"Q{rq}_N{rn}_d{rd}_B{rb}_"
+                   f"{str(rdt).replace('torch.', '')}_{variant}")
+            ragged[key] = dict(variant=plan.variant, max_rel_err=rel,
+                               top16_set_mismatches_outside_ties=mism)
+            if variant == "auto":
+                require(plan.variant == want, f"coarse_blockmax {key}: the "
+                        f"plan chose {plan.variant} ({plan.reason})")
+            require(rel <= 1e-5 and mism == 0,
+                    f"coarse_blockmax ragged {key}: rel err {rel}, {mism} "
+                    "block sets differ")
+        del m, msq, q
+    emit({"phase": "kernel_coarse_blockmax_ragged", "tol": 1e-5,
+          "cases": ragged})
     recs = []
     for N in (210_000, 2_100_000):
         n_pad = (-N) % KERNEL_BLOCK_N
@@ -409,18 +493,17 @@ def phase_coarse_kernel(results, seed: int):
             m[N:] = 0
             msq = (m.float() ** 2).sum(-1)
             msq[N:] = 1e30
-            q = torch.randn(Q, d, generator=gen, device=dev)
-            got = coarse_blockmax(q, m, msq, B)
-            ref = coarse_blockmax_plain(q, m, msq, B)
-            torch.cuda.synchronize()
-            rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
-            pv, pi = ref.topk(top + 1, dim=1)
-            ki = got.topk(top, dim=1).indices
-            same = (ki.sort(1).values == pi[:, :top].sort(1).values).all(1)
-            clear = (pv[:, top - 1] - pv[:, top]) > 1e-5 * pv[:, top - 1] \
-                .abs().clamp(min=1.0)
-            set_mism = int((~same & clear).sum())
-            ms = cuda_ms(lambda: coarse_blockmax(q, m, msq, B))
+            q_raw = torch.randn(Q, d, generator=gen, device=dev)
+            q = unit_rows(q_raw)
+            checks = {v: _coarse_check(q, m, msq, B, v)
+                      for v in ("mma", "simt")}
+            stress = {v: _coarse_check(q_raw, m, msq, B, v)[2]
+                      for v in ("mma", "simt")}
+            del q_raw
+            auto_plan = _coarse_check(q, m, msq, B, "auto")[0]
+            plan, err, rel, set_mism = checks["mma"]
+            ms, simt_ms, turns = _turns(lambda v: (
+                lambda: coarse_blockmax(q, m, msq, B, variant=v)))
             plain_ms = cuda_ms(lambda: coarse_blockmax_plain(q, m, msq, B),
                                iters=5)
             q_r, m_f, neg = q.to(torch.bfloat16).float(), m.float(), -msq
@@ -428,27 +511,42 @@ def phase_coarse_kernel(results, seed: int):
                 neg[None, :], q_r, m_f.T, alpha=2.0).view(Q, -1, B).amax(-1),
                 iters=5)
             del q_r, m_f, neg
-            Np, G = m.shape[0], got.shape[1]
+            Np, G = m.shape[0], -(-m.shape[0] // B)
             bound_ms, bound_by = bound(
                 Np * d * 2 + Np * 4 + Q * d * 4 + Q * G * 4,
                 2.0 * Q * Np * d, "bfloat16")
             rec = dict(name="coarse_blockmax",
                        shape=dict(Q=Q, N=N, Npad=Np, d_c=d, block_rows=B),
-                       max_abs_err=float((got - ref).abs().max()),
-                       max_rel_err=rel, tol=1e-5,
-                       top16_set_mismatches_outside_ties=set_mism, ms=ms,
+                       variant=auto_plan.variant,
+                       plan=dict(stages_per_cta=plan.stages_per_cta,
+                                 grid=list(plan.grid),
+                                 ctas_per_sm=plan.ctas_per_sm,
+                                 smem_bytes=plan.smem_bytes),
+                       max_abs_err=err, max_rel_err=rel,
+                       max_rel_err_simt=checks["simt"][2], tol=1e-5,
+                       stress_max_rel_err=stress["mma"],
+                       stress_max_rel_err_simt=stress["simt"],
+                       stress_tol=1e-4,
+                       top16_set_mismatches_outside_ties=set_mism,
+                       top16_set_mismatches_simt=checks["simt"][3], ms=ms,
+                       simt_ms=simt_ms, turns_ms=turns,
                        plain_ms=plain_ms, library_ms=library_ms,
                        library="addmm f32 + amax", bound_ms=bound_ms,
                        bound_by=bound_by)
             emit({"phase": "kernel_coarse_blockmax", **rec})
-            require(bool(torch.isfinite(got).all()),
-                    "coarse_blockmax: non-finite")
-            require(rel <= 1e-5, f"coarse_blockmax[N={N}, d={d}]: rel err "
-                    f"{rel}")
-            require(set_mism == 0, f"coarse_blockmax[N={N}, d={d}]: "
-                    f"{set_mism} top-{top} block sets differ")
+            require(auto_plan.variant == "mma",
+                    f"coarse_blockmax[N={N}, d={d}]: the plan chose "
+                    f"{auto_plan.variant} ({auto_plan.reason})")
+            require(max(stress.values()) <= 1e-4,
+                    f"coarse_blockmax[N={N}, d={d}]: rel err {stress} with "
+                    "unnormalised queries")
+            for v, (_, _, v_rel, v_mism) in checks.items():
+                require(v_rel <= 1e-5, f"coarse_blockmax[{v}, N={N}, "
+                        f"d={d}]: rel err {v_rel}")
+                require(v_mism == 0, f"coarse_blockmax[{v}, N={N}, d={d}]: "
+                        f"{v_mism} top-16 block sets differ")
             recs.append(rec)
-            del m, msq, got, ref
+            del m, msq
     results["coarse_blockmax"] = recs
 
 
@@ -467,9 +565,53 @@ def _k2_library(q, m, m_sq, w, bin_size, block_n):
     return D.view(D.shape[0], -1, bin_size, block_n // bin_size).amin(2)
 
 
-def phase_select(results, seed: int):
+def _select_check(q, m, m_sq, w, bin_size, block_n, variant, **kw):
+    """One K2 call of ``variant`` against the plain version: (plan, max
+    |diff|, max relative diff, rows differing where the bin's two smallest
+    distances are more than 1e-3 (relative) apart)."""
     import torch
     import torch.nn.functional as F
+
+    from vfr_tpu_torch.ops.kernels import select_kernel
+
+    S, Q, _ = q.shape
+    N = m.shape[1]
+    vals, rows = select_kernel.distance_select(q, m, m_sq, w, bin_size,
+                                               block_n, variant=variant, **kw)
+    plan = select_kernel.LAST_PLAN
+    rv, rr = select_kernel.distance_select_plain(q, m, m_sq, w, bin_size,
+                                                 block_n)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(vals).all()) and vals.shape == rv.shape,
+            f"distance_select[{variant}]: non-finite or misshapen")
+    rel = float(((vals - rv).abs() / rv.abs().clamp(min=1e-6)).max())
+    # finite rows only: a bin of padding holds 1e30 in both
+    live = rv < 1e29
+    err = float(((vals - rv).abs() * live).max())
+    mf = F.pad(m.float(), (0, 0, 0, (-N) % block_n))
+    msq = F.pad(m_sq, (0, (-N) % block_n), value=1e30)
+    qr = q.to(m.dtype).float()
+    D = sum(w[s] * (msq[s][None] + (q[s] * q[s]).sum(-1)[:, None]
+                    - 2.0 * (qr[s] @ mf[s].T)) for s in range(S))
+    two = D.view(Q, -1, bin_size, block_n // bin_size).topk(
+        min(2, bin_size), dim=2, largest=False).values
+    if bin_size > 1:
+        gap = (two[:, :, 1] - two[:, :, 0]).reshape(Q, -1)
+        clear = gap > 1e-3 * two[:, :, 0].reshape(Q, -1).abs()
+    else:
+        clear = torch.ones_like(rows, dtype=torch.bool)
+    return plan, err, rel, int(((rows != rr) & clear).sum())
+
+
+def phase_select(results, seed: int):
+    """K2, both variants (mma, simt) against the plain version, for an f32
+    and a bf16 index.  At the fused cell's shape (S=2, Q=256, N=210,000,
+    d=128, bin 64) the variants are also timed in turns (simt, mma, mma,
+    simt) and the mma variant with other splits of the a range.  Ragged
+    shapes (N = 209,999 and 5,000, Q = 200, bin 16 and 32, S = 1, weights
+    (0.3, 0.7) and (0.7, 0.3), and a bin or width the plan gives to simt)
+    are checked only."""
+    import torch
 
     from vfr_tpu_torch.ops.kernels.select_kernel import (
         distance_select,
@@ -486,52 +628,93 @@ def phase_select(results, seed: int):
 
     q = torch.from_numpy(unit(S, Q, d)).to(dev)
     m32 = torch.from_numpy(unit(S, N, d)).to(dev)
+    ragged = {}
+    for rs, rq, rn, rd, rbin, rw, want in (
+            (2, 200, 209_999, 128, 64, [0.3, 0.7], "mma"),
+            (2, 200, 5_000, 128, 32, [0.7, 0.3], "mma"),
+            (1, 200, 5_000, 128, 16, [0.7], "mma"),
+            (2, 37, 9_000, 48, 8, [0.5, 0.5], "mma"),
+            (2, 200, 5_000, 128, 128, [0.3, 0.7], "simt"),
+            (1, 100, 5_000, 40, 64, [1.0], "simt")):
+        rq_t = torch.from_numpy(unit(rs, rq, rd)).to(dev)
+        rm32 = torch.from_numpy(unit(rs, rn, rd)).to(dev)
+        for dtype_name, rm in (("float32", rm32),
+                               ("bfloat16", rm32.to(torch.bfloat16))):
+            rm_sq = (rm.float() * rm.float()).sum(-1)
+            for variant in ("auto", "simt"):
+                plan, err, rel, mism = _select_check(
+                    rq_t, rm, rm_sq, rw, rbin, block_n, variant)
+                key = (f"S{rs}_Q{rq}_N{rn}_d{rd}_bin{rbin}_w{rw[0]}_"
+                       f"{dtype_name}_{variant}")
+                ragged[key] = dict(variant=plan.variant, max_abs_err=err,
+                                   max_rel_err=rel,
+                                   row_mismatches_outside_ties=mism)
+                if variant == "auto":
+                    require(plan.variant == want, f"distance_select {key}: "
+                            f"the plan chose {plan.variant} ({plan.reason})")
+                require(rel <= 1e-3 and mism == 0,
+                        f"distance_select ragged {key}: rel err {rel}, "
+                        f"{mism} rows differ")
+        del rq_t, rm32, rm, rm_sq
+    emit({"phase": "kernel_distance_select_ragged", "tol": 1e-3,
+          "cases": ragged})
     w = [0.5, 0.5]
     w_t = torch.tensor(w, device=dev)
     recs = []
     for dtype_name, m in (("float32", m32),
                           ("bfloat16", m32.to(torch.bfloat16))):
         m_sq = (m.float() * m.float()).sum(-1)
-        vals, rows = distance_select(q, m, m_sq, w, bin_size, block_n)
-        rv, rr = distance_select_plain(q, m, m_sq, w, bin_size, block_n)
-        torch.cuda.synchronize()
-        rel = ((vals - rv).abs() / rv.abs().clamp(min=1e-6))
-        err = float((vals - rv).abs().max())
-        # rows must agree wherever the bin's two smallest distances are
-        # further apart than the value tolerance
-        mf = F.pad(m.float(), (0, 0, 0, (-N) % block_n))
-        msq = F.pad(m_sq, (0, (-N) % block_n), value=1e30)
-        qr = q.to(m.dtype).float()
-        D = sum(w[s] * (msq[s][None] + (q[s] * q[s]).sum(-1)[:, None]
-                        - 2.0 * (qr[s] @ mf[s].T)) for s in range(S))
-        two = D.view(Q, -1, bin_size, block_n // bin_size).topk(
-            2, dim=2, largest=False).values
-        gap = (two[:, :, 1] - two[:, :, 0]).reshape(Q, -1)
-        clear = gap > 1e-3 * two[:, :, 0].reshape(Q, -1).abs()
-        row_mismatch = int(((rows != rr) & clear).sum())
-        ms = cuda_ms(lambda: distance_select(q, m, m_sq, w, bin_size,
-                                             block_n))
+        checks = {v: _select_check(q, m, m_sq, w, bin_size, block_n, v)
+                  for v in ("mma", "simt")}
+        auto_plan = _select_check(q, m, m_sq, w, bin_size, block_n,
+                                  "auto")[0]
+        plan, err, rel, row_mismatch = checks["mma"]
+        ms, simt_ms, turns = _turns(lambda v: (
+            lambda: distance_select(q, m, m_sq, w, bin_size, block_n,
+                                    variant=v)))
+        splits_ms = {}
+        for p in (1, 2, 3, 4, 5, 6, 8):
+            p_plan, _, p_rel, p_mism = _select_check(
+                q, m, m_sq, w, bin_size, block_n, "mma", a_splits=p)
+            require(p_rel <= 1e-3 and p_mism == 0,
+                    f"distance_select[{dtype_name}, a_splits={p}]: rel err "
+                    f"{p_rel}, {p_mism} rows differ")
+            splits_ms[str(p_plan.a_splits)] = cuda_ms(
+                lambda: distance_select(q, m, m_sq, w, bin_size, block_n,
+                                        variant="mma", a_splits=p))
         plain_ms = cuda_ms(lambda: distance_select_plain(
             q, m, m_sq, w, bin_size, block_n), iters=10)
         library_ms = cuda_ms(lambda: _k2_library(q, m, m_sq, w_t, bin_size,
                                                  block_n), iters=10)
-        C = vals.shape[1]
+        C = -(-N // block_n) * (block_n // bin_size)
         nbytes = (S * N * d * m.element_size() + S * N * 4 + S * Q * d * 4
                   + Q * C * 8)
         bound_ms, bound_by = bound(nbytes, 2.0 * S * Q * N * d, dtype_name)
         rec = dict(name="distance_select", index_dtype=dtype_name,
                    shape=dict(S=S, Q=Q, N=N, d=d, bin=bin_size,
                               block_n=block_n),
-                   max_abs_err=err, max_rel_err=float(rel.max()), tol=1e-3,
-                   row_mismatches_outside_ties=row_mismatch, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   variant=auto_plan.variant,
+                   plan=dict(a_splits=plan.a_splits,
+                             a_per_split=plan.a_per_split, grid=plan.grid,
+                             ctas_per_sm=plan.ctas_per_sm,
+                             smem_bytes=plan.smem_bytes),
+                   max_abs_err=err, max_rel_err=rel,
+                   max_abs_err_simt=checks["simt"][1], tol=1e-3,
+                   row_mismatches_outside_ties=row_mismatch,
+                   row_mismatches_simt=checks["simt"][3], ms=ms,
+                   simt_ms=simt_ms, turns_ms=turns,
+                   ms_by_a_splits=splits_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         emit({"phase": "kernel_distance_select", **rec})
-        require(bool(torch.isfinite(vals).all()), "distance_select: non-finite")
-        require(float(rel.max()) <= 1e-3,
-                f"distance_select[{dtype_name}]: rel err {float(rel.max())}")
-        require(row_mismatch == 0,
-                f"distance_select[{dtype_name}]: {row_mismatch} rows differ")
+        require(auto_plan.variant == "mma",
+                f"distance_select[{dtype_name}]: the plan chose "
+                f"{auto_plan.variant} ({auto_plan.reason})")
+        for v, (_, _, v_rel, v_mism) in checks.items():
+            require(v_rel <= 1e-3,
+                    f"distance_select[{dtype_name}, {v}]: rel err {v_rel}")
+            require(v_mism == 0, f"distance_select[{dtype_name}, {v}]: "
+                    f"{v_mism} rows differ")
         recs.append(rec)
     results["distance_select"] = recs
 
@@ -646,10 +829,17 @@ def _count_dicts():
 
 
 def _variant_dicts():
-    from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel
+    from vfr_tpu_torch.ops.kernels import (
+        coarse_kernel,
+        gru_kernel,
+        lstm_kernel,
+        select_kernel,
+    )
 
     return {"lstm": lstm_kernel.VARIANT_LAUNCHES,
-            "gru": gru_kernel.VARIANT_LAUNCHES}
+            "gru": gru_kernel.VARIANT_LAUNCHES,
+            "select": select_kernel.VARIANT_LAUNCHES,
+            "coarse": coarse_kernel.VARIANT_LAUNCHES}
 
 
 def reset_counts():
@@ -660,7 +850,7 @@ def reset_counts():
 
 def read_counts():
     """Launches by kernel since ``reset_counts``, and under "variants" the
-    K1 / K3 launches by kernel variant."""
+    launches of each kernel family by kernel variant."""
     out = {}
     for counts in _count_dicts():
         out.update(counts)
@@ -673,6 +863,34 @@ def require_persistent(counts, cell: str, what: str) -> None:
     require(v["persistent"] > 0 and v["stepwise"] == 0,
             f"{what}: the {cell} recurrence ran {v}, expected the "
             "persistent variant only")
+
+
+def require_mma(counts, family: str, what: str) -> None:
+    v = counts["variants"][family]
+    require(v["mma"] > 0 and v["simt"] == 0,
+            f"{what}: the {family} kernel ran {v}, expected the mma variant "
+            "only")
+
+
+def held_to(module, name: str, variant: str):
+    """Context: ``module.name`` (a kernel wrapper looked up at call time by
+    a retriever) held to one kernel variant, to time a cell on the earlier
+    kernel and the new one in turns."""
+    import functools
+    from unittest import mock
+
+    return mock.patch.object(
+        module, name, functools.partial(getattr(module, name),
+                                        variant=variant))
+
+
+def cell_turns(module, name: str, fn):
+    """ms of ``fn`` with the kernel held to simt, mma, mma, simt."""
+    turns = []
+    for variant in ("simt", "mma", "mma", "simt"):
+        with held_to(module, name, variant):
+            turns.append(time_batches(fn))
+    return turns
 
 
 def make_corpus(preset: str, num_videos: int, seed: int):
@@ -757,8 +975,11 @@ def time_batches(fn, repeats: int = 5) -> float:
 
 def phase_serving(results, seed: int, num_videos: int, workdir: str,
                   k: int = 10, n_queries: int = 1024):
+    from unittest import mock
+
     import torch
 
+    from vfr_tpu_torch.eval import corpus as corpus_mod
     from vfr_tpu_torch.eval.corpus import (
         build_moment_index,
         load_index,
@@ -772,6 +993,7 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
         init_model_params,
         prepare_query_params,
     )
+    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -862,14 +1084,35 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
         fb = {(r["video"], r["start"], r["end"]) for r in b["results"]}
         hit += len(ea & fb)
     recall = hit / (k * len(exact))
+    require_mma(counts, "select", "fused")
     r_fused = make_retriever(model, loaded, k, "fused")
-    fused_ms = time_batches(
-        lambda: [r_fused(q_params, toks_d[b], lens_d[b])
-                 for b in range(len(toks))]) / len(toks)
+
+    def fused_batches():
+        return [r_fused(q_params, toks_d[b], lens_d[b])
+                for b in range(len(toks))]
+
+    fused_ms = time_batches(fused_batches) / len(toks)
+    # the same retriever with K2's plain version, and on each kernel variant
+    # in turns
+    d_f, rows_f = (torch.stack(t).cpu().numpy()
+                   for t in zip(*fused_batches()))
+    with mock.patch.object(corpus_mod, "distance_select",
+                           distance_select_plain):
+        d_fp, rows_fp = (torch.stack(t).cpu().numpy()
+                         for t in zip(*fused_batches()))
+    f_mism, f_ddiff = compare_to_plain(d_f, rows_f, d_fp, rows_fp)
+    turns = [t / len(toks) for t in cell_turns(corpus_mod, "distance_select",
+                                               fused_batches)]
     rec = dict(phase="fused", launches=counts, recall_at_10_vs_exact=recall,
-               ms_per_batch=fused_ms)
+               ms_per_batch=fused_ms, variant="mma",
+               ms_per_batch_simt_mma_mma_simt=turns,
+               rows_differing_from_plain=f_mism,
+               max_distance_diff_vs_plain=f_ddiff)
     emit(rec)
     require(recall >= 0.9, f"fused: recall@{k} vs exact {recall} < 0.9")
+    require(f_mism == 0 and f_ddiff <= 1e-3,
+            f"fused: K2 vs its plain version: {f_mism} rows differ, "
+            f"max |d diff| {f_ddiff}")
     results["fused"] = rec
     return dict(params=params, q_params=q_params, model=model, ds=ds,
                 vocab=vocab, index=loaded, queries=queries, toks=toks_d, lens=lens_d,
@@ -952,9 +1195,16 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
         rec["blockmax"]["plain_ms_per_batch"] = time_batches(
             lambda: r(q_params, toks, lens)) / len(toks)
     mism, ddiff = compare_to_plain(*outs["blockmax"], d_p, rows_p)
+    r = coarse_mod.make_coarse_stream_retriever(
+        model, coarse, k, num_candidates=C, mode="blockmax")
+    rec["blockmax"]["variant"] = "mma"
+    rec["blockmax"]["ms_per_batch_simt_mma_mma_simt"] = [
+        t / len(toks) for t in cell_turns(
+            coarse_mod, "coarse_blockmax", lambda: r(q_params, toks, lens))]
     rec.update(rows_differing_from_plain=mism,
                max_distance_diff_vs_plain=ddiff)
     emit(rec)
+    require_mma(rec["blockmax"]["launches"], "coarse", "coarse[blockmax]")
     require(rec["blockmax"]["launches"]["coarse_blockmax"] > 0,
             "coarse: K4 (coarse_blockmax) never launched under blockmax")
     require(rec["centroid"]["launches"]["coarse_blockmax"] == 0,
@@ -1025,6 +1275,7 @@ def phase_coarse_2m(results, seed: int, num_videos: int):
     """2.1M-row serving: exact full scan vs the coarse retriever."""
     import torch
 
+    from vfr_tpu_torch.eval import coarse as coarse_mod
     from vfr_tpu_torch.eval.coarse import make_coarse_score_topk
     from vfr_tpu_torch.eval.corpus import make_score_topk
 
@@ -1061,6 +1312,11 @@ def phase_coarse_2m(results, seed: int, num_videos: int):
             if mode == "blockmax":
                 require(counts["coarse_blockmax"] > 0,
                         f"coarse_2m[C={C}]: K4 never launched")
+                require_mma(counts, "coarse", f"coarse_2m[C={C}]")
+                rec[f"{mode}_C{C}"].update(
+                    variant="mma",
+                    ms_per_batch_simt_mma_mma_simt=cell_turns(
+                        coarse_mod, "coarse_blockmax", lambda: fn(*args)))
     emit(rec)
     results["coarse_2m"] = rec
 
@@ -1231,18 +1487,19 @@ def kernels_line(results):
     src, rep = KERNEL_SOURCES["distance_select"]
     r = {x["index_dtype"]: x for x in results["distance_select"]}
     f32, b16 = r["float32"], r["bfloat16"]
+    keys_v = keys + ("variant", "simt_ms")
     out.append(dict(name="distance_select", route="cuda", source=src,
                     replaces=rep, launches=launches["distance_select"],
-                    **{key: f32[key] for key in keys},
-                    bf16_index={key: b16[key] for key in keys}))
+                    **{key: f32[key] for key in keys_v},
+                    bf16_index={key: b16[key] for key in keys_v}))
     # the coarse cell's shape (210,000 rows, d_c 32) first, the others beside
     src, rep = KERNEL_SOURCES["coarse_blockmax"]
     main_shape, *others = results["coarse_blockmax"]
     out.append(dict(name="coarse_blockmax", route="cuda", source=src,
                     replaces=rep, launches=launches["coarse_blockmax"],
-                    **{key: main_shape[key] for key in keys},
+                    **{key: main_shape[key] for key in keys_v},
                     other_shapes=[dict(shape=o["shape"],
-                                       **{key: o[key] for key in keys})
+                                       **{key: o[key] for key in keys_v})
                                   for o in others]))
     return {"kernels": out}
 
@@ -1258,7 +1515,8 @@ def main(argv=None) -> int:
                          + " and profile (coarse needs flagship); the "
                            "default runs all but profile and is the only "
                            "one that ends with the ok line; rnn runs the "
-                           "K1 / K3 kernel checks alone, steps prints the "
+                           "K1 / K3 kernel checks alone, select the K2 and "
+                           "coarse_kernel the K4 checks, steps prints the "
                            "persistent kernels' per-step time split, "
                            "wgmma_rate the tensor cores' own time for it")
     ap.add_argument("--resource-usage", action="store_true",
@@ -1306,8 +1564,10 @@ def main(argv=None) -> int:
     if phases & {"kernels", "rnn"}:
         phase_rnn(results, SEED, "lstm")
         phase_rnn(results, SEED, "gru")
-    if "kernels" in phases:
+    if phases & {"kernels", "select"}:
         phase_select(results, SEED)
+        settle()
+    if phases & {"kernels", "coarse_kernel"}:
         phase_coarse_kernel(results, SEED)
         settle()
     with tempfile.TemporaryDirectory() as workdir:

@@ -14,11 +14,49 @@
 //
 // What bounds it on this card: it reads the index once (215 MB f32 or
 // 107.5 MB bf16 at S=2, N=210,000, d=128) and does 2*S*Q*N*d flops (27.5
-// GFLOP at Q=256).  With f32 products that is operations at the f32 rate;
-// with a bf16 index it is bytes.  This first version does the products
-// with plain f32 FMAs and is well above either bound.
+// GFLOP at Q=256).  With a bf16 index that is bytes (0.035 ms).  With an f32
+// index the products need f32 accuracy, which the tensor cores give only as
+// three TF32 products (below): operations, 3 x the TF32 time (0.17 ms), still
+// under the f32 SIMT time (0.41 ms).
 //
-// Design.  A block takes 64 queries (resident in shared memory, already
+// Two variants; the host's plan (ops/kernels/select_plan.py) picks one from
+// shapes and dtype, nothing is decided by trying a launch.
+//
+// `mma` (bins a multiple of 64, d a multiple of 16).  The geometry that
+// makes it cheap: row tile*block_n + a*bins + b lies in bin b, so the 64
+// contiguous rows of one `a` hit 64 consecutive bins once each, and an MMA
+// tile of [queries x those rows] has one (query, bin) pair per accumulator
+// element.  The running (min, a) over a is then a compare-and-select on the
+// accumulator registers, in ascending a with a strict < (lowest row wins a
+// tie): no staging tile, no shuffle, no atomics, and the [Q, N] distances
+// never reach device memory.  A CTA (8 warps: 4 along queries x 2 along
+// rows, warp tile 32 queries x 32 rows) keeps 128 queries resident in
+// shared memory (rounded to the index dtype once) and streams the rows of
+// its `a` range through a 4-stage cp.async ring of [64 rows x 128 bytes]
+// chunks, 16 bytes a thread, two copies per thread and chunk; rows are
+// padded by 16 bytes so that fragment reads hit distinct banks.
+//   bf16 index: mma.sync m16n8k16 bf16 -> f32, fragments by ldmatrix.
+//   f32 index: one TF32 pass is a different result (10-bit mantissa), so
+//     each operand is split in registers on its fragments, x = hi + lo with
+//     hi = tf32(x) and lo = x - hi (exact; the tensor core reads it
+//     truncated to TF32), and each k-step adds lo*hi + hi*lo + hi*hi into the
+//     f32 accumulator, small terms first (mma.sync m16n8k8 tf32).  What is
+//     dropped is lo*lo and the truncation of lo: ~2^-21 of a product.
+//   Two streams share one accumulator without touching the rounded query:
+//     the stream with the smaller |w| runs first, the accumulator is scaled
+//     by w_first / w_second (|ratio| <= 1) and the second stream adds on, so
+//     key = (w0 msq0[r] + w1 msq1[r]) - 2 w_second * acc.  The per-query
+//     constant sum_s w_s |q_s|^2 does not change an argmin and is added
+//     once at the end.  A small pre-pass computes both constants (rows past
+//     N get 1e30 as in the reference's padding).
+//   Work is cut into units of (tile, 64-bin group, 128-query tile, `a`
+//   range): the host's plan splits the a range so that the units fill the
+//   card's CTA slots evenly.  With more than one a range per bin, each
+//   writes its partial (min, row) and a combine pass takes them in
+//   ascending a with a strict <, which keeps the lowest-row rule.
+//
+// `simt` (everything else): f32 FMAs, the first design.  A block takes 64
+// queries (resident in shared memory, already
 // rounded, with their f32 |q|^2) and 64 consecutive bins of one tile.  It
 // walks a = 0 .. bin_size-1; at each a the 64 bins' rows are the 64
 // contiguous rows tile*block_n + a*bins + b0 .. +63, streamed through
@@ -30,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -206,6 +246,380 @@ int launch(const float* q, const void* m, const float* msq, float w0,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The `mma` variant.  See the header note.
+
+constexpr int SQ = 128;       // queries per CTA
+constexpr int SR = 64;        // index rows per a-step: one per bin of a group
+constexpr int SSTAGES = 4;    // ring stages
+constexpr int SCH = 128;      // bytes of a row in one chunk
+// Shared-memory rows.  bf16: every row (a stage's 128 bytes, a query's whole
+// depth) is padded by 16 bytes, so that ldmatrix reads 8 rows from 8 distinct
+// bank groups.  f32: rows are not padded; inside each 128-byte chunk the
+// 16-byte piece p of row r sits at p ^ (4 * (r & 1)), so that the 128-bit
+// fragment loads of two neighbouring rows (one quarter-warp) cover all banks.
+template <typename MT>
+struct Layout {
+  static constexpr int PAD = sizeof(MT) == 2 ? 16 : 0;
+  static constexpr int ROWB = SCH + PAD;       // row bytes of a stage
+  static constexpr int STAGE = SR * ROWB;
+  __host__ __device__ static constexpr int swz(int piece, int row) {
+    return sizeof(MT) == 2 ? piece : piece ^ (4 * (row & 1));
+  }
+};
+
+struct SelectArgs {
+  const float* q;        // [S, Q, d]
+  const void* qb;        // bf16 index: [S, Q, dpad] q rounded, zero padded
+  const void* m;         // [S, N, d]
+  const float* cr;       // [tiles * block_n]  sum_s w_s msq_s[r]; 1e30 past N
+  const float* cq;       // [Q]                sum_s w_s |q_s|^2
+  float* vals;           // [P, Q, C] (P = 1: the output itself)
+  int* rows;
+  int S, Q, N, d, bin_size, bins, block_n, groups, C;
+  int P, per_a;          // a ranges per bin, a values per range
+  int first;             // the stream that runs first
+  float ratio, scale;    // w_first / w_second, -2 w_second
+};
+
+// cr, cq and the bf16 copy of q (one launch, before the main kernel).
+__global__ void select_prep(const float* __restrict__ q,
+                            const float* __restrict__ msq, float w0, float w1,
+                            float* __restrict__ cr, float* __restrict__ cq,
+                            __nv_bfloat16* __restrict__ qb, int S, int Q,
+                            int N, int d, int dpad, int n_pad) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qb != nullptr)     // the queries rounded once, zero padded to dpad
+    for (size_t j = i; j < (size_t)S * Q * dpad;
+         j += (size_t)gridDim.x * blockDim.x) {
+      const int k = (int)(j % dpad);
+      qb[j] = __float2bfloat16_rn(k < d ? q[j / dpad * d + k] : 0.0f);
+    }
+  if (i < n_pad) {
+    float v = w0 * (i < N ? msq[i] : 1e30f);
+    if (S == 2) v += w1 * (i < N ? msq[(size_t)N + i] : 1e30f);
+    cr[i] = v;
+  } else if (i - n_pad < Q) {
+    const int qi = i - n_pad;
+    float v = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      const float* row = q + ((size_t)s * Q + qi) * d;
+      float acc = 0.0f;
+      for (int k = 0; k < d; ++k) acc += row[k] * row[k];
+      v += (s == 0 ? w0 : w1) * acc;
+    }
+    cq[qi] = v;
+  }
+}
+
+template <typename MT>
+__global__ void __launch_bounds__(256, sizeof(MT) == 2 ? 2 : 1)
+distance_select_mma(const SelectArgs p) {
+  constexpr bool BF = sizeof(MT) == 2;
+  constexpr int ES = sizeof(MT);
+  constexpr int KC = SCH / ES;                 // elements of one chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = p.d, S = p.S, N = p.N, Q = p.Q;
+  using L = Layout<MT>;
+  constexpr int SROWB = L::ROWB, SSTAGE = L::STAGE;
+  const int nc = (d + KC - 1) / KC;            // chunks per stream
+  const int qrb = nc * SCH + L::PAD;           // bytes of a query row
+  unsigned char* qs = smem_raw;                // [S][SQ] rows of qrb bytes
+  const uint32_t qs_u = smem_u32(qs);
+  const uint32_t ring = qs_u + S * SQ * qrb;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq = warp % 4, wr = warp / 4;
+
+  int u = blockIdx.x;
+  const int q_tiles = (Q + SQ - 1) / SQ;
+  const int qt = u % q_tiles;  u /= q_tiles;
+  const int pi = u % p.P;      u /= p.P;
+  const int grp = u % p.groups;
+  const int tile = u / p.groups;
+  const int q0 = qt * SQ;
+  const int a0 = pi * p.per_a;
+  const int a1 = min(p.bin_size, a0 + p.per_a);
+  const size_t row_base = (size_t)tile * p.block_n + (size_t)grp * SR;
+
+  // the resident query tile, slot 0 = the stream that runs first: 16-byte
+  // copies that join the ring's first group.  Rows past Q and (f32) pieces
+  // past d are zeroed; the bf16 copy is zero padded already.
+  {
+    const int ppr = nc * (SCH / 16);           // pieces of a query row
+    const size_t src_row = BF ? (size_t)nc * SCH : (size_t)d * ES;
+    const unsigned char* src0 =
+        static_cast<const unsigned char*>(BF ? p.qb : (const void*)p.q);
+    for (int i = threadIdx.x; i < S * SQ * ppr; i += 256) {
+      const int pc = i % ppr, rest = i / ppr;
+      const int ql = rest % SQ, slot = rest / SQ;
+      const int s = slot == 0 ? p.first : 1 - p.first;
+      const int qi = q0 + ql;
+      const bool ok = qi < Q && (size_t)pc * 16 < src_row;
+      cp_async16_s(qs_u + (slot * SQ + ql) * qrb + (pc / 8) * SCH +
+                       L::swz(pc % 8, ql) * 16,
+                   ok ? src0 + ((size_t)s * Q + qi) * src_row + pc * 16 : src0,
+                   ok);
+    }
+  }
+
+  const int n_iter = (a1 - a0) * S * nc;
+  // producer position (a, slot, chunk)
+  int pa = a0, ps = 0, pc = 0;
+  const int lrow = threadIdx.x / 8, lpiece = threadIdx.x % 8;
+  auto load = [&](int stage) {
+    const int s = ps == 0 ? p.first : 1 - p.first;
+    const size_t r0 = row_base + (size_t)pa * p.bins;
+    const int kbyte = pc * SCH + lpiece * 16;
+    const bool k_ok = kbyte < d * ES;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = lrow + 32 * j;
+      const bool ok = k_ok && r0 + r < (size_t)N;
+      const unsigned char* src =
+          static_cast<const unsigned char*>(p.m) +
+          (((size_t)s * N + r0 + r) * d) * ES + kbyte;
+      cp_async16_s(ring + stage * SSTAGE + r * SROWB + L::swz(lpiece, r) * 16,
+                   ok ? (const void*)src : p.m, ok);
+    }
+    if (++pc == nc) { pc = 0; if (++ps == S) { ps = 0; ++pa; } }
+  };
+
+#pragma unroll
+  for (int i = 0; i < SSTAGES - 1; ++i) {
+    if (i < n_iter) load(i);
+    cp_async_commit();
+  }
+
+  float acc[2][4][4], best[2][4][4];
+  int best_a[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mt][nt][e] = 0.0f;
+        best[mt][nt][e] = INFINITY;
+        best_a[mt][nt][e] = a0;
+      }
+
+  // fragment addresses that do not change: A rows of this warp's queries,
+  // B rows of this warp's 32 index rows
+  uint32_t a_off, b_off;
+  if constexpr (BF) {
+    a_off = (wq * 32 + lane % 8 + 8 * ((lane / 8) % 2)) * qrb +
+            (lane / 16) * 16;
+    b_off = (wr * 32 + lane % 8 + 8 * (lane / 16)) * SROWB +
+            ((lane / 8) % 2) * 16;
+  } else {
+    // 16 bytes = 4 consecutive k of row g: piece t (k-steps 0, 1 of the
+    // chunk) and piece 4 + t (k-steps 2, 3); the row's parity (that of g)
+    // swaps the two halves of the chunk
+    a_off = (wq * 32 + g) * qrb + t * 16;
+    b_off = (wr * 32 + g) * SROWB + t * 16;
+  }
+
+  int ca = a0, cs = 0, cc = 0;                 // consumer position
+  float2 crv[4];
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<SSTAGES - 2>();
+    __syncthreads();       // chunk `it` is in; chunk it-1's readers are done
+    if (it + SSTAGES - 1 < n_iter) load((it + SSTAGES - 1) % SSTAGES);
+    cp_async_commit();
+    const bool last = cc == nc - 1 && cs == S - 1;
+    if (last) {            // this a-step's row constants, ahead of their use
+      const float* crp = p.cr + row_base + (size_t)ca * p.bins + wr * 32 + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        crv[nt] = __ldg(reinterpret_cast<const float2*>(crp + nt * 8));
+    }
+    const uint32_t sa = qs_u + cs * SQ * qrb + cc * SCH + a_off;
+    const uint32_t sb = ring + (it % SSTAGES) * SSTAGE + b_off;
+    if constexpr (BF) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {           // k16 steps of the chunk
+        uint32_t af[2][4], bf[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(af[mt], sa + mt * 16 * qrb + ks * 32);
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4(bf[np], sb + np * 16 * SROWB + ks * 32);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[mt][nt], af[mt], bf[nt / 2][2 * (nt % 2)],
+                     bf[nt / 2][2 * (nt % 2) + 1]);
+      }
+    } else {
+      // The k index of a product may be permuted as long as both operands
+      // agree: a thread takes 4 consecutive k (one 128-bit load) and feeds
+      // them to two k-steps, k = 4t, 4t+1 as the fragment slots (t, t+4) of
+      // the first and 4t+2, 4t+3 as those of the second.
+      const unsigned char* fa = smem_raw + (sa - qs_u);
+      const unsigned char* fb = smem_raw + (sb - qs_u);
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {           // pairs of k8 steps
+        uint32_t ah[2][2][4], al[2][2][4];       // [k-step][m tile][slot]
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                fa + (mt * 16 + 8 * h) * qrb + (kp ^ (g & 1)) * 64);
+            split_tf32(x.x, ah[0][mt][h], al[0][mt][h]);
+            split_tf32(x.y, ah[0][mt][h + 2], al[0][mt][h + 2]);
+            split_tf32(x.z, ah[1][mt][h], al[1][mt][h]);
+            split_tf32(x.w, ah[1][mt][h + 2], al[1][mt][h + 2]);
+          }
+        uint32_t bh[2][4][2], bl[2][4][2];       // [k-step][n tile][slot]
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              fb + nt * 8 * SROWB + (kp ^ (g & 1)) * 64);
+          split_tf32(x.x, bh[0][nt][0], bl[0][nt][0]);
+          split_tf32(x.y, bh[0][nt][1], bl[0][nt][1]);
+          split_tf32(x.z, bh[1][nt][0], bl[1][nt][0]);
+          split_tf32(x.w, bh[1][nt][1], bl[1][nt][1]);
+        }
+        // small terms first; the 8 accumulators of a term are independent
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_tf32(acc[mt][nt], al[ks][mt], bh[ks][nt][0], bh[ks][nt][1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_tf32(acc[mt][nt], ah[ks][mt], bl[ks][nt][0], bl[ks][nt][1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_tf32(acc[mt][nt], ah[ks][mt], bh[ks][nt][0], bh[ks][nt][1]);
+        }
+      }
+    }
+    if (cc == nc - 1) {
+      if (!last) {         // the first stream is done: weigh it
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= p.ratio;
+      } else {             // the a-step is done: running (min, a)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float key = fmaf(acc[mt][nt][e], p.scale,
+                                     e % 2 ? crv[nt].y : crv[nt].x);
+              if (key < best[mt][nt][e]) {
+                best[mt][nt][e] = key;
+                best_a[mt][nt][e] = ca;
+              }
+              acc[mt][nt][e] = 0.0f;
+            }
+      }
+    }
+    if (++cc == nc) { cc = 0; if (++cs == S) { cs = 0; ++ca; } }
+  }
+  cp_async_wait<0>();
+
+  float* vals = p.vals + (size_t)pi * Q * p.C;
+  int* rows = p.rows + (size_t)pi * Q * p.C;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + wq * 32 + mt * 16 + g + 8 * h;
+      if (qi >= Q) continue;
+      const float cqv = p.cq[qi];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int b = grp * SR + wr * 32 + nt * 8 + 2 * t;
+        const size_t o = (size_t)qi * p.C + (size_t)tile * p.bins + b;
+        const int r0 = tile * p.block_n + b;
+        *reinterpret_cast<float2*>(vals + o) = make_float2(
+            best[mt][nt][2 * h] + cqv, best[mt][nt][2 * h + 1] + cqv);
+        *reinterpret_cast<int2*>(rows + o) =
+            make_int2(r0 + best_a[mt][nt][2 * h] * p.bins,
+                      r0 + 1 + best_a[mt][nt][2 * h + 1] * p.bins);
+      }
+    }
+}
+
+// The partial (min, row) of the P a-ranges of every bin, in ascending a:
+// a strict < keeps the lowest row of a tie.
+__global__ void select_combine(const float* __restrict__ pv,
+                               const int* __restrict__ pr,
+                               float* __restrict__ vals,
+                               int* __restrict__ rows, int P, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = pv[i];
+    int r = pr[i];
+    for (int k = 1; k < P; ++k) {
+      const float vk = pv[k * n + i];
+      if (vk < v) { v = vk; r = pr[k * n + i]; }
+    }
+    vals[i] = v;
+    rows[i] = r;
+  }
+}
+
+template <typename MT>
+int launch_mma(SelectArgs a, const float* msq, float w0, float w1,
+               float* cr, float* cq, void* qb, float* vals, int* rows, float* pv,
+               int* pr, int smem, cudaStream_t stream) {
+  constexpr int KC = SCH / (int)sizeof(MT);
+  const int nc = (a.d + KC - 1) / KC;
+  using L = Layout<MT>;
+  const int need = a.S * SQ * (nc * SCH + L::PAD) + SSTAGES * L::STAGE;
+  const int tiles = (a.N + a.block_n - 1) / a.block_n;
+  if (smem < need || a.bins % SR || a.d % 16 || a.P < 1 || a.per_a < 1 ||
+      (long long)a.P * a.per_a < a.bin_size ||
+      (long long)(a.P - 1) * a.per_a >= a.bin_size)
+    return (int)cudaErrorInvalidValue;
+  const int n_pad = tiles * a.block_n;
+  const bool bf = sizeof(MT) == 2;
+  if (bf && qb == nullptr) return (int)cudaErrorInvalidValue;
+  select_prep<<<(n_pad + a.Q + 255) / 256, 256, 0, stream>>>(
+      a.q, msq, w0, w1, cr, cq, bf ? static_cast<__nv_bfloat16*>(qb) : nullptr,
+      a.S, a.Q, a.N, a.d, nc * KC, n_pad);
+  a.qb = qb;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(distance_select_mma<MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  a.cr = cr;
+  a.cq = cq;
+  a.vals = a.P > 1 ? pv : vals;
+  a.rows = a.P > 1 ? pr : rows;
+  const int q_tiles = (a.Q + SQ - 1) / SQ;
+  const long long units = (long long)q_tiles * a.P * a.groups * tiles;
+  distance_select_mma<MT><<<(unsigned)units, 256, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (a.P > 1) {
+    const size_t n = (size_t)a.Q * a.C;
+    select_combine<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        pv, pr, vals, rows, a.P, n);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
 }  // namespace
 
 // q [S, Q, d] f32; m [S, N, d] bf16 (m_bf16 = 1) or f32; msq [S, N] f32;
@@ -230,4 +644,48 @@ extern "C" int vfr_distance_select(const float* q, const void* m,
                                      bin_size, block_n, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The `mma` variant: bins = block_n / bin_size a multiple of 64, d a multiple
+// of 16, all pointers 16-byte aligned.  a_splits ranges of per_a values of
+// `a` per bin (a_splits > 1 needs the partial buffers pv, pr [a_splits, Q,
+// C]); cr [ceil(N / block_n) * block_n], cq [Q] and, for a bf16 index, qb
+// [S, Q, d rounded up to 64] bf16 are scratch.  The plan
+// (a_splits, per_a, shared memory bytes) comes from the caller; what the
+// kernel cannot run is refused with an error code.
+extern "C" int vfr_distance_select_mma(
+    const float* q, const void* m, const float* msq, float w0, float w1,
+    int S, int Q, int N, int d, int bin_size, int block_n, int m_bf16,
+    int a_splits, int per_a, int smem, float* cr, float* cq, void* qb,
+    float* pv, int* pr, float* vals, int* rows, void* stream) {
+  if (S < 1 || S > 2 || Q <= 0 || N <= 0 || bin_size < 1 ||
+      block_n % bin_size)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(cr) |
+       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(qb) |
+       reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(rows) |
+       reinterpret_cast<uintptr_t>(pv) | reinterpret_cast<uintptr_t>(pr)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  SelectArgs a = {};
+  a.q = q;
+  a.m = m;
+  a.S = S; a.Q = Q; a.N = N; a.d = d;
+  a.bin_size = bin_size;
+  a.block_n = block_n;
+  a.bins = block_n / bin_size;
+  a.groups = a.bins / SR;
+  a.C = (N + block_n - 1) / block_n * a.bins;
+  a.P = a_splits;
+  a.per_a = per_a;
+  // the stream with the smaller |w| first, so that |ratio| <= 1
+  a.first = (S == 2 && fabsf(w0) > fabsf(w1)) ? 1 : 0;
+  const float w_first = S == 1 ? 0.0f : (a.first == 0 ? w0 : w1);
+  const float w_second = S == 1 ? w0 : (a.first == 0 ? w1 : w0);
+  a.ratio = w_second != 0.0f ? w_first / w_second : 0.0f;
+  a.scale = -2.0f * w_second;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return m_bf16 ? launch_mma<__nv_bfloat16>(a, msq, w0, w1, cr, cq, qb, vals,
+                                            rows, pv, pr, smem, s)
+                : launch_mma<float>(a, msq, w0, w1, cr, cq, qb, vals, rows,
+                                    pv, pr, smem, s);
 }

@@ -43,6 +43,8 @@
 //    cp.async pipeline (bf16 weights), and the cp.async helpers.  The
 //    persistent variant uses the same input product when W_ih's slice does
 //    not fit beside W_hh's.
+// The cp.async helpers come from mma_common.cuh, which every kernel source
+// of the port shares.
 
 #pragma once
 
@@ -50,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -135,23 +139,6 @@ using namespace nvcuda;
 using Bf16 = __nv_bfloat16;
 
 constexpr int STAGES = 3;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;     // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // xb[m, k] = bf16(x[m, k]) for k < K, 0 for K <= k < Kp (Kp % 8 == 0)
 __global__ void to_bf16_padded(const float* __restrict__ x,
@@ -323,18 +310,6 @@ __device__ __forceinline__ void stamp(const PersistentArgs& p, int t,
   }
 }
 
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* gmem,
-                                             bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
 
 // K-major operand tile of 128-byte rows with the 128-byte swizzle: groups
 // of 8 rows 1024 bytes apart; the tile is 1024-byte aligned.

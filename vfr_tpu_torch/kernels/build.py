@@ -49,9 +49,12 @@ SIGNATURES = {
     "distance_select": {
         "vfr_distance_select": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I,
                                 _I, _P, _P, _P],
+        "vfr_distance_select_mma": [_P, _P, _P, _F, _F] + [_I] * 10
+                                   + [_P] * 8,
     },
     "coarse_blockmax": {
         "vfr_coarse_blockmax": [_P] * 4 + [_I] * 5 + [_P],
+        "vfr_coarse_blockmax_mma": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 

@@ -8,14 +8,33 @@ past N read as msq = 1e30 (the Pallas path's padding), so a block's padded
 rows score -1e30 and never win.  The [Q, N] scores are never stored.
 
 ``coarse_blockmax`` launches the kernel for CUDA tensors (or raises) and
-runs ``coarse_blockmax_plain`` for CPU tensors.  ``LAUNCHES`` counts kernel
-launches under "coarse_blockmax".
+runs ``coarse_blockmax_plain`` for CPU tensors.  The kernel has two
+variants, ``mma`` (bf16 rows, tensor-core products with the queries held in
+registers, an asynchronous ring, one fma and one fmax per score) and ``simt`` (f32 FMAs;
+f32 rows and every other width); ``select_plan.plan_coarse_blockmax`` picks
+one from shapes, dtype and device properties, and ``variant=`` holds a call
+to one.  Nothing falls back: a variant that cannot run raises.
+
+``LAUNCHES`` counts kernel launches under "coarse_blockmax",
+``VARIANT_LAUNCHES`` the same launches by variant, and ``LAST_PLAN`` is the
+plan of the last one.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from vfr_tpu_torch.ops.kernels.select_plan import (
+    CoarsePlan,
+    aligned16,
+    check_variant,
+    device_limits,
+    hold_to_variant,
+    plan_coarse_blockmax,
+)
 
 # The row alignment a coarse index is padded to at build time
 # (``eval.coarse._row_alignment``); it is written into every coarse file, so
@@ -23,6 +42,8 @@ import torch.nn.functional as F
 KERNEL_BLOCK_N = 16384
 
 LAUNCHES = {"coarse_blockmax": 0}
+VARIANT_LAUNCHES = {"mma": 0, "simt": 0}
+LAST_PLAN: Optional[CoarsePlan] = None
 
 _QT = 64                        # queries per CTA (csrc/coarse_blockmax.cu)
 _SMEM_LIMIT = 227 * 1024
@@ -51,10 +72,15 @@ def coarse_blockmax(
     m_low: torch.Tensor,      # [N, d_c] bf16 or f32
     msq_low: torch.Tensor,    # [N] f32 (1e30 on invalid rows)
     block_rows: int = 128,
+    variant: str = "auto",
 ) -> torch.Tensor:
-    """Per-block maxima of the coarse scores: sb [Q, G]."""
+    """Per-block maxima of the coarse scores: sb [Q, G].  ``variant``
+    ("auto", "mma", "simt") holds the call to one kernel variant ("mma"
+    raises where the plan refuses it)."""
+    global LAST_PLAN
     Q, d = q_low.shape
     N = m_low.shape[0]
+    check_variant(variant)
     if m_low.shape != (N, d) or msq_low.shape != (N,):
         raise ValueError(
             f"coarse_blockmax shapes: q_low {tuple(q_low.shape)} m_low "
@@ -69,24 +95,41 @@ def coarse_blockmax(
                          f"on {m_low.device}, msq_low on {msq_low.device}")
     if m_low.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"m_low dtype {m_low.dtype} not supported")
-    ld = -(-d // 4) * 4 + 4
-    if ((_QT + block_rows) * ld + block_rows) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"coarse width d={d} too large for the kernel's "
-                         "shared-memory tiles")
     if Q == 0 or N == 0:
         raise ValueError("coarse_blockmax: empty input")
+    if variant == "simt":
+        plan = CoarsePlan("simt", "asked for")
+    else:
+        plan = hold_to_variant(
+            plan_coarse_blockmax(Q, N, d, block_rows, m_low.dtype,
+                                 *device_limits(q_low.device)),
+            variant, "coarse_blockmax")
+    ld = -(-d // 4) * 4 + 4
+    if plan.variant == "simt" \
+            and ((_QT + block_rows) * ld + block_rows) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"coarse width d={d} too large for the kernel's "
+                         "shared-memory tiles")
     from vfr_tpu_torch.kernels.build import check, load
 
-    q_low = q_low.float().contiguous()
-    m_low = m_low.contiguous()
-    msq_low = msq_low.float().contiguous()
+    q_low = aligned16(q_low.float().contiguous())
+    m_low = aligned16(m_low.contiguous())
+    msq_low = aligned16(msq_low.float().contiguous())
     out = torch.empty(Q, -(-N // block_rows), dtype=torch.float32,
                       device=q_low.device)
     stream = torch.cuda.current_stream(q_low.device).cuda_stream
-    err = load("coarse_blockmax").vfr_coarse_blockmax(
-        q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
-        out.data_ptr(), Q, N, d, block_rows,
-        int(m_low.dtype == torch.bfloat16), stream)
-    check(err, "coarse_blockmax")
+    lib = load("coarse_blockmax")
+    if plan.variant == "mma":
+        err = lib.vfr_coarse_blockmax_mma(
+            q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
+            out.data_ptr(), Q, N, d, block_rows, plan.stages_per_cta,
+            plan.grid[1], plan.smem_bytes, stream)
+    else:
+        err = lib.vfr_coarse_blockmax(
+            q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
+            out.data_ptr(), Q, N, d, block_rows,
+            int(m_low.dtype == torch.bfloat16), stream)
+    check(err, f"coarse_blockmax[{plan.variant}]")
     LAUNCHES["coarse_blockmax"] += 1
+    VARIANT_LAUNCHES[plan.variant] += 1
+    LAST_PLAN = plan
     return out
