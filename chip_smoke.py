@@ -696,7 +696,6 @@ def phase_select(results, seed: int):
                    variant=auto_plan.variant,
                    plan=dict(a_splits=plan.a_splits,
                              a_per_split=plan.a_per_split, grid=plan.grid,
-                             ctas_per_sm=plan.ctas_per_sm,
                              smem_bytes=plan.smem_bytes),
                    max_abs_err=err, max_rel_err=rel,
                    max_abs_err_simt=checks["simt"][1], tol=1e-3,
@@ -786,15 +785,20 @@ def phase_profile(seed: int):
     m_cat = torch.randn(210_000, 256, device=dev)
     msq_fused = (m_cat * m_cat).sum(-1)
 
+    # the fused cell's index is f32; the bf16 build of K2 runs beside it
+    m32 = torch.randn(2, 210_000, 128, device=dev)
+    m32_sq = (m32 ** 2).sum(-1)
+
     def work():
         lstm_layer(x, lengths, w_ih, w_hh, p["b"], pool="mean")
+        distance_select(q, m32, m32_sq, [0.5, 0.5])
         distance_select(q, m, m_sq, [0.5, 0.5])
         scores = fused_corpus_scores(q, m_cat, msq_fused, [0.5, 0.5],
                                      in_dtype=torch.float32)
         top_k_select(scores, 10)
 
     _device_profile("flagship_stages", work)
-    del m, m_sq, m_cat, msq_fused
+    del m, m_sq, m32, m32_sq, m_cat, msq_fused
     gw_ih, gw_hh = (pg["w_ih"].to(torch.bfloat16),
                     pg["w_hh"].to(torch.bfloat16))
     _device_profile("gru_pooled", lambda: gru_layer(

@@ -61,6 +61,25 @@ def test_plain_matches_pallas_and_reference(N, Q, d_c, B, bn, dtype):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("N,Q,d_c,B,bn", [
+    (4999, 200, 32, 32, 1024),    # ragged N, 32-row blocks, Q off the tiles
+    (3001, 70, 64, 64, 1024),
+    (1300, 33, 48, 128, 512),     # a width between the usual two
+    (130, 5, 16, 32, 256),
+])
+def test_plain_matches_pallas_block_sizes_and_ragged_rows(N, Q, d_c, B, bn):
+    """The shapes the card's check adds (block_rows 32 and 64, N not a
+    multiple of anything, Q = 200), with invalid rows at the end."""
+    q, m, msq, qj, mj, msqj = _case(N, Q, d_c, "bfloat16", seed=4,
+                                    n_invalid=3)
+    got = coarse_blockmax(q, m, msq, block_rows=B)
+    assert got.shape == (Q, -(-N // B))
+    ref = pallas_coarse_blockmax(qj, mj, msqj, block_rows=B, block_n=bn,
+                                 interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_invalid_rows_never_win():
     """A block whose rows are all invalid scores <= -1e29, and rows past N
     (a ragged last block) read as msq = 1e30."""

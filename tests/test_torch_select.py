@@ -62,6 +62,39 @@ def test_plain_matches_pallas_and_reference(S, dtype):
         np.testing.assert_array_equal(got_r.numpy(), np.asarray(ref_r))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,w,n,bin_size", [
+    (2, [0.3, 0.7], 513, 16),      # one row past two tiles, odd weights
+    (2, [0.7, 0.3], 1000, 32),     # the heavier stream first
+    (1, [0.3], 255, 32),           # less than one tile, one stream
+    (1, [1.0], 700, 64),
+    (2, [0.5, 0.5], 512, 256),     # one bin a tile
+])
+def test_plain_matches_pallas_ragged_bins_and_weights(S, w, n, bin_size,
+                                                      dtype):
+    """Ragged N, bins of 16 to 256 rows, S = 1 and stream weights that are
+    no powers of two: same tolerances as above."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((S, Q, D_EMB)).astype(np.float32)
+    m_t = torch.from_numpy(rng.standard_normal((S, n, D_EMB)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    m_sq = (m_t.float() ** 2).sum(-1).numpy()
+    m_j = jnp.asarray(m_t.float().numpy(), jnp.dtype(dtype))
+    got_v, got_r = distance_select(torch.from_numpy(q), m_t,
+                                   torch.from_numpy(m_sq), w, bin_size,
+                                   BLOCK_N)
+    assert got_v.shape == (Q, -(-n // BLOCK_N) * (BLOCK_N // bin_size))
+    ref_v, ref_r = pallas_distance_select(
+        jnp.asarray(q), m_j, jnp.asarray(m_sq), w, bin_size=bin_size,
+        block_n=BLOCK_N, interpret=True)
+    ref_v, ref_r = np.asarray(ref_v), np.asarray(ref_r)
+    live = ref_v < 1e29                      # bins of padding hold ~1e30
+    np.testing.assert_allclose(got_v.numpy()[live], ref_v[live], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_v.numpy()[~live], ref_v[~live], rtol=1e-6)
+    np.testing.assert_array_equal(got_r.numpy(), ref_r)
+
+
 def test_ties_go_to_the_lowest_row():
     """Identical index rows tie exactly: every bin must report its first
     row, as jnp.argmin does."""

@@ -57,23 +57,22 @@ def _select(**kw):
     return plan_distance_select(**args)
 
 
-@pytest.mark.parametrize("dtype,ctas,smem", [
-    (F32, 1, 2 * 128 * 512 + 4 * 64 * 128),
-    (BF16, 2, 2 * 128 * (256 + 16) + 4 * 64 * 144),
+@pytest.mark.parametrize("dtype,stages,smem,splits", [
+    # f32: unpadded query rows, 3 stages of 2 x (raw | lo) tiles, 5 a ranges
+    (F32, 3, 1024 + 2 * 128 * 512 + 3 * 4 * 8192, 5),
+    # bf16: padded query rows, 4 stages of a whole a-step, one a range
+    (BF16, 4, 1024 + 2 * 128 * (256 + 16) + 4 * 4 * 8192, 1),
 ])
-def test_flagship_select_plans_mma(dtype, ctas, smem):
+def test_flagship_select_plans_mma(dtype, stages, smem, splits):
     plan = _select(dtype=dtype)
     assert plan.variant == "mma"
-    assert (plan.q_tile, plan.rows, plan.stages) == (128, 64, 4)
+    assert (plan.q_tile, plan.rows, plan.stages) == (128, 64, stages)
     assert plan.chunk * (2 if dtype == BF16 else 4) == 128
     assert plan.smem_bytes == smem <= H100_SMEM
-    assert plan.ctas_per_sm == ctas
     # 2 query tiles x 1 group x 52 tiles, times the a ranges
-    assert plan.grid == 104 * plan.a_splits
+    assert plan.a_splits == splits and plan.grid == 104 * splits
     assert (plan.a_splits - 1) * plan.a_per_split < 64 \
         <= plan.a_splits * plan.a_per_split
-    # the split fills the card: more units than CTA slots
-    assert plan.grid >= H100_SMS * ctas
 
 
 def test_serving_10k_select_plans_mma():
@@ -133,7 +132,6 @@ def test_mma_select_plans_fit_and_cover(S, Q, N, d, bin_size, sms, smem,
     bins = 4096 // bin_size
     assert plan.grid == (-(-Q // 128) * (bins // 64) * -(-N // 4096)
                          * plan.a_splits)
-    assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= smem + 1024
 
 
 # ------------------------------------------------------------- K4's plan

@@ -30,10 +30,13 @@
 // same stage.  The epilogue is one fma (2 acc - msq, rounded once as in
 // the plain version) and one fmax per score.  Starting the accumulator at
 // -msq[r]/2 instead (one fmax per score) was measured and dropped: every
-// k-step then rounds at the magnitude of msq/2 and the result misses the
-// 1e-5 tolerance at d = 64 (1.5e-5).  Only the order of the f32
-// sum inside a product differs from the plain version.  Block maxima are staged per warp in
-// shared memory and written out as runs of consecutive blocks per query.
+// k-step then rounds at the magnitude of msq/2, and the result missed the
+// 1e-5 tolerance at d = 64 (1.5e-5).  The tensor core sums a k-step's 16
+// products with truncation, a few ulp of the sum: where |q.m| is much
+// larger than the result (unnormalised queries) that shows as ~1e-5 of
+// max(|value|, 1); with the unit-norm queries of the serving path it is
+// ~2e-7.  Block maxima are staged per warp in shared memory and written out
+// as runs of consecutive blocks per query.
 //
 // `simt` (f32 rows, other widths).  The TPU kernel's grid walks [128-query
 // x 16384-row] tiles and

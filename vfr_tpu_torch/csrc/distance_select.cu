@@ -29,19 +29,28 @@
 // element.  The running (min, a) over a is then a compare-and-select on the
 // accumulator registers, in ascending a with a strict < (lowest row wins a
 // tie): no staging tile, no shuffle, no atomics, and the [Q, N] distances
-// never reach device memory.  A CTA (8 warps: 4 along queries x 2 along
-// rows, warp tile 32 queries x 32 rows) keeps 128 queries resident in
-// shared memory (rounded to the index dtype once) and streams the rows of
-// its `a` range through a 4-stage cp.async ring of [64 rows x 128 bytes]
-// chunks, 16 bytes a thread, two copies per thread and chunk; rows are
-// padded by 16 bytes so that fragment reads hit distinct banks.
-//   bf16 index: mma.sync m16n8k16 bf16 -> f32, fragments by ldmatrix.
+// never reach device memory.  The products are warpgroup MMAs (wgmma
+// m64n64): the queries are the A operand from registers (64 per warpgroup,
+// two warpgroups, 128 queries per CTA, resident in shared memory for the
+// CTA's life and rounded to the index dtype once), the 64 index rows of an
+// a-step are the B operand read from shared memory by descriptor (128-byte
+// rows with the 128-byte swizzle), so no thread loads a fragment of the
+// index at all.  The rows of the CTA's `a` range stream through a cp.async
+// ring, 16 bytes a thread.  What an iteration of the ring costs is mostly a
+// chain of latencies (copy wait, proxy fence, block barrier, fragment loads,
+// wgmma issue and wait), measured at ~1000 cycles whatever it holds, so a
+// stage holds several 128-byte chunks: a whole a-step of a bf16 index (4
+// stages), two chunks of an f32 index (3 stages).
+//   bf16 index: wgmma k16 bf16 -> f32, A fragments by ldmatrix.
 //   f32 index: one TF32 pass is a different result (10-bit mantissa), so
-//     each operand is split in registers on its fragments, x = hi + lo with
-//     hi = tf32(x) and lo = x - hi (exact; the tensor core reads it
-//     truncated to TF32), and each k-step adds lo*hi + hi*lo + hi*hi into the
-//     f32 accumulator, small terms first (mma.sync m16n8k8 tf32).  What is
-//     dropped is lo*lo and the truncation of lo: ~2^-21 of a product.
+//     each operand is split x = hi + lo with hi = x truncated to TF32 and lo
+//     = x - hi (exact; the tensor core reads it truncated to TF32), and each
+//     k-step adds lo*hi + hi*lo + hi*hi into the f32 accumulator, small
+//     terms first (wgmma k8 tf32).  The tensor core reads the raw f32 index
+//     rows truncated, which is hi; each thread writes lo of the 32 bytes it
+//     copied itself into a second tile; the query fragments are split in
+//     registers.  What is dropped is lo*lo and the truncation of lo: ~2^-20
+//     of a product.
 //   Two streams share one accumulator without touching the rounded query:
 //     the stream with the smaller |w| runs first, the accumulator is scaled
 //     by w_first / w_second (|ratio| <= 1) and the second stream adds on, so
@@ -249,24 +258,10 @@ int launch(const float* q, const void* m, const float* msq, float w0,
 // ---------------------------------------------------------------------------
 // The `mma` variant.  See the header note.
 
-constexpr int SQ = 128;       // queries per CTA
+constexpr int SQ = 128;       // queries per CTA: 2 warpgroups x 64
 constexpr int SR = 64;        // index rows per a-step: one per bin of a group
-constexpr int SSTAGES = 4;    // ring stages
 constexpr int SCH = 128;      // bytes of a row in one chunk
-// Shared-memory rows.  bf16: every row (a stage's 128 bytes, a query's whole
-// depth) is padded by 16 bytes, so that ldmatrix reads 8 rows from 8 distinct
-// bank groups.  f32: rows are not padded; inside each 128-byte chunk the
-// 16-byte piece p of row r sits at p ^ (4 * (r & 1)), so that the 128-bit
-// fragment loads of two neighbouring rows (one quarter-warp) cover all banks.
-template <typename MT>
-struct Layout {
-  static constexpr int PAD = sizeof(MT) == 2 ? 16 : 0;
-  static constexpr int ROWB = SCH + PAD;       // row bytes of a stage
-  static constexpr int STAGE = SR * ROWB;
-  __host__ __device__ static constexpr int swz(int piece, int row) {
-    return sizeof(MT) == 2 ? piece : piece ^ (4 * (row & 1));
-  }
-};
+constexpr int WTILE = SR * SCH;      // one operand tile: 64 rows x 128 bytes
 
 struct SelectArgs {
   const float* q;        // [S, Q, d]
@@ -288,48 +283,68 @@ __global__ void select_prep(const float* __restrict__ q,
                             float* __restrict__ cr, float* __restrict__ cq,
                             __nv_bfloat16* __restrict__ qb, int S, int Q,
                             int N, int d, int dpad, int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t tid = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  const size_t nthreads = (size_t)gridDim.x * blockDim.x;
   if (qb != nullptr)     // the queries rounded once, zero padded to dpad
-    for (size_t j = i; j < (size_t)S * Q * dpad;
-         j += (size_t)gridDim.x * blockDim.x) {
+    for (size_t j = tid; j < (size_t)S * Q * dpad; j += nthreads) {
       const int k = (int)(j % dpad);
       qb[j] = __float2bfloat16_rn(k < d ? q[j / dpad * d + k] : 0.0f);
     }
-  if (i < n_pad) {
-    float v = w0 * (i < N ? msq[i] : 1e30f);
-    if (S == 2) v += w1 * (i < N ? msq[(size_t)N + i] : 1e30f);
+  for (size_t i = tid; i < (size_t)n_pad; i += nthreads) {
+    float v = w0 * (i < (size_t)N ? msq[i] : 1e30f);
+    if (S == 2) v += w1 * (i < (size_t)N ? msq[(size_t)N + i] : 1e30f);
     cr[i] = v;
-  } else if (i - n_pad < Q) {
-    const int qi = i - n_pad;
+  }
+  const int lane = threadIdx.x % 32;           // one warp per query
+  for (size_t qi = tid / 32; qi < (size_t)Q; qi += nthreads / 32) {
     float v = 0.0f;
     for (int s = 0; s < S; ++s) {
       const float* row = q + ((size_t)s * Q + qi) * d;
       float acc = 0.0f;
-      for (int k = 0; k < d; ++k) acc += row[k] * row[k];
+      for (int k = lane; k < d; k += 32) acc += row[k] * row[k];
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
       v += (s == 0 ? w0 : w1) * acc;
     }
-    cq[qi] = v;
+    if (lane == 0) cq[qi] = v;
   }
 }
 
+// What one iteration of the ring costs is mostly a chain of latencies (copy
+// wait, fence, block barrier, fragment loads, wgmma issue and wait), not
+// bandwidth or tensor time, so a stage holds several 128-byte chunks: CPS
+// of them per barrier.
 template <typename MT>
-__global__ void __launch_bounds__(256, sizeof(MT) == 2 ? 2 : 1)
+struct Ring {
+  static constexpr bool BF = sizeof(MT) == 2;
+  static constexpr int CPS = BF ? 4 : 2;              // chunks per stage
+  static constexpr int NST = BF ? 4 : 3;              // stages
+  static constexpr int CHB = BF ? WTILE : 2 * WTILE;  // f32: raw rows | lo
+  static constexpr int STB = CPS * CHB;
+  static constexpr int QPAD = BF ? 16 : 0;   // f32 query rows are swizzled
+};
+
+template <typename MT>
+__global__ void __launch_bounds__(256, 1)
 distance_select_mma(const SelectArgs p) {
-  constexpr bool BF = sizeof(MT) == 2;
+  using R = Ring<MT>;
+  constexpr bool BF = R::BF;
   constexpr int ES = sizeof(MT);
   constexpr int KC = SCH / ES;                 // elements of one chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CPS = R::CPS, NST = R::NST, CHB = R::CHB, STB = R::STB;
+  extern __shared__ unsigned char smem_raw[];
   const int d = p.d, S = p.S, N = p.N, Q = p.Q;
-  using L = Layout<MT>;
-  constexpr int SROWB = L::ROWB, SSTAGE = L::STAGE;
   const int nc = (d + KC - 1) / KC;            // chunks per stream
-  const int qrb = nc * SCH + L::PAD;           // bytes of a query row
-  unsigned char* qs = smem_raw;                // [S][SQ] rows of qrb bytes
-  const uint32_t qs_u = smem_u32(qs);
-  const uint32_t ring = qs_u + S * SQ * qrb;
+  const int qrb = nc * SCH + R::QPAD;          // bytes of a query row
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ringp = smem_raw + (ring - raw);
+  const uint32_t qs_u = ring + NST * STB;
+  const unsigned char* qsp = ringp + NST * STB;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int wq = warp % 4, wr = warp / 4;
+  const int wg = warp / 4, w = warp % 4;
 
   int u = blockIdx.x;
   const int q_tiles = (Q + SQ - 1) / SQ;
@@ -342,11 +357,12 @@ distance_select_mma(const SelectArgs p) {
   const int a1 = min(p.bin_size, a0 + p.per_a);
   const size_t row_base = (size_t)tile * p.block_n + (size_t)grp * SR;
 
-  // the resident query tile, slot 0 = the stream that runs first: 16-byte
-  // copies that join the ring's first group.  Rows past Q and (f32) pieces
-  // past d are zeroed; the bf16 copy is zero padded already.
-  {
-    const int ppr = nc * (SCH / 16);           // pieces of a query row
+  {   // the resident query tile, slot 0 = the stream that runs first: 16-byte
+      // copies in the ring's first group.  bf16 rows are padded by 16 bytes
+      // (ldmatrix); in an f32 row the piece pc of a 128-byte chunk sits at
+      // pc ^ (row & 7), so that the scalar fragment loads of 8 rows x 4
+      // words hit 32 banks.
+    const int ppr = nc * (SCH / 16);
     const size_t src_row = BF ? (size_t)nc * SCH : (size_t)d * ES;
     const unsigned char* src0 =
         static_cast<const unsigned char*>(BF ? p.qb : (const void*)p.q);
@@ -356,205 +372,182 @@ distance_select_mma(const SelectArgs p) {
       const int s = slot == 0 ? p.first : 1 - p.first;
       const int qi = q0 + ql;
       const bool ok = qi < Q && (size_t)pc * 16 < src_row;
-      cp_async16_s(qs_u + (slot * SQ + ql) * qrb + (pc / 8) * SCH +
-                       L::swz(pc % 8, ql) * 16,
+      const int dpc = BF ? pc : (pc & ~7) | ((pc ^ ql) & 7);
+      cp_async16_s(qs_u + (slot * SQ + ql) * qrb + dpc * 16,
                    ok ? src0 + ((size_t)s * Q + qi) * src_row + pc * 16 : src0,
                    ok);
     }
   }
 
-  const int n_iter = (a1 - a0) * S * nc;
-  // producer position (a, slot, chunk)
-  int pa = a0, ps = 0, pc = 0;
+  const int n_chunks = (a1 - a0) * S * nc;
+  const int n_iter = (n_chunks + CPS - 1) / CPS;
+  int pa = a0, ps = 0, pc = 0;                 // producer position
   const int lrow = threadIdx.x / 8, lpiece = threadIdx.x % 8;
-  auto load = [&](int stage) {
-    const int s = ps == 0 ? p.first : 1 - p.first;
-    const size_t r0 = row_base + (size_t)pa * p.bins;
-    const int kbyte = pc * SCH + lpiece * 16;
-    const bool k_ok = kbyte < d * ES;
+  // this thread's two pieces of a chunk: rows lrow, lrow + 32 (same r & 7)
+  const uint32_t loff = lrow * SCH + ((lpiece ^ (lrow & 7)) << 4);
+  auto load = [&](int stage) {                 // CPS chunks, fewer at the end
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = lrow + 32 * j;
-      const bool ok = k_ok && r0 + r < (size_t)N;
-      const unsigned char* src =
-          static_cast<const unsigned char*>(p.m) +
-          (((size_t)s * N + r0 + r) * d) * ES + kbyte;
-      cp_async16_s(ring + stage * SSTAGE + r * SROWB + L::swz(lpiece, r) * 16,
-                   ok ? (const void*)src : p.m, ok);
+    for (int c = 0; c < CPS; ++c) {
+      if (pa >= a1) break;
+      const int s = ps == 0 ? p.first : 1 - p.first;
+      const size_t r0 = row_base + (size_t)pa * p.bins;
+      const int kbyte = pc * SCH + lpiece * 16;
+      const bool k_ok = kbyte < d * ES;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = lrow + 32 * j;
+        const bool ok = k_ok && r0 + r < (size_t)N;
+        const unsigned char* src =
+            static_cast<const unsigned char*>(p.m) +
+            (((size_t)s * N + r0 + r) * d) * ES + kbyte;
+        cp_async16_s(ring + stage * STB + c * CHB + loff + j * 32 * SCH,
+                     ok ? (const void*)src : p.m, ok);
+      }
+      if (++pc == nc) { pc = 0; if (++ps == S) { ps = 0; ++pa; } }
     }
-    if (++pc == nc) { pc = 0; if (++ps == S) { ps = 0; ++pa; } }
   };
-
 #pragma unroll
-  for (int i = 0; i < SSTAGES - 1; ++i) {
+  for (int i = 0; i < NST - 1; ++i) {
     if (i < n_iter) load(i);
     cp_async_commit();
   }
 
-  float acc[2][4][4], best[2][4][4];
-  int best_a[2][4][4];
+  float acc[32], best[32];
+  int best_a[32];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mt][nt][e] = 0.0f;
-        best[mt][nt][e] = INFINITY;
-        best_a[mt][nt][e] = a0;
-      }
-
-  // fragment addresses that do not change: A rows of this warp's queries,
-  // B rows of this warp's 32 index rows
-  uint32_t a_off, b_off;
-  if constexpr (BF) {
-    a_off = (wq * 32 + lane % 8 + 8 * ((lane / 8) % 2)) * qrb +
-            (lane / 16) * 16;
-    b_off = (wr * 32 + lane % 8 + 8 * (lane / 16)) * SROWB +
-            ((lane / 8) % 2) * 16;
-  } else {
-    // 16 bytes = 4 consecutive k of row g: piece t (k-steps 0, 1 of the
-    // chunk) and piece 4 + t (k-steps 2, 3); the row's parity (that of g)
-    // swaps the two halves of the chunk
-    a_off = (wq * 32 + g) * qrb + t * 16;
-    b_off = (wr * 32 + g) * SROWB + t * 16;
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0.0f;
+    best[i] = INFINITY;
+    best_a[i] = a0;
   }
 
-  int ca = a0, cs = 0, cc = 0;                 // consumer position
-  float2 crv[4];
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<SSTAGES - 2>();
-    __syncthreads();       // chunk `it` is in; chunk it-1's readers are done
-    if (it + SSTAGES - 1 < n_iter) load((it + SSTAGES - 1) % SSTAGES);
-    cp_async_commit();
-    const bool last = cc == nc - 1 && cs == S - 1;
-    if (last) {            // this a-step's row constants, ahead of their use
-      const float* crp = p.cr + row_base + (size_t)ca * p.bins + wr * 32 + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        crv[nt] = __ldg(reinterpret_cast<const float2*>(crp + nt * 8));
-    }
-    const uint32_t sa = qs_u + cs * SQ * qrb + cc * SCH + a_off;
-    const uint32_t sb = ring + (it % SSTAGES) * SSTAGE + b_off;
+  // A registers of chunk (slot, chunk) of this warp's 16 queries
+  const int arow = wg * 64 + w * 16;
+  auto load_a = [&](uint32_t* ah, uint32_t* al, int slot, int chunk) {
     if constexpr (BF) {
+      const uint32_t base =
+          qs_u + (slot * SQ + arow + lane % 8 + 8 * ((lane / 8) % 2)) * qrb +
+          chunk * SCH + (lane / 16) * 16;
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {           // k16 steps of the chunk
-        uint32_t af[2][4], bf[2][4];
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, base + ks * 32);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4(af[mt], sa + mt * 16 * qrb + ks * 32);
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldmatrix_x4(bf[np], sb + np * 16 * SROWB + ks * 32);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16(acc[mt][nt], af[mt], bf[nt / 2][2 * (nt % 2)],
-                     bf[nt / 2][2 * (nt % 2) + 1]);
+        for (int i = 0; i < 4; ++i) ah[ks * 4 + i] = r4[i];
       }
     } else {
-      // The k index of a product may be permuted as long as both operands
-      // agree: a thread takes 4 consecutive k (one 128-bit load) and feeds
-      // them to two k-steps, k = 4t, 4t+1 as the fragment slots (t, t+4) of
-      // the first and 4t+2, 4t+3 as those of the second.
-      const unsigned char* fa = smem_raw + (sa - qs_u);
-      const unsigned char* fb = smem_raw + (sb - qs_u);
+      // rows arow + g and + 8 share (row & 7) = g
+      const unsigned char* base =
+          qsp + (size_t)(slot * SQ + arow + g) * qrb + chunk * SCH + t * 4;
 #pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {           // pairs of k8 steps
-        uint32_t ah[2][2][4], al[2][2][4];       // [k-step][m tile][slot]
+      for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 x = *reinterpret_cast<const float4*>(
-                fa + (mt * 16 + 8 * h) * qrb + (kp ^ (g & 1)) * 64);
-            split_tf32(x.x, ah[0][mt][h], al[0][mt][h]);
-            split_tf32(x.y, ah[0][mt][h + 2], al[0][mt][h + 2]);
-            split_tf32(x.z, ah[1][mt][h], al[1][mt][h]);
-            split_tf32(x.w, ah[1][mt][h + 2], al[1][mt][h + 2]);
-          }
-        uint32_t bh[2][4][2], bl[2][4][2];       // [k-step][n tile][slot]
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float4 x = *reinterpret_cast<const float4*>(
-              fb + nt * 8 * SROWB + (kp ^ (g & 1)) * 64);
-          split_tf32(x.x, bh[0][nt][0], bl[0][nt][0]);
-          split_tf32(x.y, bh[0][nt][1], bl[0][nt][1]);
-          split_tf32(x.z, bh[1][nt][0], bl[1][nt][0]);
-          split_tf32(x.w, bh[1][nt][1], bl[1][nt][1]);
+        for (int i = 0; i < 4; ++i) {
+          const float x = *reinterpret_cast<const float*>(
+              base + 8 * (i % 2) * qrb + (((2 * ks + i / 2) ^ g) << 4));
+          const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+          ah[ks * 4 + i] = hi;
+          al[ks * 4 + i] = __float_as_uint(x - __uint_as_float(hi));
         }
-        // small terms first; the 8 accumulators of a term are independent
+    }
+  };
+
+  int ca = a0, cs = 0, cc = 0;                 // consumer position
+  const bool scale_first = S == 2 && p.ratio != 1.0f;
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<NST - 2>();
+    const int st = it % NST;
+    if constexpr (!BF) {   // lo of the bytes this thread copied itself
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+      for (int c = 0; c < CPS; ++c)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+        for (int j = 0; j < 2; ++j) {
+          unsigned char* src = ringp + st * STB + c * CHB + loff + j * 32 * SCH;
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          float4 lo;
+          lo.x = x.x - __uint_as_float(__float_as_uint(x.x) & 0xffffe000u);
+          lo.y = x.y - __uint_as_float(__float_as_uint(x.y) & 0xffffe000u);
+          lo.z = x.z - __uint_as_float(__float_as_uint(x.z) & 0xffffe000u);
+          lo.w = x.w - __uint_as_float(__float_as_uint(x.w) & 0xffffe000u);
+          *reinterpret_cast<float4*>(src + WTILE) = lo;
+        }
+    }
+    fence_async_smem();
+    __syncthreads();       // stage `it` is in; stage it-1's products are done
+    if (it + NST - 1 < n_iter) load((it + NST - 1) % NST);
+    cp_async_commit();
+    uint32_t ah[CPS][16], al[CPS][BF ? 1 : 16];
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_tf32(acc[mt][nt], al[ks][mt], bh[ks][nt][0], bh[ks][nt][1]);
+    for (int c = 0; c < CPS; ++c) {
+      if (ca >= a1) break;
+      const bool last = cc == nc - 1 && cs == S - 1;
+      float2 crv[8];
+      if (last) {          // this a-step's row constants, ahead of their use
+        const float* crp = p.cr + row_base + (size_t)ca * p.bins + 2 * t;
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+        for (int j = 0; j < 8; ++j)
+          crv[j] = __ldg(reinterpret_cast<const float2*>(crp + j * 8));
+      }
+      load_a(ah[c], al[c], cs, cc);
+      const int fresh = (cc == 0 && cs == 0) ? 0 : 1;   // 0: overwrite acc
+      const uint64_t bd = smem_desc(ring + st * STB + c * CHB);
+      wgmma_fence();
+      if constexpr (BF) {
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_tf32(acc[mt][nt], ah[ks][mt], bl[ks][nt][0], bl[ks][nt][1]);
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_bf16_ra(acc, &ah[c][ks * 4], bd + 2 * ks, ks == 0 ? fresh : 1);
+      } else {
+        const uint64_t bl = smem_desc(ring + st * STB + c * CHB + WTILE);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_tf32(acc[mt][nt], ah[ks][mt], bh[ks][nt][0], bh[ks][nt][1]);
+        for (int ks = 0; ks < 4; ++ks) {       // small terms first
+          wgmma_tf32_ra(acc, &al[c][ks * 4], bd + 2 * ks, ks == 0 ? fresh : 1);
+          wgmma_tf32_ra(acc, &ah[c][ks * 4], bl + 2 * ks, 1);
+          wgmma_tf32_ra(acc, &ah[c][ks * 4], bd + 2 * ks, 1);
         }
       }
-    }
-    if (cc == nc - 1) {
-      if (!last) {         // the first stream is done: weigh it
+      wgmma_commit();
+      if (cc == nc - 1 && (last || scale_first)) {
+        wgmma_wait<0>();
+        if (!last) {       // the first stream is done: weigh it
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+          for (int i = 0; i < 32; ++i) acc[i] *= p.ratio;
+        } else {           // the a-step is done: running (min, a)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= p.ratio;
-      } else {             // the a-step is done: running (min, a)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float key = fmaf(acc[mt][nt][e], p.scale,
-                                     e % 2 ? crv[nt].y : crv[nt].x);
-              if (key < best[mt][nt][e]) {
-                best[mt][nt][e] = key;
-                best_a[mt][nt][e] = ca;
-              }
-              acc[mt][nt][e] = 0.0f;
+          for (int i = 0; i < 32; ++i) {
+            const float key = fmaf(acc[i], p.scale,
+                                   i % 2 ? crv[i / 4].y : crv[i / 4].x);
+            if (key < best[i]) {
+              best[i] = key;
+              best_a[i] = ca;
             }
+          }
+        }
       }
+      if (++cc == nc) { cc = 0; if (++cs == S) { cs = 0; ++ca; } }
     }
-    if (++cc == nc) { cc = 0; if (++cs == S) { cs = 0; ++ca; } }
+    wgmma_wait<0>();       // before the barrier that frees this stage
   }
   cp_async_wait<0>();
 
   float* vals = p.vals + (size_t)pi * Q * p.C;
   int* rows = p.rows + (size_t)pi * Q * p.C;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = q0 + arow + g + 8 * rr;
+    if (qi >= Q) continue;
+    const float cqv = p.cq[qi];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qi = q0 + wq * 32 + mt * 16 + g + 8 * h;
-      if (qi >= Q) continue;
-      const float cqv = p.cq[qi];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int b = grp * SR + wr * 32 + nt * 8 + 2 * t;
-        const size_t o = (size_t)qi * p.C + (size_t)tile * p.bins + b;
-        const int r0 = tile * p.block_n + b;
-        *reinterpret_cast<float2*>(vals + o) = make_float2(
-            best[mt][nt][2 * h] + cqv, best[mt][nt][2 * h + 1] + cqv);
-        *reinterpret_cast<int2*>(rows + o) =
-            make_int2(r0 + best_a[mt][nt][2 * h] * p.bins,
-                      r0 + 1 + best_a[mt][nt][2 * h + 1] * p.bins);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int b = grp * SR + j * 8 + 2 * t;
+      const size_t o = (size_t)qi * p.C + (size_t)tile * p.bins + b;
+      const int r0 = tile * p.block_n + b;
+      const int i0 = 4 * j + 2 * rr;
+      *reinterpret_cast<float2*>(vals + o) =
+          make_float2(best[i0] + cqv, best[i0 + 1] + cqv);
+      *reinterpret_cast<int2*>(rows + o) = make_int2(
+          r0 + best_a[i0] * p.bins, r0 + 1 + best_a[i0 + 1] * p.bins);
     }
+  }
 }
 
 // The partial (min, row) of the P a-ranges of every bin, in ascending a:
@@ -582,23 +575,25 @@ int launch_mma(SelectArgs a, const float* msq, float w0, float w1,
                int* pr, int smem, cudaStream_t stream) {
   constexpr int KC = SCH / (int)sizeof(MT);
   const int nc = (a.d + KC - 1) / KC;
-  using L = Layout<MT>;
-  const int need = a.S * SQ * (nc * SCH + L::PAD) + SSTAGES * L::STAGE;
+  using R = Ring<MT>;
+  const bool bf = sizeof(MT) == 2;
+  const int need =
+      1024 + a.S * SQ * (nc * SCH + R::QPAD) + R::NST * R::STB;
   const int tiles = (a.N + a.block_n - 1) / a.block_n;
   if (smem < need || a.bins % SR || a.d % 16 || a.P < 1 || a.per_a < 1 ||
       (long long)a.P * a.per_a < a.bin_size ||
       (long long)(a.P - 1) * a.per_a >= a.bin_size)
     return (int)cudaErrorInvalidValue;
   const int n_pad = tiles * a.block_n;
-  const bool bf = sizeof(MT) == 2;
   if (bf && qb == nullptr) return (int)cudaErrorInvalidValue;
-  select_prep<<<(n_pad + a.Q + 255) / 256, 256, 0, stream>>>(
+  select_prep<<<(n_pad + 255) / 256, 256, 0, stream>>>(
       a.q, msq, w0, w1, cr, cq, bf ? static_cast<__nv_bfloat16*>(qb) : nullptr,
       a.S, a.Q, a.N, a.d, nc * KC, n_pad);
   a.qb = qb;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(distance_select_mma<MT>,
+  auto kernel = distance_select_mma<MT>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
@@ -608,7 +603,7 @@ int launch_mma(SelectArgs a, const float* msq, float w0, float w1,
   a.rows = a.P > 1 ? pr : rows;
   const int q_tiles = (a.Q + SQ - 1) / SQ;
   const long long units = (long long)q_tiles * a.P * a.groups * tiles;
-  distance_select_mma<MT><<<(unsigned)units, 256, smem, stream>>>(a);
+  kernel<<<(unsigned)units, 256, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (a.P > 1) {

@@ -43,8 +43,8 @@
 //    cp.async pipeline (bf16 weights), and the cp.async helpers.  The
 //    persistent variant uses the same input product when W_ih's slice does
 //    not fit beside W_hh's.
-// The cp.async helpers come from mma_common.cuh, which every kernel source
-// of the port shares.
+// The cp.async helpers, the shared-memory descriptor and the wgmma fences
+// come from mma_common.cuh, which every kernel source of the port shares.
 
 #pragma once
 
@@ -311,29 +311,6 @@ __device__ __forceinline__ void stamp(const PersistentArgs& p, int t,
 }
 
 
-// K-major operand tile of 128-byte rows with the 128-byte swizzle: groups
-// of 8 rows 1024 bytes apart; the tile is 1024-byte aligned.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;
-  d |= (uint64_t)(1024 >> 4) << 32;
-  d |= (uint64_t)1 << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 __device__ __forceinline__ void group_sync(int id) {   // one warpgroup
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }

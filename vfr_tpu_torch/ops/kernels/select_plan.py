@@ -4,9 +4,9 @@ dtype and device properties only.  Nothing is decided by trying a launch.
 
 Variants of ``csrc/distance_select.cu`` and ``csrc/coarse_blockmax.cu``:
 
-``mma``   products on the tensor cores (``mma.sync``), index rows streamed
-    through a ``cp.async`` ring, the min / max taken on the accumulator
-    registers.  K2: a bf16 or f32 index (f32 as three TF32 products of
+``mma``   products on the tensor cores (K2: ``wgmma``, K4: ``mma.sync``),
+    index rows streamed through a ``cp.async`` ring, the min / max taken on
+    the accumulator registers.  K2: a bf16 or f32 index (f32 as three TF32 products of
     hi/lo splits), ``bins = block_n / bin_size`` a multiple of 64, ``d`` a
     multiple of 16, the resident query tile within shared memory.  K4: bf16
     rows, ``d_c`` in 16, 32, 48, 64.
@@ -26,17 +26,21 @@ import torch
 VARIANTS = ("auto", "mma", "simt")
 
 # csrc/distance_select.cu
-SELECT_Q_TILE = 128         # queries per CTA (SQ)
+SELECT_Q_TILE = 128         # queries per CTA (SQ): 2 warpgroups x 64
 SELECT_ROWS = 64            # index rows per a-step (SR): one per bin
-SELECT_STAGES = 4           # ring stages (SSTAGES)
-SELECT_CHUNK_BYTES = 128    # bytes of a row in one ring chunk (SCH)
-SELECT_PAD = 16             # padding of a bf16 shared-memory row
+SELECT_CHUNK_BYTES = 128    # bytes of a row in one operand tile (SCH)
+SELECT_PAD = 16             # padding of a bf16 query row (f32: swizzled)
+SELECT_ALIGN = 1024         # the kernel aligns its tiles itself
+# ring by element size: (stages, 8 KB tiles per stage).  bf16: 4 chunks a
+# stage; f32: 2 chunks, each the raw rows and their lo parts
+SELECT_RING = {2: (4, 4), 4: (3, 2 * 2)}
 SELECT_MAX_SPLITS = 16
-# cost model of the a-split, in a-steps: what a unit pays before its first
-# a-step (staging its query tile), and what each extra a range adds to the
+# cost model of the a-split, in a-steps, fitted to the card's times of 1..8
+# splits: what a unit pays before its first a-step (~6 us: launch, staging
+# its query tile, filling the ring), and what each a range adds to the
 # combine pass
-_UNIT_OVERHEAD = 1.5
-_COMBINE_COST = 0.5
+_UNIT_OVERHEAD = {2: 3.0, 4: 1.0}
+_COMBINE_COST = {2: 1.6, 4: 0.5}
 
 # csrc/coarse_blockmax.cu
 COARSE_Q_TILE = 256         # queries per CTA (MQ)
@@ -66,8 +70,7 @@ class SelectPlan:
     stages: int = 0              # ring stages
     a_splits: int = 0            # a ranges per bin (> 1: a combine pass)
     a_per_split: int = 0         # a values per range
-    ctas_per_sm: int = 0
-    grid: int = 0                # CTAs = work units
+    grid: int = 0                # CTAs = work units, one per SM at a time
     smem_bytes: int = 0          # dynamic shared memory of one CTA
 
 
@@ -96,16 +99,15 @@ def plan_distance_select(S: int, Q: int, N: int, d: int, bin_size: int,
                     "tile")
     esize = 2 if dtype == torch.bfloat16 else 4
     chunk = SELECT_CHUNK_BYTES // esize
-    pad = SELECT_PAD if esize == 2 else 0     # f32 rows are swizzled instead
-    q_row = -(-d // chunk) * SELECT_CHUNK_BYTES + pad
-    smem = (S * SELECT_Q_TILE * q_row + SELECT_STAGES * SELECT_ROWS
-            * (SELECT_CHUNK_BYTES + pad))
+    stages, tiles_per_stage = SELECT_RING[esize]
+    q_row = (-(-d // chunk) * SELECT_CHUNK_BYTES
+             + (SELECT_PAD if esize == 2 else 0))
+    smem = (SELECT_ALIGN + S * SELECT_Q_TILE * q_row
+            + SELECT_ROWS * SELECT_CHUNK_BYTES * stages * tiles_per_stage)
     if smem > smem_bytes:
         return simt(f"query tile [{S} x {SELECT_Q_TILE} x {d}] and the ring "
                     f"exceed {smem_bytes} bytes of shared memory")
-    # the bf16 kernel is built for two CTAs per SM, the f32 kernel for one
-    ctas = _ctas_per_sm(smem, smem_bytes, 2 if esize == 2 else 1)
-    slots = sm_count * ctas
+    slots = sm_count         # one CTA per SM: 256 threads x <= 255 registers
     units = (-(-Q // SELECT_Q_TILE) * (bins // SELECT_ROWS)
              * -(-N // block_n))
 
@@ -122,15 +124,16 @@ def plan_distance_select(S: int, Q: int, N: int, d: int, bin_size: int,
         best = None
         for p in range(1, min(bin_size, SELECT_MAX_SPLITS) + 1):
             p_eff, per = geometry(p)
-            cost = (-(-units * p_eff // slots) * (per + _UNIT_OVERHEAD)
-                    + (_COMBINE_COST * p_eff if p_eff > 1 else 0.0))
+            cost = (-(-units * p_eff // slots)
+                    * (per + _UNIT_OVERHEAD[esize])
+                    + (_COMBINE_COST[esize] * p_eff if p_eff > 1 else 0.0))
             if best is None or cost < best[0]:
                 best = (cost, p_eff, per)
         _, p_best, per_best = best
     return SelectPlan("mma", "tensor-core products, a range split "
                       f"{p_best} ways", q_tile=SELECT_Q_TILE,
-                      rows=SELECT_ROWS, chunk=chunk, stages=SELECT_STAGES,
-                      a_splits=p_best, a_per_split=per_best, ctas_per_sm=ctas,
+                      rows=SELECT_ROWS, chunk=chunk, stages=stages,
+                      a_splits=p_best, a_per_split=per_best,
                       grid=units * p_best, smem_bytes=smem)
 
 
