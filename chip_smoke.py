@@ -463,6 +463,8 @@ def phase_coarse_kernel(results, seed: int):
             (200, 50_001, 48, 64, torch.bfloat16, "mma"),
             (300, 5_000, 16, 32, torch.bfloat16, "mma"),
             (37, 100, 32, 128, torch.bfloat16, "mma"),
+            (1_000, 5_000, 32, 128, torch.bfloat16, "mma"),
+            (1, 300, 64, 64, torch.bfloat16, "mma"),
             (200, 50_001, 24, 64, torch.bfloat16, "simt"),
             (200, 50_001, 32, 128, torch.float32, "simt")):
         m = torch.randn(rn, rd, generator=gen, device=dev).to(rdt)
@@ -609,8 +611,8 @@ def phase_select(results, seed: int):
     d=128, bin 64) the variants are also timed in turns (simt, mma, mma,
     simt) and the mma variant with other splits of the a range.  Ragged
     shapes (N = 209,999 and 5,000, Q = 200, bin 16 and 32, S = 1, weights
-    (0.3, 0.7) and (0.7, 0.3), and a bin or width the plan gives to simt)
-    are checked only."""
+    (0.3, 0.7) and (0.7, 0.3), eight query tiles, a zero weight, a single
+    query, and a bin or width the plan gives to simt) are checked only."""
     import torch
 
     from vfr_tpu_torch.ops.kernels.select_kernel import (
@@ -634,6 +636,8 @@ def phase_select(results, seed: int):
             (2, 200, 5_000, 128, 32, [0.7, 0.3], "mma"),
             (1, 200, 5_000, 128, 16, [0.7], "mma"),
             (2, 37, 9_000, 48, 8, [0.5, 0.5], "mma"),
+            (2, 1_000, 3_000, 128, 64, [1.0, 0.0], "mma"),
+            (1, 1, 100, 64, 64, [0.5], "mma"),
             (2, 200, 5_000, 128, 128, [0.3, 0.7], "simt"),
             (1, 100, 5_000, 40, 64, [1.0], "simt")):
         rq_t = torch.from_numpy(unit(rs, rq, rd)).to(dev)
