@@ -24,6 +24,23 @@ Phases, one JSON line each:
               blockmax (K4) and centroid at C=2048, blockmax held against
               the same retriever with K4's plain version; recall@10 vs
               exact.
+  eval        per-video and corpus eval of didemo_flagship on the flagship
+              corpus (40,000 queries): `evaluate` under both protocols on the
+              preset's f32 scan twin, then with rnn_kernel="pallas" (K1a);
+              `corpus_evaluate` (official protocol, GT ranker on) exact on
+              the scan twin, then exact (K1a), fused (K1a + K2) and coarse
+              blockmax d_coarse 32, C=2048 (K1a + K4); each kernel run held
+              against the same run through the kernels' plain versions
+              (metrics within 0.1% of the queries); keys as the JAX
+              package's; seconds and queries/s per run.
+  eval_charades charades_flagship at full width (F=2048, H=1024, joint 128,
+              one stream, cosine, last pool) on a synthetic 2,000-video
+              Charades-STA corpus (T=40 rows, W=64 windows: 128,000 index
+              rows, 4,000 queries): per-video eval (scan; K1b held against
+              plain), corpus eval exact and fused (K1b; K1b + K2 at S=1 over
+              1e30 sentinel rows) held against plain, per-video eval with
+              pooling="max" (the direct form) and its peak memory; no
+              invalid window may be retrieved; K2 timed at this shape.
   serving_10k last pool, bf16 compute, bf16 index, on a 2,000-video corpus.
   coarse_2m   a 2.1M-row bf16 index (100,000 videos, S=2, d=128) drawn on
               the card from a seeded normal, serving_10k weights: coarse
@@ -32,8 +49,8 @@ Phases, one JSON line each:
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
-Every serving phase zeroes the kernels' launch counts just before it runs
-and fails unless each kernel of its path launched.  Then one
+Every serving and eval run zeroes the kernels' launch counts just before
+it runs and fails unless each kernel of its path launched.  Then one
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no ok line.
 Without a CUDA device it exits 2 and prints no result.
@@ -63,6 +80,7 @@ VIDEOS = 10_000          # flagship corpus: 210,000 index rows
 VIDEOS_10K = 2_000       # serving_10k and gru corpora, cut to keep the run
                          # short
 VIDEOS_2M = 100_000      # coarse_2m: 2.1M index rows
+VIDEOS_CHARADES = 2_000  # eval_charades: 128,000 index rows (64 windows)
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "tf32": 495e12,       # dense tensor-core rate
@@ -1122,7 +1140,7 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
             f"fused: K2 vs its plain version: {f_mism} rows differ, "
             f"max |d diff| {f_ddiff}")
     results["fused"] = rec
-    return dict(params=params, q_params=q_params, model=model, ds=ds,
+    return dict(cfg=cfg, params=params, q_params=q_params, model=model, ds=ds,
                 vocab=vocab, index=loaded, queries=queries, toks=toks_d, lens=lens_d,
                 exact_rows=rows_k, k=k, batch=batch, T=T)
 
@@ -1223,6 +1241,393 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
             f"coarse: blockmax vs plain stage 1: {mism} rows differ, "
             f"max |d diff| {ddiff}")
     results["coarse"] = rec
+
+
+# ------------------------------------------------------------------ eval
+
+def eval_keys(ecfg):
+    """The keys, in order, of the JAX package's ``evaluate`` dict for
+    ``ecfg`` (eval/moment_eval.py builds them so)."""
+    keys = [f"R@{k}_tiou{t}" for k in ecfg.recall_ks
+            for t in ecfg.tiou_thresholds] + ["mIoU", "num_queries"]
+    if ecfg.protocol == "didemo_official":
+        keys += [f"R@{k}_official" for k in ecfg.recall_ks]
+        keys.append("mIoU_official")
+    return keys
+
+
+def corpus_keys(ecfg, dataset):
+    """The keys, in order, of the JAX package's ``corpus_evaluate`` dict
+    (eval/corpus.py builds them so)."""
+    keys = ["corpus_num_rows"]
+    for k in ecfg.recall_ks:
+        keys += [f"corpus_R@{k}_tiou{t}" for t in ecfg.tiou_thresholds]
+        keys.append(f"corpus_video_R@{k}")
+    keys.append("num_queries")
+    if ecfg.protocol == "didemo_official" and hasattr(dataset,
+                                                      "num_proposals"):
+        keys += [f"corpus_R@{k}_official" for k in ecfg.recall_ks]
+    return keys
+
+
+def metrics_close(got, ref, what, tol=1e-3):
+    """Kernel-path metrics held to their plain-version run: the same keys
+    and counts, every rate within ``tol`` (0.1% of the queries)."""
+    require(list(got) == list(ref), f"{what}: keys {list(got)} != "
+            f"{list(ref)}")
+    worst = 0.0
+    for key, v in got.items():
+        if key in ("num_queries", "corpus_num_rows"):
+            require(v == ref[key], f"{what}: {key} {v} != {ref[key]}")
+        else:
+            worst = max(worst, abs(v - ref[key]))
+    require(worst <= tol + 1e-12, f"{what}: metrics differ from the plain "
+            f"version's by {worst} > {tol}")
+    return worst
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class EvalRuns:
+    """Runs of ``evaluate`` / ``corpus_evaluate`` on one corpus: seconds,
+    queries/s, metrics and kernel launches (counts zeroed just before each
+    run), optionally with kernel wrappers patched to their plain versions."""
+
+    def __init__(self, n_queries: int):
+        self.n = n_queries
+        self.runs = {}
+
+    def __call__(self, tag, fn, patches=()):
+        import contextlib
+
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            metrics, secs = _timed(fn)
+        counts = read_counts()
+        launched = {k: v for k, v in counts.items() if k != "variants" and v}
+        launched["variants"] = {
+            fam: {v: c for v, c in by.items() if c}
+            for fam, by in counts["variants"].items() if any(by.values())}
+        self.runs[tag] = dict(seconds=secs, queries_per_s=self.n / secs,
+                              metrics=metrics, launches=launched)
+        return metrics, counts
+
+
+def _plain_patches(kernels):
+    """Patches that route the eval retrievers' kernel wrappers to their
+    plain versions (the recurrence goes plain through rnn_kernel)."""
+    from unittest import mock
+
+    from vfr_tpu_torch.eval import coarse as coarse_mod
+    from vfr_tpu_torch.eval import corpus as corpus_mod
+    from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
+    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
+
+    out = []
+    if "distance_select" in kernels:
+        out.append(mock.patch.object(corpus_mod, "distance_select",
+                                     distance_select_plain))
+    if "coarse_blockmax" in kernels:
+        out.append(mock.patch.object(coarse_mod, "coarse_blockmax",
+                                     coarse_blockmax_plain))
+    return out
+
+
+def phase_eval(results, ctx, d_coarse: int = 32, C: int = 2048):
+    """Per-video and corpus eval of didemo_flagship on the flagship corpus
+    (10,000 videos, 40,000 queries): both protocols on the preset's scan
+    twin, then the kernel paths (K1a; K1a + K2 fused; K1a + K4 coarse) each
+    held against the same run through the kernels' plain versions."""
+    import torch
+
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.eval.corpus import corpus_evaluate
+    from vfr_tpu_torch.eval.moment_eval import evaluate
+
+    cfg, params, model, ds = ctx["cfg"], ctx["params"], ctx["model"], \
+        ctx["ds"]
+    base = dataclasses.replace(cfg.eval, protocol="didemo_official")
+    banks, banks_s = _timed(lambda: banks_to_device(
+        ds.feature_banks(), base.bank_dtype, device=torch.device("cuda")))
+    runs = EvalRuns(ds.num_queries)
+
+    def ev(**kw):
+        e = dataclasses.replace(base, **kw)
+        return lambda: evaluate(params, model, ds, e, feature_banks=banks)
+
+    def corpus(**kw):
+        e = dataclasses.replace(base, **kw)
+        return lambda: corpus_evaluate(params, model, ds, e,
+                                       feature_banks=banks)
+
+    thr, _ = runs("per_video_threshold_scan", ev(protocol="threshold"))
+    off, _ = runs("per_video_official_scan", ev())
+    require(list(thr) == eval_keys(dataclasses.replace(
+        base, protocol="threshold")) and list(off) == eval_keys(base),
+        f"eval: per-video keys {list(thr)} / {list(off)}")
+    k_m, k_counts = runs("per_video_official_pallas", ev(rnn_kernel="pallas"))
+    p_m, _ = runs("per_video_official_plain", ev(rnn_kernel="plain"))
+    diffs = {"per_video": metrics_close(k_m, p_m, "eval[per-video]")}
+    require(k_counts["lstm_pooled"] > 0,
+            "eval[per-video]: K1a (lstm_pooled) never launched")
+    variants = {"per_video_K1": k_counts["variants"]["lstm"]}
+
+    ex, _ = runs("corpus_exact_scan", corpus())
+    require(list(ex) == corpus_keys(base, ds),
+            f"eval: corpus keys {list(ex)}")
+    for tag, kw, kernels in (
+            ("exact", {}, ()),
+            ("fused", dict(topk_method="fused"), ("distance_select",)),
+            ("coarse", dict(coarse_dim=d_coarse, coarse_candidates=C,
+                            coarse_mode="blockmax"), ("coarse_blockmax",))):
+        k_m, k_counts = runs(f"corpus_{tag}_pallas",
+                             corpus(rnn_kernel="pallas", **kw))
+        p_m, _ = runs(f"corpus_{tag}_plain", corpus(rnn_kernel="plain", **kw),
+                      patches=_plain_patches(kernels))
+        diffs[f"corpus_{tag}"] = metrics_close(k_m, p_m, f"eval[{tag}]")
+        for name in ("lstm_pooled", *kernels):
+            require(k_counts[name] > 0,
+                    f"eval[corpus {tag}]: {name} never launched")
+        variants[f"corpus_{tag}_K1"] = k_counts["variants"]["lstm"]
+        if kernels == ("distance_select",):
+            require_mma(k_counts, "select", "eval[fused]")
+            variants["corpus_fused_K2"] = k_counts["variants"]["select"]
+        if kernels == ("coarse_blockmax",):
+            require_mma(k_counts, "coarse", "eval[coarse]")
+            variants["corpus_coarse_K4"] = k_counts["variants"]["coarse"]
+    _profile_eval_batches("eval", params, model, ds, ctx["index"], banks,
+                          base)
+    rec = dict(phase="eval", preset="didemo_flagship",
+               videos=len(ds.video_ids), rows=ctx["index"].num_rows,
+               queries=ds.num_queries, eval_batch=base.eval_batch_size,
+               corpus_batch=base.corpus_query_batch, banks_s=banks_s,
+               max_metric_diff_vs_plain=diffs, variants=variants,
+               runs=runs.runs)
+    emit(rec)
+    results["eval"] = rec
+
+
+def _profile_eval_batches(what, params, model, ds, index, banks, ecfg):
+    """Device time by kernel name of one batch of each eval path with the
+    kernels on: the per-video scorer (eval batch) and the corpus
+    retriever + official GT ranker (corpus batch; for a dataset without GT
+    proposal indices the retriever alone)."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import make_gt_ranker, make_retriever
+    from vfr_tpu_torch.eval.moment_eval import make_scorer
+    from vfr_tpu_torch.models.mcn import prepare_query_params
+
+    dev = torch.device("cuda")
+    q_params = prepare_query_params(params, model, "pallas")
+    scorer = make_scorer(model, banks, rnn_kernel="pallas")
+    pb = next(ds.eval_batches(ecfg.eval_batch_size, with_features=False))
+    _device_profile(f"{what}_per_video_batch", lambda: scorer(q_params, pb))
+    b = next(ds.eval_batches(ecfg.corpus_query_batch, with_features=False))
+    toks = torch.from_numpy(b["tokens"]).to(dev)
+    lens = torch.from_numpy(b["lengths"]).to(dev)
+    retrieve = make_retriever(model, index, 10, "exact", rnn_kernel="pallas")
+    if "gt_prop_idx" in b:
+        ranker = make_gt_ranker(model, index, "pallas")
+        gt = torch.from_numpy((b["video_idx"][:, None] * ds.num_proposals
+                               + np.maximum(b["gt_prop_idx"], 0)).astype(
+                                   np.int64)).to(dev)
+        _device_profile(f"{what}_corpus_exact_batch", lambda: (
+            retrieve(q_params, toks, lens), ranker(q_params, toks, lens, gt)))
+    else:
+        _device_profile(f"{what}_corpus_exact_batch",
+                        lambda: retrieve(q_params, toks, lens))
+
+
+def make_charades_corpus(num_videos: int, seed: int):
+    """(cfg, dataset, vocab, glove): charades_flagship over a synthetic
+    Charades-STA corpus of ``num_videos`` videos with 2 planted moments and
+    one query per moment."""
+    from vfr_tpu_torch.config import get_preset
+    from vfr_tpu_torch.data.charades import CharadesSTADataset
+    from vfr_tpu_torch.data.synthetic import make_charades_fixture
+
+    cfg = get_preset("charades_flagship")
+    data = dataclasses.replace(cfg.data, synthetic_num_videos=num_videos,
+                               synthetic_num_queries=2 * num_videos,
+                               synthetic_moments_per_video=2,
+                               synthetic_seed=seed)
+    cfg = dataclasses.replace(cfg, data=data)
+    fix = make_charades_fixture(
+        num_videos=num_videos, num_queries=2 * num_videos,
+        feature_dim=data.feature_dim, glove_dim=data.glove_dim,
+        max_duration=data.max_duration, feature_seconds=data.feature_seconds,
+        noise=data.synthetic_noise, with_flow=False,
+        vocab_words=data.synthetic_vocab_words, moments_per_video=2,
+        seed=seed)
+    ds = CharadesSTADataset(fix.annotations, fix.rgb, None, fix.vocab, data)
+    require(len(ds.video_ids) == num_videos,
+            f"charades corpus has {len(ds.video_ids)} videos, wanted "
+            f"{num_videos}")
+    return cfg, ds, fix.vocab, fix.glove
+
+
+def phase_eval_charades(results, seed: int, num_videos: int):
+    """charades_flagship at full width (F=2048, H=1024, joint 128, one
+    stream, cosine, last pool) on a synthetic corpus (T=40, W=64): per-video
+    eval (scan; K1b held against plain), corpus eval exact and fused (K1b;
+    K1b + K2 at S=1 over the 1e30 sentinel rows), each held against its
+    plain-version run, max pooling (the direct form) with its peak memory;
+    no invalid window may be retrieved.  K2 at this index's shape is timed
+    against its plain version and a library formulation."""
+    import torch
+
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.eval.corpus import (
+        _embed_query_streams,
+        build_moment_index,
+        corpus_evaluate,
+        fused_bin_size,
+        make_retriever,
+    )
+    from vfr_tpu_torch.eval.moment_eval import evaluate
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
+    from vfr_tpu_torch.ops.kernels import select_kernel
+
+    dev = torch.device("cuda")
+    (cfg, ds, _, glove), setup_s = _timed(
+        lambda: make_charades_corpus(num_videos, seed))
+    model = build_model(cfg, dataset=ds)
+    params = init_model_params(torch.Generator().manual_seed(seed), model,
+                               glove, cfg.data.feature_dim, device=dev)
+    base = cfg.eval
+    banks = banks_to_device({**ds.feature_banks(), "video_tef": ds.video_tef},
+                            base.bank_dtype, device=dev)
+    runs = EvalRuns(ds.num_queries)
+
+    def ev(e_model=model, **kw):
+        e = dataclasses.replace(base, **kw)
+        return lambda: evaluate(params, e_model, ds, e, feature_banks=banks)
+
+    def corpus(**kw):
+        e = dataclasses.replace(base, **kw)
+        return lambda: corpus_evaluate(params, model, ds, e,
+                                       feature_banks=banks)
+
+    torch.cuda.reset_peak_memory_stats()
+    pv, _ = runs("per_video_scan", ev())
+    mean_peak = torch.cuda.max_memory_allocated()
+    require(list(pv) == eval_keys(base), f"eval_charades: keys {list(pv)}")
+    k_m, k_counts = runs("per_video_pallas", ev(rnn_kernel="pallas"))
+    p_m, _ = runs("per_video_plain", ev(rnn_kernel="plain"))
+    diffs = {"per_video": metrics_close(k_m, p_m, "eval_charades[per-video]")}
+    require(k_counts["lstm_hs"] > 0,
+            "eval_charades[per-video]: K1b (lstm_hs) never launched")
+    variants = {"per_video_K1": k_counts["variants"]["lstm"]}
+
+    ex, _ = runs("corpus_exact_scan", corpus())
+    require(list(ex) == corpus_keys(base, ds),
+            f"eval_charades: corpus keys {list(ex)}")
+    for tag, kw, kernels in (
+            ("exact", {}, ()),
+            ("fused", dict(topk_method="fused"), ("distance_select",))):
+        k_m, k_counts = runs(f"corpus_{tag}_pallas",
+                             corpus(rnn_kernel="pallas", **kw))
+        p_m, _ = runs(f"corpus_{tag}_plain", corpus(rnn_kernel="plain", **kw),
+                      patches=_plain_patches(kernels))
+        diffs[f"corpus_{tag}"] = metrics_close(k_m, p_m,
+                                               f"eval_charades[{tag}]")
+        for name in ("lstm_hs", *kernels):
+            require(k_counts[name] > 0,
+                    f"eval_charades[corpus {tag}]: {name} never launched")
+        variants[f"corpus_{tag}_K1"] = k_counts["variants"]["lstm"]
+        if kernels:
+            variants["corpus_fused_K2"] = k_counts["variants"]["select"]
+            variants["corpus_fused_K2_plan"] = str(select_kernel.LAST_PLAN)
+
+    # max pooling: the direct form over [B, W, T, F] chunks
+    max_model = build_model(dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, pooling="max")), dataset=ds)
+    torch.cuda.reset_peak_memory_stats()
+    mx, _ = runs("per_video_max_pool_scan", ev(e_model=max_model))
+    max_peak = torch.cuda.max_memory_allocated()
+    require(list(mx) == eval_keys(base) and all(
+        np.isfinite(v) for v in mx.values()), f"eval_charades[max]: {mx}")
+
+    # no invalid window is ever retrieved, through either retriever
+    index = build_moment_index(params, model, ds, feature_banks=banks,
+                               with_fingerprint=False)
+    q_params = prepare_query_params(params, model, "pallas")
+    valid = ds.window_mask.reshape(-1)
+    k = min(max(max(base.recall_ks), 10), index.num_rows)
+    retrieved_invalid = {}
+    for method in ("exact", "fused"):
+        r = make_retriever(model, index, k, method, rnn_kernel="pallas")
+        bad = 0
+        for b in ds.eval_batches(base.corpus_query_batch, with_features=False):
+            d, rows = r(q_params, torch.from_numpy(b["tokens"]).to(dev),
+                        torch.from_numpy(b["lengths"]).to(dev))
+            rows = rows.cpu().numpy()[b["valid"]]
+            bad += int((~valid[rows]).sum())
+            require(bool((d < 1e29).all()), f"eval_charades[{method}]: "
+                    "a sentinel distance was returned")
+        retrieved_invalid[method] = bad
+    require(not any(retrieved_invalid.values()),
+            f"eval_charades: invalid windows retrieved {retrieved_invalid}")
+
+    # K2 at this slice's shape: S=1, N=V*64 with 1e30 sentinel rows
+    b = next(ds.eval_batches(base.corpus_query_batch, with_features=False))
+    qs = _embed_query_streams(q_params, model,
+                              torch.from_numpy(b["tokens"]).to(dev),
+                              torch.from_numpy(b["lengths"]).to(dev),
+                              "pallas")
+    w = [float(x) for x in index.weights]
+    bin_size, block_n = fused_bin_size(index.num_rows, k), 4096
+    plan, err, rel, mism = _select_check(qs, index.m, index.m_sq, w,
+                                         bin_size, block_n, "auto")
+    S, Q, d = qs.shape
+    N = index.num_rows
+    C = -(-N // block_n) * (block_n // bin_size)
+    bound_ms, bound_by = bound(S * N * d * 4 + S * N * 4 + S * Q * d * 4
+                               + Q * C * 8, 2.0 * S * Q * N * d, "float32")
+    k2 = dict(shape=dict(S=S, Q=Q, N=N, d=d, bin=bin_size, block_n=block_n,
+                         sentinel_rows=int((~valid).sum())),
+              variant=plan.variant, a_splits=plan.a_splits,
+              max_abs_err=err, max_rel_err=rel,
+              row_mismatches_outside_ties=mism,
+              ms=cuda_ms(lambda: select_kernel.distance_select(
+                  qs, index.m, index.m_sq, w, bin_size, block_n)),
+              plain_ms=cuda_ms(lambda: select_kernel.distance_select_plain(
+                  qs, index.m, index.m_sq, w, bin_size, block_n), iters=10),
+              library_ms=cuda_ms(lambda: _k2_library(
+                  qs, index.m, index.m_sq, torch.tensor(w, device=dev),
+                  bin_size, block_n), iters=10),
+              bound_ms=bound_ms, bound_by=bound_by)
+    require(rel <= 1e-3 and mism == 0,
+            f"eval_charades: K2 vs plain rel err {rel}, {mism} rows differ")
+    _profile_eval_batches("eval_charades", params, model, ds, index, banks,
+                          base)
+    rec = dict(phase="eval_charades", preset="charades_flagship",
+               videos=num_videos, rows=index.num_rows,
+               valid_rows=int(valid.sum()), queries=ds.num_queries,
+               eval_batch=base.eval_batch_size,
+               corpus_batch=base.corpus_query_batch, setup_s=setup_s,
+               max_metric_diff_vs_plain=diffs, variants=variants,
+               invalid_windows_retrieved=retrieved_invalid,
+               peak_memory_bytes=dict(mean_pool=mean_peak,
+                                      max_pool=max_peak),
+               kernel_distance_select_s1=k2, runs=runs.runs)
+    emit(rec)
+    results["eval_charades"] = rec
 
 
 def _coarse_2m_setup(seed: int, num_videos: int, d_coarse: int = 32):
@@ -1480,6 +1885,12 @@ def kernels_line(results):
         "coarse_blockmax": served("coarse", "blockmax", "launches",
                                   "coarse_blockmax"),
     }
+    def eval_launches(name):
+        """Launches of ``name`` over the eval phases' kernel runs."""
+        return sum(run["launches"].get(name, 0)
+                   for phase in ("eval", "eval_charades")
+                   for run in results.get(phase, {}).get("runs", {}).values())
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     out = []
@@ -1488,6 +1899,7 @@ def kernels_line(results):
         src, rep = KERNEL_SOURCES[name]
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
                         launches=launches[name],
+                        eval_launches=eval_launches(name),
                         **{key: r[key] for key in keys},
                         variant=r["variant"], stepwise_ms=r["stepwise_ms"]))
     # the fused cell's index is f32 (the flagship preset); the bf16-index
@@ -1496,15 +1908,20 @@ def kernels_line(results):
     r = {x["index_dtype"]: x for x in results["distance_select"]}
     f32, b16 = r["float32"], r["bfloat16"]
     keys_v = keys + ("variant", "simt_ms")
+    s1 = results.get("eval_charades", {}).get("kernel_distance_select_s1")
     out.append(dict(name="distance_select", route="cuda", source=src,
                     replaces=rep, launches=launches["distance_select"],
+                    eval_launches=eval_launches("distance_select"),
                     **{key: f32[key] for key in keys_v},
-                    bf16_index={key: b16[key] for key in keys_v}))
+                    bf16_index={key: b16[key] for key in keys_v},
+                    charades_s1={key: s1[key] for key in keys_v
+                                 if key in s1} if s1 else None))
     # the coarse cell's shape (210,000 rows, d_c 32) first, the others beside
     src, rep = KERNEL_SOURCES["coarse_blockmax"]
     main_shape, *others = results["coarse_blockmax"]
     out.append(dict(name="coarse_blockmax", route="cuda", source=src,
                     replaces=rep, launches=launches["coarse_blockmax"],
+                    eval_launches=eval_launches("coarse_blockmax"),
                     **{key: main_shape[key] for key in keys_v},
                     other_shapes=[dict(shape=o["shape"],
                                        **{key: o[key] for key in keys_v})
@@ -1512,15 +1929,15 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-ALL_PHASES = ("kernels", "flagship", "coarse", "serving_10k", "gru",
-              "coarse_2m")
+ALL_PHASES = ("kernels", "flagship", "coarse", "eval", "eval_charades",
+              "serving_10k", "gru", "coarse_2m")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of " + ", ".join(ALL_PHASES)
-                         + " and profile (coarse needs flagship); the "
+                         + " and profile (coarse and eval need flagship); the "
                            "default runs all but profile and is the only "
                            "one that ends with the ok line; rnn runs the "
                            "K1 / K3 kernel checks alone, select the K2 and "
@@ -1583,8 +2000,14 @@ def main(argv=None) -> int:
             ctx = phase_serving(results, SEED, VIDEOS, workdir)
             if "coarse" in phases:
                 phase_coarse(results, ctx, workdir)
+                settle()
+            if "eval" in phases:
+                phase_eval(results, ctx)
             del ctx
             settle()
+    if "eval_charades" in phases:
+        phase_eval_charades(results, SEED + 17, VIDEOS_CHARADES)
+        settle()
     if "serving_10k" in phases:
         phase_serving_10k(results, SEED, VIDEOS_10K)
         settle()

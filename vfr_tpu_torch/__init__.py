@@ -8,10 +8,13 @@ kernels under ``csrc/``, built by ``nvcc`` at first use
 (``kernels/build.py``).  Entry points run on CUDA unless the caller asks
 for the CPU (``--device cpu`` / ``device="cpu"``).
 
-Ported so far: the serving path (``cli index`` / ``cli serve``): the query
-LSTM kernel (fused mean pool and hs-emitting), the fused distance +
-strided-bin selection kernel, the factored moment tower, the index build,
-save, load and single-device serving.  See ROADMAP.md for what remains.
+Ported so far, single device, for DiDeMo and Charades-STA: serving
+(``cli index`` / ``cli serve``, with the coarse-to-fine prefilter) and
+evaluation (``cli eval`` per-video localization, ``cli corpus`` corpus
+retrieval with the official GT ranks): the query LSTM / GRU kernels, the
+fused distance + strided-bin selection and coarse block-max kernels, the
+moment tower (direct and factored, mean and max pooling).  See ROADMAP.md
+for what remains.
 """
 
 __version__ = "0.1.0"

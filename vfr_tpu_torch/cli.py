@@ -1,8 +1,17 @@
-"""CLI of the PyTorch port: ``index`` and ``serve``.
+"""CLI of the PyTorch port: ``eval``, ``corpus``, ``index`` and ``serve``.
 
+    python -m vfr_tpu_torch.cli eval   --preset charades_flagship
+    python -m vfr_tpu_torch.cli corpus --preset didemo_flagship \
+        --topk-method fused
     python -m vfr_tpu_torch.cli index --preset didemo_flagship --out idx.npz
     python -m vfr_tpu_torch.cli serve --preset didemo_flagship \
         --index-path idx.npz --queries queries.txt --topk 10
+
+``eval`` is per-video localization (``--protocol threshold`` or
+``didemo_official``), ``corpus`` corpus retrieval eval (through the exact,
+fused or, with ``--coarse-dim``, coarse retriever); both print the metric
+dict and score queries with the f32 scan twin of the recurrence
+(``EvalConfig.rnn_kernel="scan"``), as the JAX package does.
 
 ``index --coarse-dim D`` also writes the coarse prefilter to
 ``<out>.coarse.npz``; ``serve --index-path idx.npz --coarse-path
@@ -10,11 +19,13 @@ idx.coarse.npz`` (or ``--coarse-dim D`` to build it in-process) serves
 through the two-stage retriever (``--coarse-mode``,
 ``--coarse-candidates``).
 
-The flags are the JAX package's for these two subcommands, plus
-``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
-CPU).  With no real data under --data-dir the synthetic fixture is used.
-``--follow``, the live index and ``--shards > 1`` are not ported yet and
-raise.
+The flags are the JAX package's for these subcommands, plus ``--device``
+(default ``cuda``; ``--device cpu`` is the only way onto the CPU).  With no
+real data under --data-dir the synthetic fixture is used.  ``--follow``,
+the live index and ``serve --shards > 1`` are not ported yet and raise;
+``corpus --shards N`` follows the JAX package's rule (a mesh only when
+N > 1 and at least N devices are visible) and raises where that rule would
+build the mesh, since the sharded path is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +63,30 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; raises "
                              "when CUDA is absent unless 'cpu' is given)")
+
+    e = sub.add_parser("eval", help="per-video localization eval")
+    common(e)
+    e.add_argument("--protocol", default=None,
+                   choices=["threshold", "didemo_official"])
+
+    c = sub.add_parser("corpus", help="corpus-level retrieval eval")
+    common(c)
+    c.add_argument("--shards", type=int, default=None,
+                   help="devices to shard the moment index over")
+    c.add_argument("--topk", type=int, default=None)
+    c.add_argument("--num-videos", type=int, default=None)
+    c.add_argument("--topk-method", default=None,
+                   choices=["exact", "approx", "fused"])
+    c.add_argument("--index-dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    c.add_argument("--coarse-dim", type=int, default=None,
+                   help="evaluate through the two-stage coarse-to-fine "
+                        "retriever at this PCA rank (0/absent = exact "
+                        "full scan)")
+    c.add_argument("--coarse-candidates", type=int, default=None,
+                   help="stage-1 survivors per query for --coarse-dim")
+    c.add_argument("--coarse-mode", choices=["blockmax", "centroid"],
+                   default=None)
 
     s = sub.add_parser("serve", help="answer free-text queries against the "
                        "moment index (one JSON line per query)")
@@ -113,14 +148,22 @@ def apply_overrides(cfg, args):
     if tkw:
         train = dataclasses.replace(train, **tkw)
     ekw = {}
+    if getattr(args, "protocol", None) is not None:
+        ekw["protocol"] = args.protocol
+    if getattr(args, "shards", None) is not None:
+        ekw["corpus_shards"] = args.shards
     if getattr(args, "topk", None) is not None:
         ekw["corpus_topk"] = args.topk
-    if args.num_videos is not None:
+    if getattr(args, "num_videos", None) is not None:
         ekw["corpus_num_videos"] = args.num_videos
     if getattr(args, "topk_method", None) is not None:
         ekw["topk_method"] = args.topk_method
-    if args.index_dtype is not None:
+    if getattr(args, "index_dtype", None) is not None:
         ekw["index_dtype"] = args.index_dtype
+    if args.cmd == "corpus":
+        for key in ("coarse_dim", "coarse_candidates", "coarse_mode"):
+            if getattr(args, key) is not None:
+                ekw[key] = getattr(args, key)
     if args.bank_dtype is not None:
         ekw["bank_dtype"] = args.bank_dtype
     if ekw:
@@ -129,15 +172,23 @@ def apply_overrides(cfg, args):
                                eval=ev)
 
 
+def _visible_devices(device) -> int:
+    """Devices of ``device``'s type this process sees."""
+    import torch
+
+    return (torch.cuda.device_count() if torch.device(device).type == "cuda"
+            else 1)
+
+
 def _not_ported(args):
-    """The serve/index options this port does not have yet, by flag."""
+    """The options this port does not have yet, by flag."""
     bad = []
     if getattr(args, "follow", False):
         bad.append("--follow")
     if getattr(args, "live_arena", None) or getattr(
             args, "live_capacity_videos", 0):
         bad.append("--live-arena/--live-capacity-videos")
-    if (getattr(args, "shards", None) or 1) > 1:
+    if args.cmd == "serve" and (args.shards or 1) > 1:
         bad.append("--shards > 1")
     return bad
 
@@ -158,8 +209,27 @@ def main(argv=None) -> int:
         serve_queries,
     )
 
+    if args.cmd == "corpus":
+        # the JAX package's rule: a mesh only when it can be built
+        shards = cfg.eval.corpus_shards
+        if shards > 1 and _visible_devices(args.device) >= shards:
+            raise NotImplementedError(
+                f"--shards {shards} with {shards} devices visible: sharded "
+                "corpus eval is not yet ported to vfr_tpu_torch")
+
     params, model, bundle = load_for_eval(cfg, prefer_best=args.best,
                                           device=args.device)
+    if args.cmd in ("eval", "corpus"):
+        if args.cmd == "eval":
+            from vfr_tpu_torch.eval.moment_eval import evaluate
+
+            metrics = evaluate(params, model, bundle.val, cfg.eval)
+        else:
+            from vfr_tpu_torch.eval.corpus import corpus_evaluate
+
+            metrics = corpus_evaluate(params, model, bundle.val, cfg.eval)
+        print({k: round(v, 4) for k, v in metrics.items()})
+        return 0
     if args.cmd == "index":
         index = build_moment_index(
             params, model, bundle.val,

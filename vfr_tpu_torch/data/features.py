@@ -1,6 +1,8 @@
 """Precomputed clip-feature store: video id -> ``[num_clips, feature_dim]``
-float32, from one ``.npz`` per stream or a directory of ``<video_id>.npy``
-files.  (The packed ``.vfrf`` format is not ported yet.)"""
+float32 (DiDeMo) or ``[T, feature_dim]`` per-second rows (Charades-STA),
+from one ``.npz`` per stream or a directory of ``<video_id>.npy`` files;
+and ``banks_to_device``, the one-time copy of full-corpus banks to the
+device.  (The packed ``.vfrf`` format is not ported yet.)"""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import os
 from typing import Dict, Iterable
 
 import numpy as np
+import torch
 
 
 class FeatureStore:
@@ -22,6 +25,15 @@ class FeatureStore:
 
     def ids(self) -> Iterable[str]:
         return self._table.keys()
+
+    def get_padded(self, video_id: str, rows: int) -> np.ndarray:
+        """Features zero-padded/truncated to ``rows`` rows (the static row
+        grid); pooling matrices and validity masks carry the true length."""
+        f = self._table[video_id]
+        out = np.zeros((rows, f.shape[1]), dtype=np.float32)
+        n = min(rows, f.shape[0])
+        out[:n] = f[:n]
+        return out
 
     @classmethod
     def load(cls, path: str):
@@ -41,4 +53,37 @@ class FeatureStore:
 
     @classmethod
     def maybe_load(cls, path: str):
-        return cls.load(path) if os.path.exists(path) else None
+        """``load(path)`` when it exists; else the packed twin
+        ``<stem>.vfrf`` when that exists (which ``load`` refuses: not
+        ported yet); else None."""
+        if os.path.exists(path):
+            return cls.load(path)
+        vfrf = os.path.splitext(path)[0] + ".vfrf"
+        if os.path.exists(vfrf):
+            return cls.load(vfrf)
+        return None
+
+
+# feature-stream bank keys eligible for bank_dtype quantization; small
+# exact tables (video_tef, masks) always stay at their native dtype
+_STREAM_KEYS = ("rgb", "flow")
+
+
+def banks_to_device(banks: dict, bank_dtype: str = "float32",
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """One-time copy of full-corpus feature banks to ``device``.
+
+    ``bank_dtype="bfloat16"`` converts the rgb/flow streams on the host
+    before the copy (half the bytes moved and held); consumers upcast at
+    gather time, so only the stored inputs are quantized.  Other keys keep
+    their dtype."""
+    if bank_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown bank_dtype {bank_dtype!r}")
+    out = {}
+    for k, v in banks.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if k in _STREAM_KEYS:
+            t = t.to(torch.bfloat16 if bank_dtype == "bfloat16"
+                     else torch.float32)
+        out[k] = t.to(device)
+    return out

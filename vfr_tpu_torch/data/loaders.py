@@ -1,14 +1,17 @@
-"""Dataset assembly, DiDeMo branch: real files when present, the synthetic
-fixture otherwise.
+"""Dataset assembly: real files when present, the synthetic fixture
+otherwise.
 
-Real layout (the same as the JAX package's):
+Real layouts (the same as the JAX package's):
 
-    <data_dir>/{train,val,test}_data.json   (DiDeMo schema)
-    <data_dir>/features_rgb.npz             [per video: [6, F]]
-    <data_dir>/features_flow.npz            (when the preset uses flow)
-    <data_dir>/glove.txt                    (optional, glove.*.300d format)
+didemo:        <data_dir>/{train,val,test}_data.json   (DiDeMo schema)
+               <data_dir>/features_rgb.npz  [per video: [6, F]]
+               <data_dir>/features_flow.npz (when the preset uses flow)
+               <data_dir>/glove.txt         (optional, glove.*.300d format)
+charades_sta:  <data_dir>/charades_sta_{train,test}.txt
+               <data_dir>/features_rgb.npz  [per video: [T, F]]
 
-Charades-STA and the packed feature store are not ported yet.
+The packed ``features_<stream>.vfrf`` store is not ported yet: a data dir
+that holds only that form raises and says so.
 """
 
 from __future__ import annotations
@@ -19,10 +22,17 @@ from dataclasses import dataclass
 import numpy as np
 
 from vfr_tpu_torch.config import DataConfig
+from vfr_tpu_torch.data.charades import (
+    CharadesSTADataset,
+    load_charades_annotations,
+)
 from vfr_tpu_torch.data.didemo import DidemoDataset, load_annotations
 from vfr_tpu_torch.data.features import FeatureStore
 from vfr_tpu_torch.data.glove import Vocab, load_glove, synthetic_glove
-from vfr_tpu_torch.data.synthetic import make_didemo_fixture
+from vfr_tpu_torch.data.synthetic import (
+    make_charades_fixture,
+    make_didemo_fixture,
+)
 
 
 @dataclass
@@ -33,6 +43,18 @@ class DataBundle:
     glove: np.ndarray
     feature_dim: int
     source: str          # "real" | "synthetic"
+
+
+def _load_store(data_dir: str, stream: str):
+    """``features_<stream>.npz`` (or its packed ``.vfrf`` twin, which
+    raises: not ported yet)."""
+    store = FeatureStore.maybe_load(
+        os.path.join(data_dir, f"features_{stream}.npz"))
+    if store is None:
+        raise FileNotFoundError(
+            f"neither features_{stream}.npz nor features_{stream}.vfrf "
+            f"exists under {data_dir}")
+    return store
 
 
 def _load_flow(data_dir: str, use_flow: bool):
@@ -47,10 +69,16 @@ def _load_flow(data_dir: str, use_flow: bool):
     return flow
 
 
+def _glove(data_dir: str, vocab: Vocab, glove_dim: int) -> np.ndarray:
+    glove_path = os.path.join(data_dir, "glove.txt")
+    return (load_glove(glove_path, vocab, glove_dim)
+            if os.path.exists(glove_path)
+            else synthetic_glove(vocab, glove_dim))
+
+
 def load_datasets(dcfg: DataConfig) -> DataBundle:
     if dcfg.dataset == "charades_sta":
-        raise NotImplementedError(
-            "Charades-STA is not yet ported to vfr_tpu_torch")
+        return _load_charades(dcfg)
     return _load_didemo(dcfg)
 
 
@@ -66,14 +94,11 @@ def _load_didemo(dcfg: DataConfig) -> DataBundle:
         )
         val_anns = (load_annotations(os.path.join(d, val_path))
                     if val_path else train_anns)
-        rgb = FeatureStore.load(os.path.join(d, "features_rgb.npz"))
+        rgb = _load_store(d, "rgb")
         flow = _load_flow(d, dcfg.use_flow)
         vocab = Vocab.from_corpus(
             (a["description"] for a in train_anns), max_size=dcfg.vocab_size)
-        glove_path = os.path.join(d, "glove.txt")
-        glove = (load_glove(glove_path, vocab, dcfg.glove_dim)
-                 if os.path.exists(glove_path)
-                 else synthetic_glove(vocab, dcfg.glove_dim))
+        glove = _glove(d, vocab, dcfg.glove_dim)
         train_ds = DidemoDataset(train_anns, rgb, flow, vocab, dcfg)
         val_ds = DidemoDataset(val_anns, rgb, flow, vocab, dcfg)
         return DataBundle(train_ds, val_ds, vocab, glove, dcfg.feature_dim,
@@ -96,5 +121,46 @@ def _load_didemo(dcfg: DataConfig) -> DataBundle:
                              fix.vocab, dcfg)
     val_ds = DidemoDataset(fix.annotations[-n_val:], fix.rgb, fix.flow,
                            fix.vocab, dcfg)
+    return DataBundle(train_ds, val_ds, fix.vocab, fix.glove,
+                      dcfg.feature_dim, "synthetic")
+
+
+def _load_charades(dcfg: DataConfig) -> DataBundle:
+    d = dcfg.data_dir
+    train_txt = os.path.join(d, "charades_sta_train.txt")
+    if os.path.exists(train_txt):
+        train_anns = load_charades_annotations(train_txt)
+        test_txt = os.path.join(d, "charades_sta_test.txt")
+        val_anns = (load_charades_annotations(test_txt)
+                    if os.path.exists(test_txt) else train_anns)
+        rgb = _load_store(d, "rgb")
+        flow = _load_flow(d, dcfg.use_flow)
+        vocab = Vocab.from_corpus(
+            (a["description"] for a in train_anns), max_size=dcfg.vocab_size)
+        glove = _glove(d, vocab, dcfg.glove_dim)
+        train_ds = CharadesSTADataset(train_anns, rgb, flow, vocab, dcfg)
+        val_ds = CharadesSTADataset(val_anns, rgb, flow, vocab, dcfg)
+        return DataBundle(train_ds, val_ds, vocab, glove, dcfg.feature_dim,
+                          "real")
+
+    fix = make_charades_fixture(
+        num_videos=dcfg.synthetic_num_videos,
+        num_queries=dcfg.synthetic_num_queries,
+        feature_dim=dcfg.feature_dim,
+        glove_dim=dcfg.glove_dim,
+        max_duration=dcfg.max_duration,
+        feature_seconds=dcfg.feature_seconds,
+        noise=dcfg.synthetic_noise,
+        with_flow=dcfg.use_flow,
+        vocab_words=dcfg.synthetic_vocab_words,
+        moments_per_video=dcfg.synthetic_moments_per_video,
+        seed=dcfg.synthetic_seed,
+    )
+    n_val = max(1, len(fix.annotations) // 5)
+    flow = fix.flow if dcfg.use_flow else None
+    train_ds = CharadesSTADataset(fix.annotations[:-n_val], fix.rgb, flow,
+                                  fix.vocab, dcfg)
+    val_ds = CharadesSTADataset(fix.annotations[-n_val:], fix.rgb, flow,
+                                fix.vocab, dcfg)
     return DataBundle(train_ds, val_ds, fix.vocab, fix.glove,
                       dcfg.feature_dim, "synthetic")

@@ -348,7 +348,21 @@ def make_coarse_score_topk(
     return _coarse_fn(model, coarse, k, g, rnn_kernel, mode)
 
 
-make_coarse_retriever = make_coarse_score_topk
+def make_coarse_retriever(
+    model: Model,
+    coarse: CoarseIndex,
+    k: int,
+    num_candidates: int = 2048,
+    approx_recall: float = 0.95,
+    rnn_kernel: Optional[str] = None,
+    mode: str = "blockmax",
+):
+    """The JAX package's ``make_coarse_retriever`` contract (what
+    ``corpus_evaluate`` calls): ``(params, tokens [Q, T], lengths [Q]) ->
+    (dists [Q, k], rows [Q, k])``; ``approx_recall`` is accepted for that
+    contract and unused (stage 1 is exact)."""
+    return make_coarse_score_topk(model, coarse, k, num_candidates,
+                                  rnn_kernel, mode)
 
 
 def make_coarse_stream_retriever(

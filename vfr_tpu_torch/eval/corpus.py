@@ -1,9 +1,10 @@
-"""Corpus-level retrieval and serving, single device.
+"""Corpus-level retrieval, serving and corpus eval, single device.
 
 PASS 1 — ``build_moment_index``: embed every moment of every corpus video
 once into a cached index: per-stream rows ``[S, V*P, d]`` + ``|m|^2``
-(1e30 on invalid rows).  ``save_index`` / ``load_index`` persist it in the
-JAX package's npz format, bit-exact both ways.
+(1e30 on invalid rows: Charades windows outside a video's validity mask).
+``save_index`` / ``load_index`` persist it in the JAX package's npz format,
+bit-exact both ways.
 
 PASS 2 — retrieval: embed a query batch (GloVe -> LSTM kernel -> projection
 -> cosine normalization), score it against the whole index and select.
@@ -11,10 +12,15 @@ PASS 2 — retrieval: embed a query batch (GloVe -> LSTM kernel -> projection
 + ``torch.topk`` (``approx`` is exact in the port).  ``fused``: the CUDA
 distance+strided-bin kernel, then an exact top-k over its candidates.
 
+``corpus_evaluate`` reports moment-level corpus R@k at tIoU thresholds (hit
+= a top-k row on the right video with tIoU >= thr), video-level R@k and,
+under ``protocol="didemo_official"``, the official rank aggregation over
+exact corpus ranks of the GT rows (``make_gt_ranker``).
+
 Coarse-to-fine retrieval (the two-stage prefilter for large corpora) lives
-in ``eval/coarse.py``; ``serve_queries`` routes to it when given a coarse
-index.  Not ported yet: the mesh (sharded) paths, the live index and
-``serve_follow``, and the ``carrier_dtype="auto"`` policy (a TPU layout
+in ``eval/coarse.py``; ``serve_queries`` and ``corpus_evaluate`` route to
+it when asked.  Not ported yet: the mesh (sharded) paths, the live index
+and ``serve_follow``, and the ``carrier_dtype="auto"`` policy (a TPU layout
 choice; the port always carries the score operand as f32, see
 ``prep_score_operands``).
 """
@@ -24,11 +30,12 @@ from __future__ import annotations
 import hashlib
 import json
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from vfr_tpu_torch.config import EvalConfig
 from vfr_tpu_torch.data.glove import tokenize
 from vfr_tpu_torch.models.mcn import (
     Model,
@@ -37,9 +44,11 @@ from vfr_tpu_torch.models.mcn import (
     prepare_query_params,
 )
 from vfr_tpu_torch.ops.kernels.select_kernel import distance_select
+from vfr_tpu_torch.ops.tiou import tiou
 from vfr_tpu_torch.ops.topk import top_k_select
 from vfr_tpu_torch.parallel.sharding import (
     fuse_index_cat,
+    fused_corpus_distances,
     fused_corpus_scores,
     query_sq_const,
 )
@@ -132,26 +141,35 @@ def build_moment_index(
     params, model: Model, dataset, batch_size: int = 128,
     num_videos: int = 0, index_dtype: str = "float32",
     with_fingerprint: bool = True,
+    feature_banks: Optional[Dict[str, torch.Tensor]] = None,
 ) -> MomentIndex:
     """Embed the corpus (on the params' device) and finalize the index:
     cosine rows L2-normalized (+1e-8), a bf16 index quantized BEFORE |m|^2
-    so the norm matches the stored rows, 1e30 on invalid rows."""
+    so the norm matches the stored rows, 1e30 on invalid rows.
+
+    ``feature_banks``: stream -> [V, C, F] tensors already on the params'
+    device (and "video_tef" [V, W, 2] for a Charades corpus); clip features
+    are then gathered there instead of copied from the host per batch."""
     if index_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown index_dtype {index_dtype!r}")
-    if hasattr(dataset, "windows"):
-        raise NotImplementedError(
-            "Charades corpora are not yet ported to vfr_tpu_torch")
     dev = _params_device(params)
     V_all = dataset.rgb_feats.shape[0]
     V = min(num_videos, V_all) if num_videos else V_all
     P = dataset.num_proposals
+    is_charades = hasattr(dataset, "windows")
     blocks = []
     for start in range(0, V, batch_size):
         sl = slice(start, min(start + batch_size, V))
-        feats = {"rgb": torch.from_numpy(dataset.rgb_feats[sl]).to(dev)}
-        if "flow" in model.streams:
-            feats["flow"] = torch.from_numpy(dataset.flow_feats[sl]).to(dev)
-        m = embed_moments(params, model, feats)
+        if feature_banks is not None:
+            feats = {s: feature_banks[s][sl] for s in model.streams}
+            tef = feature_banks["video_tef"][sl] if is_charades else None
+        else:
+            feats = {"rgb": torch.from_numpy(dataset.rgb_feats[sl]).to(dev)}
+            if "flow" in model.streams:
+                feats["flow"] = torch.from_numpy(
+                    dataset.flow_feats[sl]).to(dev)
+            tef = dataset.video_tef[sl] if is_charades else None
+        m = embed_moments(params, model, feats, tef=tef)
         blocks.append(torch.stack([m[s] for s in model.streams]))
     all_m = torch.cat(blocks, dim=1)                         # [S, V, P, d]
     S, _, _, d = all_m.shape
@@ -162,14 +180,20 @@ def build_moment_index(
     if index_dtype == "bfloat16":
         flat = flat.to(torch.bfloat16).float()
     m_sq = (flat * flat).sum(-1)
+    if is_charades:
+        spans = np.asarray(dataset.windows)                  # [P, 2]
+        valid = torch.from_numpy(
+            dataset.window_mask[:V].reshape(V * P)).to(dev)
+        m_sq = torch.where(valid[None, :], m_sq, torch.full_like(m_sq, 1e30))
+    else:
+        spans = np.asarray(dataset.span_seconds)
     m = flat.to(torch.bfloat16) if index_dtype == "bfloat16" else flat
     return MomentIndex(
         m=m,
         m_sq=m_sq,
         video_row=np.repeat(np.arange(V, dtype=np.int32), P),
         prop_idx=np.tile(np.arange(P, dtype=np.int32), V),
-        spans_sec=np.tile(np.asarray(dataset.span_seconds),
-                          (V, 1)).astype(np.float32),
+        spans_sec=np.tile(spans, (V, 1)).astype(np.float32),
         weights=np.asarray(model.cfg.stream_weights, np.float32),
         fingerprint=(index_fingerprint(params, model, dataset, V)
                      if with_fingerprint else None),
@@ -349,6 +373,22 @@ def make_stream_retriever(model: Model, index: MomentIndex, k: int,
     return retrieve_stream
 
 
+def corpus_retrieval(
+    params, model: Model, index: MomentIndex, tokens, lengths, k: int,
+    mesh=None, topk_method: str = "exact", approx_recall: float = 0.95,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One query batch (host arrays) -> (dists [Q, k], rows [Q, k]) numpy."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded corpus retrieval is not yet ported to vfr_tpu_torch")
+    retrieve = make_retriever(model, index, k, topk_method=topk_method,
+                              approx_recall=approx_recall)
+    dev = _params_device(params)
+    d, rows = retrieve(params, torch.as_tensor(np.asarray(tokens)).to(dev),
+                       torch.as_tensor(np.asarray(lengths)).to(dev))
+    return d.cpu().numpy(), rows.cpu().numpy()
+
+
 def resolve_length_buckets(spec, max_query_len: int):
     """Length-bucket spec -> sorted tuple terminated at ``max_query_len``:
     None/"" -> None (off); "auto" -> multiples of 8 below max_query_len;
@@ -493,4 +533,145 @@ def serve_queries(
             for jj, r in enumerate(qr[j])
         ]
         out.append({"query": text, "results": results})
+    return out
+
+
+def make_gt_ranker(model: Model, index: MomentIndex,
+                   rnn_kernel: Optional[str] = None, mesh=None,
+                   axis: str = "corpus"):
+    """Exact corpus ranks of given index rows (official protocol).
+
+    ``(params, tokens [Q, T], lengths [Q], gt_rows [Q, A]) -> ranks [Q, A]``
+    (int64, on the params' device), rank = 0-based position of each GT row
+    in the full corpus ordering: #{rows with smaller distance} +
+    #{equal-distance rows with a smaller row id}, the stable-argsort
+    position, counted without sorting (the two sets are disjoint, so one
+    count of their union).  The GT row's distance is gathered from the
+    same [Q, N] f32 distance tensor it is compared against, never
+    recomputed, so exact ties count as the reference counts them."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded GT ranker is not yet ported to vfr_tpu_torch")
+    compute_dtype = model.compute_dtype
+
+    @torch.no_grad()
+    def ranks(params, tokens, lengths, gt_rows):
+        qs = _embed_query_streams(params, model, tokens, lengths, rnn_kernel)
+        D = fused_corpus_distances(qs, index.m, index.m_sq, index.weights,
+                                   compute_dtype)             # [Q, N]
+        N = D.shape[1]
+        row_ids = torch.arange(N, device=D.device)
+        out = []
+        for a in range(gt_rows.shape[1]):
+            g = gt_rows[:, a].long().clamp(0, N - 1)
+            d_g = torch.gather(D, 1, g[:, None])              # [Q, 1]
+            before = (D < d_g) | ((D == d_g) & (row_ids[None, :] < g[:, None]))
+            out.append(before.sum(1))
+        return torch.stack(out, dim=1)                        # [Q, A]
+
+    return ranks
+
+
+@torch.no_grad()
+def corpus_evaluate(
+    params, model: Model, dataset, ecfg: EvalConfig, mesh=None,
+    feature_banks: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, float]:
+    """Corpus retrieval metrics over every query of ``dataset`` against the
+    index of its first ``ecfg.corpus_num_videos`` videos (0 = all),
+    through the exact/approx/fused retriever (``ecfg.topk_method``) or,
+    with ``ecfg.coarse_dim > 0``, the coarse-to-fine one.  The official GT
+    ranker is exact whatever the retriever.  ``feature_banks``: see
+    ``build_moment_index``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded corpus eval is not yet ported to vfr_tpu_torch")
+    from vfr_tpu_torch.eval.moment_eval import _official_hit
+
+    dev = _params_device(params)
+    index = build_moment_index(
+        params, model, dataset, num_videos=ecfg.corpus_num_videos,
+        index_dtype=ecfg.index_dtype,
+        with_fingerprint=False,          # transient: never persisted
+        feature_banks=feature_banks)
+    rnn_kernel = ecfg.rnn_kernel
+    # the recurrence kernel's bf16 weights, cast once for all batches
+    params = prepare_query_params(params, model, rnn_kernel)
+    ks = tuple(ecfg.recall_ks)
+    taus = tuple(ecfg.tiou_thresholds)
+    kmax = min(max(max(ks), 10), index.num_rows)
+    if ecfg.coarse_dim > 0:
+        from vfr_tpu_torch.eval.coarse import (
+            build_coarse_index,
+            make_coarse_retriever,
+        )
+
+        coarse = build_coarse_index(index, d_coarse=ecfg.coarse_dim)
+        retrieve = make_coarse_retriever(
+            model, coarse, kmax, num_candidates=ecfg.coarse_candidates,
+            approx_recall=ecfg.approx_recall, mode=ecfg.coarse_mode,
+            rnn_kernel=rnn_kernel)
+    else:
+        retrieve = make_retriever(model, index, kmax,
+                                  topk_method=ecfg.topk_method,
+                                  approx_recall=ecfg.approx_recall,
+                                  rnn_kernel=rnn_kernel)
+    official = (ecfg.protocol == "didemo_official"
+                and hasattr(dataset, "num_proposals"))
+    if official:
+        gt_ranker = make_gt_ranker(model, index, rnn_kernel)
+        P = dataset.num_proposals
+        n_official = 0
+        official_rank_sum = {k: 0.0 for k in ks}
+
+    hits = {(k, t): 0.0 for k in ks for t in taus}
+    video_hits = {k: 0.0 for k in ks}
+    n = 0
+    for batch in dataset.eval_batches(ecfg.corpus_query_batch,
+                                      with_features=False):
+        toks = torch.from_numpy(batch["tokens"]).to(dev)
+        lens = torch.from_numpy(batch["lengths"]).to(dev)
+        _, rows = retrieve(params, toks, lens)
+        rows = rows.cpu().numpy()                             # [Q, kmax]
+        valid = batch["valid"]
+        vid_ok = index.video_row[rows] == batch["video_idx"][:, None]
+        pred_spans = index.spans_sec[rows]                    # [Q, kmax, 2]
+        ious = tiou(pred_spans[:, :, None, :],
+                    batch["gt_spans"][:, None, :, :])
+        ious = np.where(batch["gt_mask"][:, None, :], ious, -1.0).max(axis=2)
+        for k in ks:
+            for t in taus:
+                hit = (vid_ok[:, :k] & (ious[:, :k] >= t)).any(axis=1)
+                hits[(k, t)] += float((hit & valid).sum())
+            video_hits[k] += float((vid_ok[:, :k].any(axis=1) & valid).sum())
+        n += int(valid.sum())
+
+        if official and "gt_prop_idx" in batch:
+            gt_prop = batch["gt_prop_idx"]                    # [Q, A], -1 pad
+            in_corpus = batch["video_idx"] < index.num_videos
+            gt_rows = batch["video_idx"][:, None] * P + np.maximum(gt_prop, 0)
+            r = gt_ranker(params, toks, lens, torch.from_numpy(
+                gt_rows.astype(np.int64)).to(dev)).cpu().numpy().astype(
+                    np.float64)                               # [Q, A]
+            r = np.where(gt_prop >= 0, r, np.inf)
+            r3 = np.sort(r, axis=1)[:, :3]
+            cnt = np.minimum((gt_prop >= 0).sum(axis=1), 3)
+            mean_rank = (np.where(np.isfinite(r3), r3, 0.0).sum(axis=1)
+                         / np.maximum(cnt, 1))
+            q_ok = valid & in_corpus
+            for k in ks:
+                official_rank_sum[k] += float(
+                    (_official_hit(mean_rank, k) & q_ok).sum())
+            n_official += int(q_ok.sum())
+
+    out: Dict[str, float] = {"corpus_num_rows": float(index.num_rows)}
+    for k in ks:
+        for t in taus:
+            out[f"corpus_R@{k}_tiou{t}"] = hits[(k, t)] / max(n, 1)
+        out[f"corpus_video_R@{k}"] = video_hits[k] / max(n, 1)
+    out["num_queries"] = float(n)
+    if official:
+        for k in ks:
+            out[f"corpus_R@{k}_official"] = (
+                official_rank_sum[k] / max(n_official, 1))
     return out

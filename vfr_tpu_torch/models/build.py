@@ -1,4 +1,4 @@
-"""Model factory: wire config + static DiDeMo tables into a Model context."""
+"""Model factory: wire config + dataset static tables into a Model context."""
 
 from __future__ import annotations
 
@@ -22,11 +22,16 @@ def build_model(cfg: ExperimentConfig, dataset=None) -> Model:
         mcfg = dataclasses.replace(
             mcfg, stream_weights=tuple(1.0 / len(streams) for _ in streams))
     if cfg.data.dataset == "charades_sta":
-        raise NotImplementedError(
-            "Charades-STA models are not yet ported to vfr_tpu_torch")
-    spans = didemo_proposals(cfg.data.num_clips)
-    pool = np.asarray(pooling_matrix(spans, cfg.data.num_clips, "mean"),
-                      np.float32)
-    tef = np.asarray(temporal_endpoint_features(spans, cfg.data.num_clips),
-                     np.float32)
+        if dataset is None:
+            raise ValueError("charades model needs the dataset's window bank")
+        pool = np.asarray(dataset.pool, np.float32)   # [W, T]
+        tef = None                                    # per-video, from batches
+    else:
+        spans = didemo_proposals(cfg.data.num_clips)
+        # the mean matrix doubles as the span-membership indicator for
+        # pooling="max" (models.mcn._segment_max uses its nonzero pattern)
+        pool = np.asarray(pooling_matrix(spans, cfg.data.num_clips, "mean"),
+                          np.float32)
+        tef = np.asarray(
+            temporal_endpoint_features(spans, cfg.data.num_clips), np.float32)
     return Model(cfg=mcfg, streams=streams, pool_matrix=pool, tef=tef)

@@ -1,20 +1,23 @@
 """Two-tower joint-embedding model (MCN lineage), inference towers.
 
 Query tower:  GloVe lookup -> LSTM or GRU -> Linear -> joint space R^d.
-Moment tower: per stream (rgb / flow), the factored form: because segment
-              pooling and the projection are both linear,
-              ``concat(local, global, tef) @ W`` = ``poolmix(feats @
-              W_local) + mean(feats @ W_global) + tef @ W_tef``.
+Moment tower: per stream (rgb / flow), segment pooling over the proposals
+              (mean: the ``[P, C]`` or per-video ``[B, P, C]`` pooling
+              matrix as a matmul; max: ``_segment_max``) + optional global
+              context + optional TEF -> Linear -> R^{P x d}, in the direct
+              order or, for mean pooling, the factored one.
+Fusion:       per-stream distances combined by fixed stream weights
+              (``fused_distances``).
 
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts (``bridge.params_from_numpy`` converts its trees).  Not ported yet:
-the direct moment form, ``pooling="max"`` and training-time dropout.
+training-time dropout and ``cross_distances`` (the training loss's).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -253,28 +256,124 @@ def _split_moment_proj(cfg: ModelConfig, w: torch.Tensor):
     return w_local, w_global, w_tef
 
 
+Table = Union[np.ndarray, torch.Tensor]
+
+# bytes of the [B, p, C, F] masked block one step of _segment_max holds
+SEGMENT_MAX_BYTES = 1 << 28
+
+
+def _table(t: Table, device) -> torch.Tensor:
+    """A static table (numpy or tensor) as f32 on ``device``."""
+    return torch.as_tensor(t, dtype=torch.float32, device=device)
+
+
+def _pool_segments(pool_matrix: torch.Tensor, feats: torch.Tensor,
+                   compute_dtype: torch.dtype) -> torch.Tensor:
+    """[P, C] (or per-video [B, P, C]) x [B, C, F] -> [B, P, F]: segment
+    mean pooling as one matmul, operands rounded to ``compute_dtype``, f32
+    products and sums."""
+    eq = "pc,bcf->bpf" if pool_matrix.ndim == 2 else "bpc,bcf->bpf"
+    return torch.einsum(eq, pool_matrix.to(compute_dtype).float(),
+                        feats.to(compute_dtype).float())
+
+
+def _segment_max(pool_matrix: torch.Tensor, feats: torch.Tensor,
+                 chunk: Optional[int] = None) -> torch.Tensor:
+    """Segment max pooling [B, P, F] (``ModelConfig.pooling="max"``).
+
+    The span membership is the (mean or per-video) pooling matrix's
+    nonzero pattern; rows outside a span count as -inf, and a span with no
+    member rows (a padded bank window) pools to 0.  The reference masks
+    all of [B, P, C, F] at once; here ``chunk`` proposals at a time (by
+    default as many as fit ``SEGMENT_MAX_BYTES``), which gives the same
+    maxima bit for bit."""
+    ind = pool_matrix > 0                                # [P, C] or [B, P, C]
+    B, C, F = feats.shape
+    P = ind.shape[-2]
+    if chunk is None:
+        chunk = max(1, SEGMENT_MAX_BYTES // max(1, B * C * F
+                                                * feats.element_size()))
+    neg = torch.tensor(float("-inf"), dtype=feats.dtype, device=feats.device)
+    outs = []
+    for p0 in range(0, P, chunk):
+        sel = ind[..., p0 : p0 + chunk, :]
+        sel = sel[None, :, :, None] if sel.ndim == 2 else sel[..., None]
+        outs.append(torch.where(sel, feats[:, None], neg).amax(dim=2))
+    out = torch.cat(outs, dim=1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def _resolve_tef(model: Model, tef: Optional[Table], B: int, P: int,
+                 device) -> torch.Tensor:
+    t = tef if tef is not None else model.tef
+    if t is None:
+        raise ValueError("use_tef=True but no TEF table provided")
+    t = _table(t, device)
+    if t.ndim == 2:
+        t = t[None].expand(B, P, 2)
+    return t
+
+
 def embed_moments(
     params: Dict,
     model: Model,
     feats: Dict[str, torch.Tensor],             # stream -> [B, C, F]
-    tef: Optional[torch.Tensor] = None,         # [B, P, 2] overrides static
-    context_mask: Optional[torch.Tensor] = None,
+    tef: Optional[Table] = None,                # [B, P, 2] overrides static
+    context_mask: Optional[torch.Tensor] = None,   # [B, C] valid-row mask
+    pool_matrix: Optional[Table] = None,        # [B?, P, C] override
+    impl: Optional[str] = None,                 # override cfg.moment_impl
 ) -> Dict[str, torch.Tensor]:
-    """Per-stream moment embeddings, stream -> [B, P, d] (factored form)."""
+    """Per-stream moment embeddings: stream -> [B, P, d].
+
+    "factored": because segment pooling and the projection are both
+    linear, ``concat(local, global, tef) @ W`` = ``poolmix(feats @
+    W_local) + mean(feats @ W_global) + tef @ W_tef``: one [B*C, F] GEMM
+    whatever P is.  "direct": the textbook order (pool in feature space,
+    concat, project).  ``pooling="max"`` is nonlinear and always runs
+    direct."""
     cfg = model.cfg
-    if cfg.pooling != "mean" or cfg.moment_impl != "factored":
-        raise NotImplementedError(
-            "only the factored mean-pool moment tower is ported to "
-            f"vfr_tpu_torch (pooling={cfg.pooling!r}, "
-            f"moment_impl={cfg.moment_impl!r})")
+    which = impl or cfg.moment_impl
+    if cfg.pooling == "max":
+        which = "direct"
+    if which == "factored":
+        return _embed_moments_factored(params, model, feats, tef,
+                                       context_mask, pool_matrix)
+    if which != "direct":
+        raise ValueError(f"unknown moment_impl {which!r}")
+    cdt = model.compute_dtype
+    out = {}
+    for s in model.streams:
+        f = feats[s]
+        B = f.shape[0]
+        pm = _table(pool_matrix if pool_matrix is not None
+                    else model.pool_matrix, f.device)
+        if cfg.pooling == "max":
+            local = _segment_max(pm, f)                        # [B, P, F]
+        else:
+            local = _pool_segments(pm, f, cdt)                 # [B, P, F]
+        P = local.shape[1]
+        parts = [local]
+        if cfg.use_global_context:
+            parts.append(_global_context(f, context_mask)[:, None, :]
+                         .expand(local.shape))
+        if cfg.use_tef:
+            parts.append(_resolve_tef(model, tef, B, P, f.device))
+        x = torch.cat(parts, dim=-1)                           # [B, P, D_in]
+        out[s] = _maybe_normalize(
+            cfg, _linear(params[f"moment_proj_{s}"], x, cdt))  # [B, P, d]
+    return out
+
+
+def _embed_moments_factored(params, model: Model, feats, tef, context_mask,
+                            pool_matrix):
+    cfg = model.cfg
     cdt = model.compute_dtype
     out = {}
     for s in model.streams:
         f = feats[s]
         B, C, F = f.shape
-        dev = f.device
-        pm = torch.as_tensor(model.pool_matrix, dtype=torch.float32,
-                             device=dev)
+        pm = _table(pool_matrix if pool_matrix is not None
+                    else model.pool_matrix, f.device)
         P = pm.shape[-2]
         p = params[f"moment_proj_{s}"]
         w_local, w_global, w_tef = _split_moment_proj(cfg, p["w"])
@@ -287,20 +386,48 @@ def embed_moments(
         else:
             z_local = mm_f32(flat, w_local, cdt).reshape(B, C, -1)
             z_global = None
-        m_emb = torch.einsum("pc,bcd->bpd", pm, z_local)
+        # pool mix in joint space: [B?, P, C] x [B, C, d] -> [B, P, d]
+        m_emb = torch.einsum("pc,bcd->bpd" if pm.ndim == 2 else
+                             "bpc,bcd->bpd", pm, z_local)
         if z_global is not None:
             m_emb = m_emb + _global_context(z_global, context_mask)[:, None, :]
         if cfg.use_tef:
-            t = tef if tef is not None else model.tef
-            if t is None:
-                raise ValueError("use_tef=True but no TEF table provided")
-            t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-            if t.ndim == 2:
-                t = t[None].expand(B, P, 2)
+            t = _resolve_tef(model, tef, B, P, f.device)
             m_emb = m_emb + torch.einsum("bpt,td->bpd", t, w_tef.float())
         m_emb = m_emb + p["b"]
-        if cfg.normalize_embeddings:
-            m_emb = m_emb / (torch.linalg.norm(m_emb, dim=-1, keepdim=True)
-                             + 1e-8)
-        out[s] = m_emb
+        out[s] = _maybe_normalize(cfg, m_emb)
     return out
+
+
+def _sq_dist(q: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """q [..., d], m [..., d] -> squared euclidean distance [...]."""
+    diff = q - m
+    return (diff * diff).sum(-1)
+
+
+def _stream_distance(cfg: ModelConfig, q: torch.Tensor,
+                     m: torch.Tensor) -> torch.Tensor:
+    if cfg.distance == "sqeuclidean":
+        return _sq_dist(q, m)
+    if cfg.distance == "euclidean":
+        return torch.sqrt(_sq_dist(q, m) + 1e-12)
+    if cfg.distance == "cosine":
+        qn = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-8)
+        mn = m / (torch.linalg.norm(m, dim=-1, keepdim=True) + 1e-8)
+        return 1.0 - (qn * mn).sum(-1)
+    raise ValueError(f"unknown distance {cfg.distance!r}")
+
+
+def fused_distances(
+    model: Model,
+    q: torch.Tensor,                        # [B, d] or per-stream [S, B, d]
+    moments: Dict[str, torch.Tensor],       # stream -> [B, P, d]
+) -> torch.Tensor:
+    """Fused per-proposal distance D [B, P]; smaller = better match."""
+    cfg = model.cfg
+    D = None
+    for i, (w, s) in enumerate(zip(cfg.stream_weights, model.streams)):
+        q_s = q[i] if q.ndim == 3 else q
+        d_s = _stream_distance(cfg, q_s[:, None, :], moments[s])
+        D = w * d_s if D is None else D + w * d_s
+    return D
