@@ -1584,7 +1584,7 @@ def phase_eval_charades(results, seed: int, num_videos: int):
     require(not any(retrieved_invalid.values()),
             f"eval_charades: invalid windows retrieved {retrieved_invalid}")
 
-    # K2 at this slice's shape: S=1, N=V*64 with 1e30 sentinel rows
+    # K2 at the Charades index's shape: S=1, N=V*64 with 1e30 sentinel rows
     b = next(ds.eval_batches(base.corpus_query_batch, with_features=False))
     qs = _embed_query_streams(q_params, model,
                               torch.from_numpy(b["tokens"]).to(dev),
