@@ -49,6 +49,20 @@ Phases, one JSON line each:
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
+  train       `cli train` of didemo_flagship at full width (B=128, InfoNCE,
+              EMA 0.999, 8 mined negatives from epoch 3) on a synthetic
+              2,000-video fixture, 4 epochs of 20 steps; then `cli corpus
+              --checkpoint-dir` on what it wrote, exact (K1a) and fused
+              (K1a + K2), each held against the kernels' plain versions.
+              Fails on a non-finite loss, an EMA tree equal to the raw
+              params, a checkpoint that does not reload bit for bit, or
+              fused-layer gradients (the hand-written BPTT) more than
+              GRAD_TOL of max |grad| per leaf from autograd through the
+              scan twin on one flagship batch.  Reports step ms (median of
+              the chunks), the step's forward / backward / optimizer / EMA
+              split by CUDA events, the device's busy share of a step,
+              mining refresh and eval seconds; a step that synchronises
+              with the host fails it.
 Every serving and eval run zeroes the kernels' launch counts just before
 it runs and fails unless each kernel of its path launched.  Then one
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
@@ -81,6 +95,11 @@ VIDEOS_10K = 2_000       # serving_10k and gru corpora, cut to keep the run
                          # short
 VIDEOS_2M = 100_000      # coarse_2m: 2.1M index rows
 VIDEOS_CHARADES = 2_000  # eval_charades: 128,000 index rows (64 windows)
+VIDEOS_TRAIN = 2_000     # train: synthetic didemo_flagship fixture
+TRAIN_STEPS_PER_EPOCH = 20
+TRAIN_EPOCHS = 4         # the preset mines from epoch 3: one refresh
+TRAIN_STEPS_PER_CALL = 5
+GRAD_TOL = 1e-3          # fused BPTT vs scan autograd, of max |grad| per leaf
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "tf32": 495e12,       # dense tensor-core rate
@@ -1076,12 +1095,13 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
         lambda: r_kernel(q_params, toks_d, lens_d)) / len(toks)
     plain_ms_batch = time_batches(
         lambda: r_plain(q_params, toks_d, lens_d)) / len(toks)
+    topk = _topk_cost(model, loaded, q_params, toks_d[0], lens_d[0], k)
     first = exact[0]["results"]
     rec = dict(phase="flagship", videos=num_videos, rows=loaded.num_rows,
                queries=n_queries, batch=batch, k=k, launches=counts,
                setup_s=setup_s, index_build_s=build_s,
                serve_queries_s=serve_s, ms_per_batch=ms_batch,
-               plain_ms_per_batch=plain_ms_batch,
+               plain_ms_per_batch=plain_ms_batch, topk=topk,
                rows_differing_from_plain=mism,
                max_distance_diff_vs_plain=ddiff,
                bucketed_identical=True)
@@ -1143,6 +1163,36 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     return dict(cfg=cfg, params=params, q_params=q_params, model=model, ds=ds,
                 vocab=vocab, index=loaded, queries=queries, toks=toks_d, lens=lens_d,
                 exact_rows=rows_k, k=k, batch=batch, T=T)
+
+
+def _topk_cost(model, index, params, toks, lens, k):
+    """ms of the exact path's top-k on one batch's score matrix [Q, N]:
+    the tie-ordered ``top_k_select`` against a bare ``torch.topk`` (which
+    must select the same values), and how many rows tie at the k-th
+    place (where the tie search runs)."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import (
+        _embed_query_streams,
+        prep_score_operands,
+    )
+    from vfr_tpu_torch.ops.topk import top_k_select
+    from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
+
+    m_cat, msq, in_dtype = prep_score_operands(index, model.compute_dtype)
+    with torch.no_grad():
+        qs = _embed_query_streams(params, model, toks, lens)
+        scores = fused_corpus_scores(qs, m_cat, msq, index.weights,
+                                     in_dtype=in_dtype)
+    ordered = cuda_ms(lambda: top_k_select(scores, k))
+    bare = cuda_ms(lambda: torch.topk(scores, k, dim=-1, sorted=True))
+    same = torch.equal(top_k_select(scores, k)[0],
+                       torch.topk(scores, k, dim=-1)[0])
+    require(same, "tie-ordered top-k selected other values than torch.topk")
+    top = torch.topk(scores, k + 1, dim=-1).values
+    return dict(shape=list(scores.shape), k=k, tie_ordered_ms=ordered,
+                torch_topk_ms=bare, extra_ms=ordered - bare,
+                rows_with_tie_at_k=int((top[:, k] == top[:, k - 1]).sum()))
 
 
 def _served_ok(out, n, k, what):
@@ -1706,6 +1756,7 @@ def phase_coarse_2m(results, seed: int, num_videos: int):
                full_scan_ms_per_batch=time_batches(lambda: full(*args)))
     rows_full = rows_full.cpu().numpy()
     del full
+    rec["topk"] = _topk_cost(model, w["index"], *args, k)
     for mode in ("blockmax", "centroid"):
         for C in (1024, 2048):
             fn = make_coarse_score_topk(model, coarse, k, num_candidates=C,
@@ -1867,6 +1918,284 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     results["serving_10k"] = rec
 
 
+# ----------------------------------------------------------------- train
+
+def _memo_datasets():
+    """``load_datasets`` memoized by DataConfig: the train phase's CLI runs
+    build the synthetic corpus once, not once per run."""
+    from vfr_tpu_torch.data.loaders import load_datasets
+
+    cache = {}
+
+    def load(dcfg):
+        if dcfg not in cache:
+            cache[dcfg] = load_datasets(dcfg)
+        return cache[dcfg]
+    return load
+
+
+def _train_preset(nodata: str, seed: int, rnn_kernel: str = "scan"):
+    """didemo_flagship unchanged but for the fixture's size, the epoch's
+    length and the eval's recurrence (the CLI has no flag for these)."""
+    from vfr_tpu_torch.config import get_preset
+
+    cfg = get_preset("didemo_flagship")
+    return dataclasses.replace(
+        cfg,
+        data=dataclasses.replace(cfg.data, data_dir=nodata,
+                                 synthetic_num_videos=VIDEOS_TRAIN,
+                                 synthetic_num_queries=4 * VIDEOS_TRAIN,
+                                 synthetic_seed=seed),
+        train=dataclasses.replace(cfg.train,
+                                  steps_per_epoch=TRAIN_STEPS_PER_EPOCH),
+        eval=dataclasses.replace(cfg.eval, rnn_kernel=rnn_kernel))
+
+
+def _cli(argv, preset, load):
+    """Run ``vfr_tpu_torch.cli.main(argv)`` with ``get_preset`` returning
+    ``preset`` and datasets memoized; the last printed line as a dict."""
+    import ast
+    import contextlib
+    import io
+    from unittest import mock
+
+    import vfr_tpu_torch.checkpoint as ckpt_mod
+    import vfr_tpu_torch.cli as cli_mod
+    import vfr_tpu_torch.train.loop as loop_mod
+
+    out = io.StringIO()
+    with mock.patch.object(cli_mod, "get_preset", lambda name: preset), \
+            mock.patch.object(ckpt_mod, "load_datasets", load), \
+            mock.patch.object(loop_mod, "load_datasets", load), \
+            contextlib.redirect_stdout(out):
+        rc = cli_mod.main(argv)
+    require(rc == 0, f"cli {argv[0]} exited {rc}")
+    return ast.literal_eval(out.getvalue().strip().splitlines()[-1])
+
+
+def _leaf_rel_errors(got, ref):
+    """max |got - ref| / max |ref| for each leaf of two params trees."""
+    from vfr_tpu_torch.utils.tree import flatten
+
+    paths, a = flatten(got)
+    _, b = flatten(ref)
+    out = {}
+    for p, x, y in zip(paths, a, b):
+        if x is None:
+            continue
+        scale = float(y.abs().max())
+        out["/".join(p)] = float((x - y).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def _bitwise_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a)
+
+
+def _step_split(model, tcfg, opt, params, opt_state, ema, batch, banks,
+                iters: int = 10, warmup: int = 3):
+    """Median ms by CUDA events of one train step's forward (loss), backward
+    (autograd, the fused layers' BPTT), optimizer update and EMA."""
+    import torch
+
+    from vfr_tpu_torch.train.optim import apply_updates
+    from vfr_tpu_torch.train.step import _ema_update, loss_from_batch
+    from vfr_tpu_torch.utils.tree import flatten, unflatten
+
+    split = {k: [] for k in ("forward", "backward", "optimizer", "ema",
+                             "step")}
+    for it in range(warmup + iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        paths, leaves = flatten(params)
+        frozen = [p == ("embeddings",) for p in paths]
+        req = [l if f else l.detach().requires_grad_(True)
+               for l, f in zip(leaves, frozen)]
+        ev[0].record()
+        with torch.enable_grad():
+            loss, _ = loss_from_batch(unflatten(paths, req), model, tcfg,
+                                      batch, feature_banks=banks)
+            ev[1].record()
+            got = iter(torch.autograd.grad(
+                loss, [r for r, f in zip(req, frozen) if not f]))
+        ev[2].record()
+        grads = unflatten(paths, [None if f else next(got) for f in frozen])
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        ev[3].record()
+        ema = _ema_update(ema, params, tcfg.ema_decay)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if it >= warmup:
+            for key, (a, b) in zip(("forward", "backward", "optimizer",
+                                    "ema", "step"),
+                                   ((0, 1), (1, 2), (2, 3), (3, 4), (0, 4))):
+                split[key].append(ev[a].elapsed_time(ev[b]))
+    return {k: float(np.median(v)) for k, v in split.items()}
+
+
+def phase_train(results, seed: int, workdir: str):
+    """``cli train`` of didemo_flagship at full width on a synthetic
+    2,000-video fixture (4 epochs of 20 steps, B=128; mining from the
+    preset's epoch 3, EMA 0.999), then ``cli corpus --checkpoint-dir`` on
+    what it wrote, exact (K1a) and fused (K1a + K2), each held against the
+    kernels' plain versions.  Checks: finite loss, an EMA tree that moved
+    away from the raw params, a checkpoint that reloads bit for bit, and
+    the fused layers' BPTT against autograd through the scan twin on one
+    flagship batch (per leaf, relative to max |grad|).  Reports step ms
+    (median of the chunks), the step split by CUDA events, the device's
+    busy share of a step, mining refresh and eval seconds."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch.checkpoint import load_for_eval
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.eval import corpus as corpus_mod
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
+    from vfr_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_payload,
+        restore_checkpoint,
+        restore_ema,
+        save_checkpoint,
+    )
+    from vfr_tpu_torch.train.hard_negatives import mine_hard_negatives
+    from vfr_tpu_torch.train.optim import make_optimizer
+    from vfr_tpu_torch.train.step import _grads, make_train_multi_step
+    from vfr_tpu_torch.utils.tree import flatten, tree_map
+
+    dev = torch.device("cuda")
+    nodata = os.path.join(workdir, "train_nodata")
+    ck = os.path.join(workdir, "train_ck")
+    load = _memo_datasets()
+    preset = _train_preset(nodata, seed)
+    bundle, setup_s = _timed(lambda: load(preset.data))
+    common = ["--preset", "didemo_flagship", "--data-dir", nodata,
+              "--checkpoint-dir", ck]
+    epochs = TRAIN_EPOCHS
+    final, train_s = _timed(lambda: _cli(
+        ["train", *common, "--epochs", str(epochs), "--steps-per-call",
+         str(TRAIN_STEPS_PER_CALL)], preset, load))
+    recs = [json.loads(line) for line in
+            open(os.path.join(ck, "metrics.jsonl"), encoding="utf-8")]
+    tr = [r for r in recs if r["tag"] == "train"]
+    require(tr and all(np.isfinite(r["loss"]) for r in tr),
+            "train: non-finite loss")
+    mine = [r["refresh_s"] for r in recs if r["tag"] == "mine"]
+    require(mine, "train: mining never ran")
+    eval_s = [r["eval_s"] for r in recs if r["tag"] == "eval"]
+
+    # the checkpoint: bit-exact reload, an EMA that is not the raw params
+    ckpt = latest_checkpoint(ck)
+    payload = load_payload(ckpt)
+    step, params, opt_state, cfg_ck = restore_checkpoint(
+        ckpt, payload=payload, device=dev)
+    ema = restore_ema(ckpt, payload=payload, device=dev)
+    again = save_checkpoint(os.path.join(workdir, "train_ck2"), step,
+                            params, opt_state, cfg_ck, ema=ema)
+    require(_bitwise_equal(payload, load_payload(again)),
+            "train: the checkpoint does not reload bit for bit")
+    served, model, _ = load_for_eval(dataclasses.replace(
+        preset, train=dataclasses.replace(preset.train, checkpoint_dir=ck)),
+        bundle=bundle, device=dev)
+    _, e_leaves = flatten(ema)
+    require(all(torch.equal(a, b) for a, b in
+                zip(flatten(served)[1], e_leaves)),
+            "train: load_for_eval does not serve the EMA tree")
+    moved = [not torch.equal(a, b) for (p, a), b in
+             zip(zip(*flatten(params)), e_leaves) if p != ("embeddings",)]
+    require(all(moved), "train: the EMA tree equals the raw params")
+
+    # one flagship batch (B=128, mined negatives): step split, busy share,
+    # the fused BPTT against autograd through the scan twin
+    tcfg = preset.train
+    ds = bundle.train
+    banks = banks_to_device(dict(ds.feature_banks()), preset.data.bank_dtype,
+                            device=dev)
+    mined, mine_s = _timed(lambda: mine_hard_negatives(
+        params, model, ds, tcfg.hard_negative_count, feature_banks=banks))
+    b = next(ds.train_batches(tcfg.batch_size, 1, seed=seed,
+                              with_features=False))
+    b["hard_neg_video"] = mined[0][b["query_idx"]]
+    b["hard_neg_prop"] = mined[1][b["query_idx"]]
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+             b.items()}
+    opt = make_optimizer(tcfg, TRAIN_STEPS_PER_EPOCH * epochs)
+    split = _step_split(model, tcfg, opt, params, opt_state,
+                        tree_map(torch.clone, ema), batch, banks)
+    multi = make_train_multi_step(model, tcfg, opt, feature_banks=banks)
+    chunk = {k: v[None] for k, v in batch.items()}
+    state = {"p": params, "s": opt_state, "e": ema}
+
+    def one_step():
+        state["p"], state["s"], state["e"], _ = multi(
+            state["p"], state["s"], chunk, state["e"])
+    _device_profile("train_step_B128", one_step)
+    # no host sync inside a chunk: any synchronising call raises here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one_step()
+        sync_free = True
+    except RuntimeError as e:
+        sync_free = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(sync_free is True, f"train: a step synchronised with the host: "
+            f"{sync_free}")
+    scan_model = model._replace(cfg=dataclasses.replace(
+        model.cfg, train_rnn_impl="scan"))
+    _, g_fused = _grads(params, model, tcfg, batch, banks)
+    _, g_scan = _grads(params, scan_model, tcfg, batch, banks)
+    errs = _leaf_rel_errors(g_fused, g_scan)
+    worst = max(errs.values())
+    require(worst <= GRAD_TOL, f"train: fused BPTT gradients differ from "
+            f"autograd through the scan twin by {worst} of max |grad| "
+            f"(> {GRAD_TOL})")
+
+    # cli corpus on the trained checkpoint: K1a (exact) and K1a + K2
+    # (fused), each beside the same run through the plain versions
+    runs = EvalRuns(bundle.val.num_queries)
+    diffs = {}
+    for method, kernels in (("exact", ("lstm_pooled",)),
+                            ("fused", ("lstm_pooled", "distance_select"))):
+        argv = ["corpus", *common, "--topk-method", method]
+        k_m, k_counts = runs(f"corpus_{method}_pallas", lambda: _cli(
+            argv, _train_preset(nodata, seed, "pallas"), load))
+        patches = ([mock.patch.object(corpus_mod, "distance_select",
+                                      distance_select_plain)]
+                   if method == "fused" else [])
+        p_m, _ = runs(f"corpus_{method}_plain", lambda: _cli(
+            argv, _train_preset(nodata, seed, "plain"), load),
+            patches=patches)
+        diffs[method] = metrics_close(k_m, p_m, f"train[corpus {method}]")
+        for name in kernels:
+            require(k_counts[name] > 0,
+                    f"train[corpus {method}]: {name} never launched")
+        require_persistent(k_counts, "lstm", f"train[corpus {method}]")
+        if method == "fused":
+            require_mma(k_counts, "select", "train[corpus fused]")
+    chunk_ms = [r["step_ms"] for r in tr]
+    rec = dict(phase="train", preset="didemo_flagship",
+               videos=VIDEOS_TRAIN, train_queries=ds.num_queries,
+               val_queries=bundle.val.num_queries,
+               batch=tcfg.batch_size, epochs=epochs,
+               steps=step, steps_per_call=TRAIN_STEPS_PER_CALL,
+               fixture_s=setup_s, train_cli_s=train_s,
+               step_ms_median=float(np.median(chunk_ms)),
+               step_ms_chunks=chunk_ms, step_split_ms=split,
+               step_sync_free=sync_free,
+               mining_refresh_s=mine, mining_refresh_s_again=mine_s,
+               eval_s=eval_s, final_metrics=final,
+               final_loss=tr[-1]["loss"],
+               grad_check=dict(tol=GRAD_TOL, worst=worst, per_leaf=errs),
+               max_metric_diff_vs_plain=diffs, runs=runs.runs)
+    emit(rec)
+    results["train"] = rec
+
+
 def kernels_line(results):
     """The {"kernels": [...]} summary: launches from the serving run of
     each kernel's path, times and errors from the kernel phase."""
@@ -1885,11 +2214,16 @@ def kernels_line(results):
         "coarse_blockmax": served("coarse", "blockmax", "launches",
                                   "coarse_blockmax"),
     }
-    def eval_launches(name):
-        """Launches of ``name`` over the eval phases' kernel runs."""
+    def eval_launches(name, phases=("eval", "eval_charades")):
+        """Launches of ``name`` over the kernel runs of ``phases``."""
         return sum(run["launches"].get(name, 0)
-                   for phase in ("eval", "eval_charades")
+                   for phase in phases
                    for run in results.get(phase, {}).get("runs", {}).values())
+
+    def train_launches(name):
+        """Launches of ``name`` in the train phase's corpus runs on the
+        trained checkpoint."""
+        return eval_launches(name, ("train",))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1900,6 +2234,7 @@ def kernels_line(results):
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
                         launches=launches[name],
                         eval_launches=eval_launches(name),
+                        train_launches=train_launches(name),
                         **{key: r[key] for key in keys},
                         variant=r["variant"], stepwise_ms=r["stepwise_ms"]))
     # the fused cell's index is f32 (the flagship preset); the bf16-index
@@ -1912,6 +2247,7 @@ def kernels_line(results):
     out.append(dict(name="distance_select", route="cuda", source=src,
                     replaces=rep, launches=launches["distance_select"],
                     eval_launches=eval_launches("distance_select"),
+                    train_launches=train_launches("distance_select"),
                     **{key: f32[key] for key in keys_v},
                     bf16_index={key: b16[key] for key in keys_v},
                     charades_s1={key: s1[key] for key in keys_v
@@ -1922,6 +2258,7 @@ def kernels_line(results):
     out.append(dict(name="coarse_blockmax", route="cuda", source=src,
                     replaces=rep, launches=launches["coarse_blockmax"],
                     eval_launches=eval_launches("coarse_blockmax"),
+                    train_launches=train_launches("coarse_blockmax"),
                     **{key: main_shape[key] for key in keys_v},
                     other_shapes=[dict(shape=o["shape"],
                                        **{key: o[key] for key in keys_v})
@@ -1929,8 +2266,8 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-ALL_PHASES = ("kernels", "flagship", "coarse", "eval", "eval_charades",
-              "serving_10k", "gru", "coarse_2m")
+ALL_PHASES = ("kernels", "flagship", "coarse", "eval", "train",
+              "eval_charades", "serving_10k", "gru", "coarse_2m")
 
 
 def main(argv=None) -> int:
@@ -2004,6 +2341,9 @@ def main(argv=None) -> int:
             if "eval" in phases:
                 phase_eval(results, ctx)
             del ctx
+            settle()
+        if "train" in phases:
+            phase_train(results, SEED, workdir)
             settle()
     if "eval_charades" in phases:
         phase_eval_charades(results, SEED + 17, VIDEOS_CHARADES)

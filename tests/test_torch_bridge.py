@@ -164,12 +164,13 @@ def test_port_imports_nothing_of_jax():
         with open(path, encoding="utf-8") as f:
             assert not _IMPORT_RE.search(f.read()), path
     code = (
-        "import sys\n"
-        "import vfr_tpu_torch, vfr_tpu_torch.cli, vfr_tpu_torch.bridge\n"
-        "import vfr_tpu_torch.checkpoint, vfr_tpu_torch.eval.corpus\n"
-        "import vfr_tpu_torch.kernels.build, vfr_tpu_torch.eval.coarse\n"
-        "import vfr_tpu_torch.ops.kernels.gru_kernel\n"
-        "import vfr_tpu_torch.ops.kernels.coarse_kernel\n"
+        "import importlib, pkgutil, sys\n"
+        "import vfr_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    vfr_tpu_torch.__path__, 'vfr_tpu_torch.')]\n"
+        "assert 'vfr_tpu_torch.train.loop' in mods, mods\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('cs', 'chip_smoke.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"

@@ -114,17 +114,29 @@ def test_resolve_length_buckets(spec, want):
         jcorpus.resolve_length_buckets(spec, 24)
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
+    """--follow raises; --shards 2 follows the JAX package's rule: with one
+    device visible it serves unsharded, and it raises only where the mesh
+    would be built (the sharded path is not ported)."""
+    import vfr_tpu_torch.cli as tcli
+
     _, tmodel, _, tds, vocab, tree = _world()
     with pytest.raises(NotImplementedError):
         serve_queries(params_from_numpy(tree), tmodel, tds, vocab, ["w0001"],
                       mesh=object())
     q = tmp_path / "q.txt"
     q.write_text("w0001\n")
-    for extra in (["--follow"], ["--shards", "2"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cli_main(["serve", "--queries", str(q), "--device", "cpu",
-                      *extra])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli_main(["serve", "--queries", str(q), "--device", "cpu",
+                  "--follow"])
+    argv = ["serve", "--queries", str(q), "--device", "cpu", "--topk", "3",
+            "--data-dir", str(tmp_path / "none"), "--shards", "2"]
+    assert cli_main(argv) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["query"] == "w0001" and len(rec["results"]) == 3
+    monkeypatch.setattr(tcli, "_visible_devices", lambda device: 2)
+    with pytest.raises(NotImplementedError, match="sharded serving"):
+        cli_main(argv)
 
 
 def test_cli_index_and_serve_on_cpu(tmp_path, capsys):

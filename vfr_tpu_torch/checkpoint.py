@@ -1,10 +1,12 @@
 """Restore serving weights: the counterpart of the JAX package's
 ``train.loop.load_for_eval``.
 
-With ``params.npz`` (or, for ``prefer_best``, ``best.npz``) in the
-checkpoint directory — see ``bridge.save_params_npz`` — its weights are
-served, the EMA tree when the stored train config has ``ema_decay > 0``.
-Without one, parameters are initialised from
+The checkpoint directory's newest step checkpoint (``ckpt_<step>.npz``,
+written by ``cli train``; see ``train.checkpoint``) is served, else its
+``params.npz`` (converted from a JAX checkpoint by
+``bridge.save_params_npz``); ``prefer_best`` opens ``best.npz`` instead.
+The EMA tree is served when the stored train config has
+``ema_decay > 0``.  Without any file, parameters are initialised from
 ``torch.Generator().manual_seed(cfg.train.seed)``.  Those seeded weights
 differ from the JAX package's ``jax.random`` weights at the same seed; to
 serve identical weights in both packages, convert the JAX checkpoint with
@@ -25,9 +27,9 @@ from vfr_tpu_torch.data.loaders import DataBundle, load_datasets
 from vfr_tpu_torch.device import resolve_device
 from vfr_tpu_torch.models.build import build_model
 from vfr_tpu_torch.models.mcn import init_model_params
+from vfr_tpu_torch.train.checkpoint import BEST_FILE, latest_checkpoint
 
 PARAMS_FILE = "params.npz"
-BEST_FILE = "best.npz"
 
 
 def init_train_params(generator, model, glove, feature_dim, tcfg,
@@ -51,7 +53,9 @@ def load_for_eval(cfg: ExperimentConfig,
         bundle = load_datasets(cfg.data)
     model = build_model(cfg, dataset=bundle.train)
     ckpt_dir = cfg.train.checkpoint_dir
-    path = os.path.join(ckpt_dir, BEST_FILE if prefer_best else PARAMS_FILE)
+    path = (os.path.join(ckpt_dir, BEST_FILE) if prefer_best
+            else latest_checkpoint(ckpt_dir)
+            or os.path.join(ckpt_dir, PARAMS_FILE))
     if not os.path.exists(path):
         if prefer_best:
             raise FileNotFoundError(

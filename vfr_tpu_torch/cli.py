@@ -1,5 +1,8 @@
-"""CLI of the PyTorch port: ``eval``, ``corpus``, ``index`` and ``serve``.
+"""CLI of the PyTorch port: ``train``, ``eval``, ``corpus``, ``index`` and
+``serve``.
 
+    python -m vfr_tpu_torch.cli train  --preset didemo_flagship \
+        --checkpoint-dir ck
     python -m vfr_tpu_torch.cli eval   --preset charades_flagship
     python -m vfr_tpu_torch.cli corpus --preset didemo_flagship \
         --topk-method fused
@@ -13,6 +16,13 @@ fused or, with ``--coarse-dim``, coarse retriever); both print the metric
 dict and score queries with the f32 scan twin of the recurrence
 (``EvalConfig.rnn_kernel="scan"``), as the JAX package does.
 
+``train`` runs the training loop (``train.loop.train``) and writes step
+checkpoints (``ckpt_<step>.npz``, plus ``best.npz`` with
+``--best-metric``) that ``eval`` / ``corpus`` / ``index`` / ``serve
+--checkpoint-dir`` open (``--best`` for ``best.npz``); ``--trace-dir``
+writes a ``torch.profiler`` trace, ``--debug-nans`` turns on autograd's
+anomaly detection.
+
 ``index --coarse-dim D`` also writes the coarse prefilter to
 ``<out>.coarse.npz``; ``serve --index-path idx.npz --coarse-path
 idx.coarse.npz`` (or ``--coarse-dim D`` to build it in-process) serves
@@ -22,10 +32,11 @@ through the two-stage retriever (``--coarse-mode``,
 The flags are the JAX package's for these subcommands, plus ``--device``
 (default ``cuda``; ``--device cpu`` is the only way onto the CPU).  With no
 real data under --data-dir the synthetic fixture is used.  ``--follow``,
-the live index and ``serve --shards > 1`` are not ported yet and raise;
-``corpus --shards N`` follows the JAX package's rule (a mesh only when
-N > 1 and at least N devices are visible) and raises where that rule would
-build the mesh, since the sharded path is not ported yet.
+the live index and ``train --data-parallel`` are not ported yet and raise;
+``corpus`` and ``serve --shards N`` follow the JAX package's rule (a mesh
+only when N > 1 and at least N devices are visible: otherwise unsharded)
+and raise where that rule would build the mesh, since the sharded path is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -42,12 +53,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vfr_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def common(sp, best=True):
         sp.add_argument("--preset", default="didemo_rgb",
                         choices=sorted(PRESETS))
         sp.add_argument("--data-dir", default=None)
         sp.add_argument("--checkpoint-dir", default=None,
-                        help="directory holding params.npz (see "
+                        help="directory holding the step checkpoints of "
+                             "`train` or a params.npz (see "
                              "vfr_tpu_torch.bridge); seeded weights when "
                              "absent")
         sp.add_argument("--batch-size", type=int, default=None)
@@ -57,12 +69,59 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=("float32", "bfloat16"))
         sp.add_argument("--compute-dtype", default=None,
                         choices=["float32", "bfloat16"])
-        sp.add_argument("--best", action="store_true",
-                        help="open <checkpoint-dir>/best.npz instead of "
-                             "params.npz")
+        if best:
+            sp.add_argument("--best", action="store_true",
+                            help="open <checkpoint-dir>/best.npz (tracked "
+                                 "by train --best-metric) instead of the "
+                                 "newest step checkpoint")
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; raises "
                              "when CUDA is absent unless 'cpu' is given)")
+
+    t = sub.add_parser("train", help="run the training loop")
+    common(t, best=False)
+    t.add_argument("--epochs", type=int, default=None)
+    t.add_argument("--lr", type=float, default=None)
+    t.add_argument("--margin", type=float, default=None)
+    t.add_argument("--loss-type", default=None,
+                   choices=["triplet", "infonce"],
+                   help="objective: max-margin triplet or softmax "
+                        "contrastive (InfoNCE) over the same [B,B,P] "
+                        "cross-distance tensor")
+    t.add_argument("--temperature", type=float, default=None,
+                   help="infonce softmax temperature over -distance/tau")
+    t.add_argument("--learn-temperature", action="store_true",
+                   help="infonce: train tau as a parameter (log-temperature "
+                        "initialized at --temperature)")
+    t.add_argument("--temperature-final", type=float, default=None,
+                   help="infonce: cosine-anneal tau from --temperature to "
+                        "this value over training")
+    t.add_argument("--ema-decay", type=float, default=None,
+                   help="Polyak-average the params (0 = off); eval and "
+                        "serving read the average")
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--data-parallel", action="store_true",
+                   help="shard the batch over all local devices (not "
+                        "ported yet: raises)")
+    t.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace of the train loop")
+    t.add_argument("--debug-nans", action="store_true",
+                   help="turn on torch.autograd.set_detect_anomaly")
+    t.add_argument("--hard-negatives", type=int, default=None,
+                   help="mined hard inter-video negatives per query (0 = "
+                        "off)")
+    t.add_argument("--hard-negative-refresh", type=int, default=None,
+                   help="epochs between hard-negative re-mining passes")
+    t.add_argument("--best-metric", default=None,
+                   help="track the best val checkpoint by this eval metric "
+                        "(e.g. R@1_tiou0.5): every improving eval rolls "
+                        "<checkpoint-dir>/best.npz; open it with --best")
+    t.add_argument("--eval-every", type=int, default=None,
+                   help="epochs between val evals (the last epoch always "
+                        "evaluates)")
+    t.add_argument("--steps-per-call", type=int, default=None,
+                   help="optimizer steps per chunk (0 = log_every_steps); "
+                        "one metrics fetch per chunk")
 
     e = sub.add_parser("eval", help="per-video localization eval")
     common(e)
@@ -145,6 +204,21 @@ def apply_overrides(cfg, args):
         tkw["seed"] = args.seed
     if args.metrics_path is not None:
         tkw["metrics_path"] = args.metrics_path
+    for flag, key in (("epochs", "num_epochs"), ("lr", "learning_rate"),
+                      ("margin", "margin"), ("loss_type", "loss_type"),
+                      ("temperature", "temperature"),
+                      ("temperature_final", "temperature_final"),
+                      ("ema_decay", "ema_decay"),
+                      ("hard_negatives", "hard_negative_count"),
+                      ("hard_negative_refresh",
+                       "hard_negative_refresh_epochs"),
+                      ("eval_every", "eval_every_epochs"),
+                      ("steps_per_call", "steps_per_call"),
+                      ("best_metric", "best_metric")):
+        if getattr(args, flag, None) is not None:
+            tkw[key] = getattr(args, flag)
+    if getattr(args, "learn_temperature", False):
+        tkw["learn_temperature"] = True
     if tkw:
         train = dataclasses.replace(train, **tkw)
     ekw = {}
@@ -188,8 +262,8 @@ def _not_ported(args):
     if getattr(args, "live_arena", None) or getattr(
             args, "live_capacity_videos", 0):
         bad.append("--live-arena/--live-capacity-videos")
-    if args.cmd == "serve" and (args.shards or 1) > 1:
-        bad.append("--shards > 1")
+    if getattr(args, "data_parallel", False):
+        bad.append("--data-parallel")
     return bad
 
 
@@ -200,6 +274,8 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"{', '.join(bad)}: not yet ported to vfr_tpu_torch")
     cfg = apply_overrides(get_preset(args.preset), args)
+    if args.cmd == "train":
+        return _train(cfg, args)
 
     from vfr_tpu_torch.checkpoint import load_for_eval
     from vfr_tpu_torch.eval.corpus import (
@@ -209,13 +285,15 @@ def main(argv=None) -> int:
         serve_queries,
     )
 
-    if args.cmd == "corpus":
-        # the JAX package's rule: a mesh only when it can be built
+    if args.cmd in ("corpus", "serve"):
+        # the JAX package's rule: a mesh only when it can be built;
+        # otherwise the index is served unsharded on one device
         shards = cfg.eval.corpus_shards
         if shards > 1 and _visible_devices(args.device) >= shards:
+            what = "corpus eval" if args.cmd == "corpus" else "serving"
             raise NotImplementedError(
                 f"--shards {shards} with {shards} devices visible: sharded "
-                "corpus eval is not yet ported to vfr_tpu_torch")
+                f"{what} is not yet ported to vfr_tpu_torch")
 
     params, model, bundle = load_for_eval(cfg, prefer_best=args.best,
                                           device=args.device)
@@ -284,6 +362,35 @@ def main(argv=None) -> int:
         length_buckets=args.length_buckets,
     ):
         print(json.dumps(rec))
+    return 0
+
+
+def _train(cfg, args) -> int:
+    import contextlib
+
+    import torch
+
+    from vfr_tpu_torch.train.loop import train
+
+    with contextlib.ExitStack() as stack:
+        if args.debug_nans:
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        prof = None
+        if args.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.device(args.device).type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof = stack.enter_context(profile(activities=acts))
+        _, metrics = train(cfg, resume=args.resume, device=args.device)
+    if prof is not None:
+        import os
+
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir,
+                                              "train_trace.json"))
+    print({k: round(v, 4) for k, v in metrics.items()})
     return 0
 
 

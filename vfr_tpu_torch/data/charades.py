@@ -174,6 +174,25 @@ class CharadesSTADataset:
             banks["flow"] = self.flow_feats
         return banks
 
+    def train_batches(self, batch_size: int, steps: int, seed: int,
+                      sample_targets: bool = False,
+                      with_features: bool = True
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+        """``steps`` shuffled batches of a fixed shape (a fresh permutation
+        whenever the current one runs out).  A Charades-STA query has one
+        GT interval, so ``sample_targets`` changes nothing."""
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(self.num_queries)
+        pos = 0
+        for _ in range(steps):
+            if pos + batch_size > len(order):
+                order = rng.permutation(self.num_queries)
+                pos = 0
+            idx = order[pos : pos + batch_size]
+            pos += batch_size
+            yield self._gather(idx, with_gt=False,
+                               with_features=with_features)
+
     def eval_batches(self, batch_size: int, with_features: bool = True
                      ) -> Iterator[Dict[str, np.ndarray]]:
         """All queries once; the final batch padded with query 0 and a

@@ -41,6 +41,7 @@ from vfr_tpu_torch.ops.kernels.coarse_kernel import (
     KERNEL_BLOCK_N,
     coarse_blockmax,
 )
+from vfr_tpu_torch.ops.topk import topk_lowest_index
 from vfr_tpu_torch.parallel.sharding import fuse_index_cat, query_sq_const
 from vfr_tpu_torch.utils.io import atomic_savez, to_numpy
 
@@ -314,14 +315,14 @@ def _coarse_fn(model: Model, coarse: CoarseIndex, k: int, g: int,
             sb = (2.0 * q_low) @ coarse.c_low.T - coarse.csq[None, :]
         else:
             sb = coarse_blockmax(q_low, coarse.m_low, coarse.msq_low, B)
-        _, blk = torch.topk(sb, min(g, sb.shape[1]), dim=1)       # [Q, g]
+        _, blk = topk_lowest_index(sb, g)                         # [Q, g]
         g_eff = blk.shape[1]
         mc = coarse.m_blk[blk].view(Q, g_eff * B, D)              # [Q, C, D]
         msq_c = coarse.msq_blk[blk].view(Q, g_eff * B)
         qc = torch.cat([2.0 * float(w[s]) * qs[s] for s in range(S)], -1)
         s_full = torch.bmm(mc.float(), qc.float()[:, :, None])[..., 0] \
             - msq_c
-        vals, pos = torch.topk(s_full, k, dim=1)
+        vals, pos = topk_lowest_index(s_full, k)
         cand = (blk[:, :, None] * B
                 + torch.arange(B, device=blk.device)).view(Q, g_eff * B)
         rows = coarse.perm[torch.gather(cand, 1, pos)]  # original rows

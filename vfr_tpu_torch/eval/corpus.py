@@ -9,7 +9,7 @@ bit-exact both ways.
 PASS 2 — retrieval: embed a query batch (GloVe -> LSTM kernel -> projection
 -> cosine normalization), score it against the whole index and select.
 ``exact``/``approx``: one f32 score GEMM over the stream-concatenated index
-+ ``torch.topk`` (``approx`` is exact in the port).  ``fused``: the CUDA
++ an exact top-k (``approx`` is exact in the port).  ``fused``: the CUDA
 distance+strided-bin kernel, then an exact top-k over its candidates.
 
 ``corpus_evaluate`` reports moment-level corpus R@k at tIoU thresholds (hit
@@ -45,7 +45,7 @@ from vfr_tpu_torch.models.mcn import (
 )
 from vfr_tpu_torch.ops.kernels.select_kernel import distance_select
 from vfr_tpu_torch.ops.tiou import tiou
-from vfr_tpu_torch.ops.topk import top_k_select
+from vfr_tpu_torch.ops.topk import top_k_select, topk_lowest_index
 from vfr_tpu_torch.parallel.sharding import (
     fuse_index_cat,
     fused_corpus_distances,
@@ -294,7 +294,9 @@ def make_retriever(
         qs = _embed_query_streams(params, model, tokens, lengths, rnn_kernel)
         cand_d, cand_rows = distance_select(qs, index.m, index.m_sq, w,
                                             bin_size=bin_size)
-        vals, pos = torch.topk(-cand_d, min(k, cand_d.shape[1]), dim=1)
+        # candidates in K2's order, ties to the lowest candidate position,
+        # as the JAX package's lax.top_k over the same candidates
+        vals, pos = topk_lowest_index(-cand_d, k)
         return -vals, torch.gather(cand_rows, 1, pos)
 
     return retrieve

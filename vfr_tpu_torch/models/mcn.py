@@ -1,4 +1,4 @@
-"""Two-tower joint-embedding model (MCN lineage), inference towers.
+"""Two-tower joint-embedding model (MCN lineage).
 
 Query tower:  GloVe lookup -> LSTM or GRU -> Linear -> joint space R^d.
 Moment tower: per stream (rgb / flow), segment pooling over the proposals
@@ -7,11 +7,14 @@ Moment tower: per stream (rgb / flow), segment pooling over the proposals
               context + optional TEF -> Linear -> R^{P x d}, in the direct
               order or, for mean pooling, the factored one.
 Fusion:       per-stream distances combined by fixed stream weights
-              (``fused_distances``).
+              (``fused_distances``; ``cross_distances`` for the training
+              loss's query x batch tensor).
 
 Parameters are a nested dict of tensors with the JAX package's keys and
-layouts (``bridge.params_from_numpy`` converts its trees).  Not ported yet:
-training-time dropout and ``cross_distances`` (the training loss's).
+layouts (``bridge.params_from_numpy`` converts its trees).  Training runs
+the trunk through the fused autograd layers (``cfg.train_rnn_impl="fused"``)
+or autograd through the step twins (``"scan"``); query dropout takes an
+explicit keep mask, since ``jax.random``'s bits cannot be reproduced.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from vfr_tpu_torch.config import ModelConfig
 from vfr_tpu_torch.device import mm_f32, torch_dtype
 from vfr_tpu_torch.ops.lstm import (
     gru_forward,
+    gru_forward_fused,
     init_gru_params,
     init_lstm_params,
     lstm_forward,
+    lstm_forward_fused,
     masked_mean_pool,
 )
 
@@ -144,6 +149,7 @@ def prepare_query_params(params: Dict, model: Model,
 def _query_hidden(
     params: Dict, model: Model, tokens: torch.Tensor, lengths: torch.Tensor,
     inference: bool, rnn_kernel: Optional[str] = None,
+    dropout_keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """GloVe -> LSTM or GRU trunk (cfg.rnn_cell); the pooled query
     representation [B, H] (cfg.query_pool: last, mean or attn).
@@ -152,19 +158,30 @@ def _query_hidden(
     "scan" = the f32 step twin (``ops.lstm.lstm_forward`` /
     ``gru_forward``); "pallas" = the CUDA kernel (its plain version for CPU
     tensors); "plain" = the kernel's plain version on any device, for
-    holding the kernel against it on the card."""
+    holding the kernel against it on the card.  Training
+    (``inference=False``) runs the fused autograd layers when
+    ``cfg.train_rnn_impl == "fused"``, else the step twin.
+
+    ``dropout_keep`` [B, H] bool: the keep mask of query dropout
+    (``cfg.query_dropout``), applied to the pooled representation in
+    training only."""
     from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel
 
     cfg = model.cfg
     if cfg.rnn_cell == "gru":
-        kernel_fn, plain_fn, scan_fn = (gru_kernel.cuda_gru,
-                                        gru_kernel.gru_recurrence_plain,
-                                        gru_forward)
+        kernel_fn, plain_fn, scan_fn, fused_fn = (
+            gru_kernel.cuda_gru, gru_kernel.gru_recurrence_plain,
+            gru_forward, gru_forward_fused)
     else:
-        kernel_fn, plain_fn, scan_fn = (lstm_kernel.cuda_lstm,
-                                        lstm_kernel.lstm_recurrence_plain,
-                                        lstm_forward)
-    x = params["embeddings"][tokens.long()]                  # [B, T, E]
+        kernel_fn, plain_fn, scan_fn, fused_fn = (
+            lstm_kernel.cuda_lstm, lstm_kernel.lstm_recurrence_plain,
+            lstm_forward, lstm_forward_fused)
+    trunk_fn = (fused_fn if not inference and cfg.train_rnn_impl == "fused"
+                else scan_fn)
+    table = params["embeddings"]
+    if model.freeze_embeddings:
+        table = table.detach()
+    x = table[tokens.long()]                                 # [B, T, E]
     if rnn_kernel is None:
         want_kernel = inference and use_pallas(cfg, x.device)
     elif rnn_kernel in ("pallas", "plain"):
@@ -182,20 +199,25 @@ def _query_hidden(
         h_last, hs = kernel_fn(params["lstm"], x, lengths, pool=kernel_pool,
                                **layer_fn)
     else:
-        h_last, hs = scan_fn(params["lstm"], x, lengths, model.compute_dtype)
+        h_last, hs = trunk_fn(params["lstm"], x, lengths, model.compute_dtype)
     if cfg.query_pool == "mean":
-        return hs if want_kernel else masked_mean_pool(hs, lengths)
-    if cfg.query_pool == "attn":
+        h = hs if want_kernel else masked_mean_pool(hs, lengths)
+    elif cfg.query_pool == "attn":
         T = hs.shape[1]
         mask = torch.arange(T, device=hs.device)[None, :] < lengths[:, None]
         scores = torch.einsum("bth,h->bt", hs,
                               params["query_attn"].to(hs.dtype))
         w = torch.softmax(torch.where(mask, scores,
                                       torch.full_like(scores, -1e30)), dim=1)
-        return torch.einsum("bt,bth->bh", w, hs)
-    if cfg.query_pool == "last":
-        return h_last
-    raise ValueError(f"unknown query_pool {cfg.query_pool!r}")
+        h = torch.einsum("bt,bth->bh", w, hs)
+    elif cfg.query_pool == "last":
+        h = h_last
+    else:
+        raise ValueError(f"unknown query_pool {cfg.query_pool!r}")
+    rate = cfg.query_dropout
+    if dropout_keep is not None and rate > 0.0 and not inference:
+        h = torch.where(dropout_keep, h / (1.0 - rate), torch.zeros_like(h))
+    return h
 
 
 def _maybe_normalize(cfg: ModelConfig, v: torch.Tensor) -> torch.Tensor:
@@ -220,10 +242,12 @@ def embed_queries(
 def embed_queries_multi(
     params: Dict, model: Model, tokens: torch.Tensor, lengths: torch.Tensor,
     inference: bool = False, rnn_kernel: Optional[str] = None,
+    dropout_keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-stream query embeddings [S, B, d]: per-stream projections over
     the shared trunk, or the shared projection repeated."""
-    h = _query_hidden(params, model, tokens, lengths, inference, rnn_kernel)
+    h = _query_hidden(params, model, tokens, lengths, inference, rnn_kernel,
+                      dropout_keep)
     cfg = model.cfg
     cdt = model.compute_dtype
     if cfg.per_stream_query_proj:
@@ -301,6 +325,15 @@ def _segment_max(pool_matrix: torch.Tensor, feats: torch.Tensor,
         outs.append(torch.where(sel, feats[:, None], neg).amax(dim=2))
     out = torch.cat(outs, dim=1)
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def tables_on(model: Model, device) -> Model:
+    """``model`` with its static tables (pooling matrix, TEF) as f32
+    tensors on ``device``, so that a step reading them copies nothing from
+    the host (a copy from pageable host memory waits for the device)."""
+    return model._replace(
+        pool_matrix=_table(model.pool_matrix, device),
+        tef=None if model.tef is None else _table(model.tef, device))
 
 
 def _resolve_tef(model: Model, tef: Optional[Table], B: int, P: int,
@@ -431,3 +464,40 @@ def fused_distances(
         d_s = _stream_distance(cfg, q_s[:, None, :], moments[s])
         D = w * d_s if D is None else D + w * d_s
     return D
+
+
+def cross_distances(
+    model: Model,
+    q: torch.Tensor,                        # [Q, d] or per-stream [S, Q, d]
+    moments: Dict[str, torch.Tensor],       # stream -> [V, P, d]
+) -> torch.Tensor:
+    """Query x corpus distance tensor [Q, V, P], one matmul per stream:
+    ||q - m||^2 = |q|^2 + |m|^2 - 2 q.m, floored at 0 with
+    ``torch.maximum`` (which, like ``jnp.maximum``, splits the gradient at
+    a tie; ``clamp`` would not)."""
+    cfg = model.cfg
+    cdt = model.compute_dtype
+    per_stream_q = q.ndim == 3
+    Q = q.shape[1] if per_stream_q else q.shape[0]
+    out = None
+    for i, (w, s) in enumerate(zip(cfg.stream_weights, model.streams)):
+        m = moments[s]
+        q_i = q[i] if per_stream_q else q
+        V, P, d = m.shape
+        flat = m.reshape(V * P, d)
+        if cfg.distance == "cosine":
+            qn = q_i / (torch.linalg.norm(q_i, dim=-1, keepdim=True) + 1e-8)
+            fn = flat / (torch.linalg.norm(flat, dim=-1, keepdim=True)
+                         + 1e-8)
+            d_s = 1.0 - mm_f32(qn, fn.t(), cdt)
+        else:
+            qm = mm_f32(q_i, flat.t(), cdt)                     # [Q, V*P]
+            q_sq = (q_i * q_i).sum(-1)[:, None]
+            m_sq = (flat * flat).sum(-1)[None, :]
+            d_s = torch.maximum(q_sq + m_sq - 2.0 * qm,
+                                qm.new_zeros(()))
+            if cfg.distance == "euclidean":
+                d_s = torch.sqrt(d_s + 1e-12)
+        out_s = d_s.reshape(Q, V, P)
+        out = w * out_s if out is None else out + w * out_s
+    return out

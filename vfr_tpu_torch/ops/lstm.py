@@ -1,12 +1,24 @@
 """LSTM and GRU over token embeddings: the plain step-by-step twins of the
 JAX package's ``ops/lstm.py::lstm_forward`` / ``gru_forward`` (f32 training
-precision by default).
+precision by default), and the trainable fused layers
+``lstm_forward_fused`` / ``gru_forward_fused``.
 
 Gate layouts follow torch's chunk orders, (i, f, g, o) for the LSTM and
 (r, z, n) for the GRU; padded steps (t >= length) freeze the carry, so
 ``h_last`` is the state after each sequence's last real token.  The
 serving kernels live in ``ops/kernels/lstm_kernel.py`` and
 ``ops/kernels/gru_kernel.py``.
+
+The fused layers are ``torch.autograd.Function``s with the JAX package's
+hand-written BPTT (its custom VJPs): forward hoists the input projection
+into one sequence-sized product and keeps time-major residuals (hidden and
+cell states, post-activation gates; the GRU's hidden-side n pre-activation);
+backward walks the steps in reverse with the elementwise gate math and one
+``[B, G·H] @ [G·H, H]`` product per step, then forms dW_ih, dW_hh, the
+biases and dx each as one sequence-sized product.  The factors of the gate
+derivatives that do not depend on the carried gradient, and the liveness
+mask of padded steps, are formed for all steps at once before the loop, so
+a reverse step is a handful of launches.  Always f32.
 """
 
 from __future__ import annotations
@@ -151,6 +163,190 @@ def lstm_forward(
             seq.append(h)
         hs = torch.stack(seq, dim=1)
         h_last = h
+    return h_last, hs
+
+
+def _live(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """[T, B, 1] f32: 1 where step t < length, else 0."""
+    t = torch.arange(T, device=lengths.device)[:, None]
+    return (t < lengths[None, :]).to(torch.float32)[..., None]
+
+
+def _shift(seq: torch.Tensor) -> torch.Tensor:
+    """[T, B, H] -> the carries before each step: zeros, seq[:-1]."""
+    return torch.cat([torch.zeros_like(seq[:1]), seq[:-1]], dim=0)
+
+
+def _input_grads(ctx, x, w_ih, dG):
+    """(dx, dW_ih, db) of the hoisted input product from the gate
+    gradients dG [T, B, G]: sequence-sized products."""
+    T, B, G = dG.shape
+    dGf = dG.reshape(T * B, G)
+    xt = x.transpose(0, 1).reshape(T * B, -1)
+    dw_ih = xt.t() @ dGf
+    dx = None
+    if ctx.needs_input_grad[0]:
+        dx = (dGf @ w_ih.t()).view(T, B, -1).transpose(0, 1)
+    return dx, dw_ih, dGf.sum(0)
+
+
+class _LSTMLayer(torch.autograd.Function):
+    """One fused LSTM layer: (x [B, T, E], lengths [B], W_ih [E, 4H],
+    W_hh [H, 4H], b [4H]) -> (h_last [B, H], hs [B, T, H])."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, w_ih, w_hh, b):
+        B, T, _ = x.shape
+        H = w_hh.shape[0]
+        gx = torch.matmul(x.transpose(0, 1), w_ih) + b      # [T, B, 4H]
+        live = _live(lengths, T) > 0
+        h = x.new_zeros(B, H)
+        c = x.new_zeros(B, H)
+        hs, cs, acts = [], [], []
+        for t in range(T):
+            gates = torch.addmm(gx[t], h, w_hh)
+            a = torch.sigmoid(gates)
+            a[:, 2 * H : 3 * H] = torch.tanh(gates[:, 2 * H : 3 * H])
+            i, f, g, o = a.split(H, dim=1)
+            c_new = f * c + i * g
+            h_new = o * torch.tanh(c_new)
+            h = torch.where(live[t], h_new, h)
+            c = torch.where(live[t], c_new, c)
+            hs.append(h)
+            cs.append(c)
+            acts.append(a)
+        hs, cs, acts = torch.stack(hs), torch.stack(cs), torch.stack(acts)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, lengths, w_ih, w_hh, hs, cs, acts)
+        return h, hs.transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, dh_last, dhs_bt):
+        x, lengths, w_ih, w_hh, hs, cs, acts = ctx.saved_tensors
+        T, B, H = hs.shape
+        live = _live(lengths, T)
+        dead = 1.0 - live
+        i, f, g, o = acts.view(T, B, 4, H).unbind(2)
+        tanh_c = torch.tanh(cs)
+        # dc_tot = dc + dh * a_c; the gate pre-activation gradients are
+        # dc_tot * k[i, f, g] and dh * k[o], zero on padded steps
+        a_c = o * (1.0 - tanh_c * tanh_c)
+        k = torch.stack([g * i * (1.0 - i),
+                         _shift(cs) * f * (1.0 - f),
+                         i * (1.0 - g * g),
+                         tanh_c * o * (1.0 - o)], dim=2) * live[..., None]
+        f_live = f * live
+        dhs = None if dhs_bt is None else dhs_bt.transpose(0, 1)
+        dh = hs.new_zeros(B, H) if dh_last is None else dh_last
+        dc = hs.new_zeros(B, H)
+        dG = hs.new_empty(T, B, 4, H)
+        w_hh_t = w_hh.t()
+        for t in range(T - 1, -1, -1):
+            if dhs is not None:
+                dh = dh + dhs[t]
+            dc_tot = torch.addcmul(dc, dh, a_c[t])
+            torch.mul(torch.stack([dc_tot, dc_tot, dc_tot, dh], dim=1), k[t],
+                      out=dG[t])
+            # live: dG W_hh^T and dc_tot f; padded: the carry passes through
+            dh = torch.addmm(dh * dead[t], dG[t].view(B, 4 * H), w_hh_t)
+            dc = torch.addcmul(dc * dead[t], dc_tot, f_live[t])
+        dG = dG.view(T, B, 4 * H)
+        dx, dw_ih, db = _input_grads(ctx, x, w_ih, dG)
+        dw_hh = _shift(hs).reshape(T * B, H).t() @ dG.reshape(T * B, 4 * H)
+        return dx, None, dw_ih, dw_hh, db
+
+
+class _GRULayer(torch.autograd.Function):
+    """One fused GRU layer: (x [B, T, E], lengths [B], W_ih [E, 3H],
+    W_hh [H, 3H], b_ih, b_hh [3H]) -> (h_last [B, H], hs [B, T, H])."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, w_ih, w_hh, b_ih, b_hh):
+        B, T, _ = x.shape
+        H = w_hh.shape[0]
+        gi = torch.matmul(x.transpose(0, 1), w_ih) + b_ih   # [T, B, 3H]
+        live = _live(lengths, T) > 0
+        h = x.new_zeros(B, H)
+        hs, acts, gh_ns = [], [], []
+        for t in range(T):
+            gh = torch.addmm(b_hh, h, w_hh)
+            rz = torch.sigmoid(gi[t, :, : 2 * H] + gh[:, : 2 * H])
+            r, z = rz.split(H, dim=1)
+            gh_n = gh[:, 2 * H :]
+            n = torch.tanh(gi[t, :, 2 * H :] + r * gh_n)
+            h_new = (1.0 - z) * n + z * h
+            h = torch.where(live[t], h_new, h)
+            hs.append(h)
+            acts.append(torch.cat([rz, n], dim=1))
+            gh_ns.append(gh_n)
+        hs, acts, gh_ns = torch.stack(hs), torch.stack(acts), \
+            torch.stack(gh_ns)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, lengths, w_ih, w_hh, hs, acts, gh_ns)
+        return h, hs.transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, dh_last, dhs_bt):
+        x, lengths, w_ih, w_hh, hs, acts, gh_ns = ctx.saved_tensors
+        T, B, H = hs.shape
+        live = _live(lengths, T)
+        r, z, n = acts.view(T, B, 3, H).unbind(2)
+        # every gate gradient is dh times a factor known before the loop
+        k_n = (1.0 - z) * (1.0 - n * n)                    # -> dn_pre
+        k_r = k_n * gh_ns * r * (1.0 - r)                  # -> dr_pre
+        k_z = (_shift(hs) - n) * z * (1.0 - z)             # -> dz_pre
+        k_gi = torch.stack([k_r, k_z, k_n], dim=2) * live[..., None]
+        k_gh = torch.stack([k_r, k_z, k_n * r], dim=2) * live[..., None]
+        z_live = z * live + (1.0 - live)
+        dhs = None if dhs_bt is None else dhs_bt.transpose(0, 1)
+        dh = hs.new_zeros(B, H) if dh_last is None else dh_last
+        dGI = hs.new_empty(T, B, 3, H)
+        dGH = hs.new_empty(T, B, 3, H)
+        w_hh_t = w_hh.t()
+        for t in range(T - 1, -1, -1):
+            if dhs is not None:
+                dh = dh + dhs[t]
+            torch.mul(dh[:, None, :], k_gi[t], out=dGI[t])
+            torch.mul(dh[:, None, :], k_gh[t], out=dGH[t])
+            # live: dh z + dGH W_hh^T; padded: the carry passes through
+            dh = torch.addmm(dh * z_live[t], dGH[t].view(B, 3 * H), w_hh_t)
+        dGI = dGI.view(T, B, 3 * H)
+        dGH = dGH.view(T * B, 3 * H)
+        dx, dw_ih, db_ih = _input_grads(ctx, x, w_ih, dGI)
+        dw_hh = _shift(hs).reshape(T * B, H).t() @ dGH
+        return dx, None, dw_ih, dw_hh, db_ih, dGH.sum(0)
+
+
+def lstm_forward_fused(
+    params: Dict[str, Dict[str, torch.Tensor]],
+    x: torch.Tensor,                 # [B, T, E]
+    lengths: torch.Tensor,           # [B] int (>= 1)
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trainable twin of ``lstm_forward`` (same values up to f32
+    reassociation); gradients by the hand-written BPTT of ``_LSTMLayer``.
+    ``compute_dtype`` is accepted for the signature; this path is f32."""
+    hs, h_last = x, None
+    for layer in range(len(params)):
+        p = params[f"layer{layer}"]
+        h_last, hs = _LSTMLayer.apply(hs, lengths, p["w_ih"], p["w_hh"],
+                                      p["b"])
+    return h_last, hs
+
+
+def gru_forward_fused(
+    params: Dict[str, Dict[str, torch.Tensor]],
+    x: torch.Tensor,                 # [B, T, E]
+    lengths: torch.Tensor,           # [B] int (>= 1)
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trainable twin of ``gru_forward``; gradients by ``_GRULayer``'s
+    hand-written BPTT.  Always f32."""
+    hs, h_last = x, None
+    for layer in range(len(params)):
+        p = params[f"layer{layer}"]
+        h_last, hs = _GRULayer.apply(hs, lengths, p["w_ih"], p["w_hh"],
+                                     p["b_ih"], p["b_hh"])
     return h_last, hs
 
 

@@ -8,17 +8,14 @@ import os
 import numpy as np
 import torch
 
+from vfr_tpu_torch.utils.tree import flatten
+
 
 def tree_leaves(tree):
     """Leaves of a nested dict in sorted-key order at every level — the
     order ``jax.tree.leaves`` gives a dict pytree, so fingerprints agree
     with the JAX package's on the same values."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(tree_leaves(tree[k]))
-        return out
-    return [tree]
+    return flatten(tree)[1]
 
 
 def to_numpy(leaf) -> np.ndarray:
