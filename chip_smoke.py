@@ -24,6 +24,16 @@ Phases, one JSON line each:
               blockmax (K4) and centroid at C=2048, blockmax held against
               the same retriever with K4's plain version; recall@10 vs
               exact.
+  follow      daemon serving (`serve_follow`) on the same index: 50
+              isolated requests (one in flight) and a backlog of 200 at
+              micro-batch 8 (pipeline depth 1 and 2) and 64 (depth 1), exact
+              (K1a) and fused (K1a, K2), and coarse blockmax (K1a, K4) once;
+              p50 / p95 request ms, requests/s, time to first result; each
+              run beside its plain-version run and held to `serve_queries`'
+              records (moments equal outside near-ties, distances within
+              1e-3); depth 1 against 2 at micro-batch 8 in turns; host
+              syncs per pack by line; K2 at one pack of 8 queries; one
+              `cli serve --follow` subprocess on stdin.
   eval        per-video and corpus eval of didemo_flagship on the flagship
               corpus (40,000 queries): `evaluate` under both protocols on the
               preset's f32 scan twin, then with rnn_kernel="pallas" (K1a);
@@ -63,6 +73,20 @@ Phases, one JSON line each:
               split by CUDA events, the device's busy share of a step,
               mining refresh and eval seconds; a step that synchronises
               with the host fails it.
+  packed      the synthetic didemo_flagship fixture (2,000 videos) written
+              in the real layout, `cli pack` of both streams, `cli corpus`
+              on the npz and on the .vfrf-only directory (equal metric
+              dicts); the native reader must serve the store; gather GB/s
+              of the native and the memmap reader.
+  live        the live index of serving_10k: 10,000 videos in a 20,000-video
+              arena (420,000 rows), 4 appends of 128 videos, a removal of
+              500, compact, grow to 25,000, save -> load (bit-exact); after
+              each, the live retriever held to a from-scratch index over the
+              same corpus; the arena written in place until the grow; K1b
+              must launch; seconds of each operation, retrieve ms before and
+              after, the arena's bytes; a `cli serve --follow
+              --live-capacity-videos` subprocess running a script of queries
+              and control lines, and a second booted from its `!save`.
 Every serving and eval run zeroes the kernels' launch counts just before
 it runs and fails unless each kernel of its path launched.  Then one
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
@@ -99,6 +123,16 @@ VIDEOS_TRAIN = 2_000     # train: synthetic didemo_flagship fixture
 TRAIN_STEPS_PER_EPOCH = 20
 TRAIN_EPOCHS = 4         # the preset mines from epoch 3: one refresh
 TRAIN_STEPS_PER_CALL = 5
+FOLLOW_REQUESTS = 200    # follow: a backlog of 200 requests
+FOLLOW_ISOLATED = 50     # and 50 isolated ones (one in flight)
+FOLLOW_CLI = 20          # requests of the `cli serve --follow` subprocess
+LIVE_VIDEOS = 10_000     # live: serving_10k, 10,000 videos in an arena of
+LIVE_CAPACITY = 20_000   # 20,000 (420,000 rows), the JAX package's
+LIVE_GROW = 25_000       # scripts/probe_live.py set-up; then grown
+LIVE_APPENDS = 4         # appends of
+LIVE_DELTA = 128         # videos each,
+LIVE_REMOVE = 500        # one removal of 500 videos
+PACKED_VIDEOS = 2_000    # packed: the fixture written in the real layout
 GRAD_TOL = 1e-3          # fused BPTT vs scan autograd, of max |grad| per leaf
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
@@ -1280,6 +1314,7 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
     rec.update(rows_differing_from_plain=mism,
                max_distance_diff_vs_plain=ddiff)
     emit(rec)
+    ctx["coarse"] = coarse
     require_mma(rec["blockmax"]["launches"], "coarse", "coarse[blockmax]")
     require(rec["blockmax"]["launches"]["coarse_blockmax"] > 0,
             "coarse: K4 (coarse_blockmax) never launched under blockmax")
@@ -2075,9 +2110,27 @@ def phase_train(results, seed: int, workdir: str):
     common = ["--preset", "didemo_flagship", "--data-dir", nodata,
               "--checkpoint-dir", ck]
     epochs = TRAIN_EPOCHS
-    final, train_s = _timed(lambda: _cli(
-        ["train", *common, "--epochs", str(epochs), "--steps-per-call",
-         str(TRAIN_STEPS_PER_CALL)], preset, load))
+    import vfr_tpu_torch.train.loop as loop_mod
+
+    fed = {"chunks": 0, "on_side_stream": 0}
+
+    class CountingPrefetcher(loop_mod.Prefetcher):
+        """The loop's prefetcher, counting the chunks it hands out."""
+
+        def __iter__(self):
+            for chunk in super().__iter__():
+                fed["chunks"] += 1
+                fed["on_side_stream"] += int(self._stream is not None)
+                yield chunk
+
+    with mock.patch.object(loop_mod, "Prefetcher", CountingPrefetcher):
+        final, train_s = _timed(lambda: _cli(
+            ["train", *common, "--epochs", str(epochs), "--steps-per-call",
+             str(TRAIN_STEPS_PER_CALL)], preset, load))
+    want_chunks = epochs * -(-TRAIN_STEPS_PER_EPOCH // TRAIN_STEPS_PER_CALL)
+    require(fed["chunks"] == fed["on_side_stream"] == want_chunks,
+            f"train: the prefetcher fed {fed} chunks, wanted {want_chunks} "
+            "copied on its side stream")
     recs = [json.loads(line) for line in
             open(os.path.join(ck, "metrics.jsonl"), encoding="utf-8")]
     tr = [r for r in recs if r["tag"] == "train"]
@@ -2186,7 +2239,7 @@ def phase_train(results, seed: int, workdir: str):
                fixture_s=setup_s, train_cli_s=train_s,
                step_ms_median=float(np.median(chunk_ms)),
                step_ms_chunks=chunk_ms, step_split_ms=split,
-               step_sync_free=sync_free,
+               step_sync_free=sync_free, prefetched_chunks=fed["chunks"],
                mining_refresh_s=mine, mining_refresh_s_again=mine_s,
                eval_s=eval_s, final_metrics=final,
                final_loss=tr[-1]["loss"],
@@ -2194,6 +2247,571 @@ def phase_train(results, seed: int, workdir: str):
                max_metric_diff_vs_plain=diffs, runs=runs.runs)
     emit(rec)
     results["train"] = rec
+
+
+# ---------------------------------------------------------- follow, live
+
+def _plain_everything():
+    """Patches that send K1 (through ``cuda_lstm``), K2 and K4 to their
+    plain versions wherever a serving path looks them up at call time."""
+    import functools
+    from unittest import mock
+
+    from vfr_tpu_torch.ops.kernels import lstm_kernel
+
+    return _plain_patches(("distance_select", "coarse_blockmax")) + [
+        mock.patch.object(lstm_kernel, "cuda_lstm", functools.partial(
+            lstm_kernel.cuda_lstm,
+            layer_fn=lstm_kernel.lstm_recurrence_plain))]
+
+
+def _drive_follow(serve, queries, isolated: bool, patches=()):
+    """(records, stats, launches) of one ``serve(lines)`` run.  A request's
+    ms runs from its line being read off the input to its record coming
+    back; ``isolated`` sends each line only after the previous record came
+    back (one request in flight).  Counts are zeroed just before the run
+    and read just after."""
+    import contextlib
+    import threading
+
+    import torch
+
+    read_at, back = [], threading.Event()
+
+    def lines():
+        for j, text in enumerate(queries):
+            if isolated and j:
+                back.wait()
+                back.clear()
+            read_at.append(time.perf_counter())
+            yield text
+
+    recs, lat = [], []
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        first = None
+        for rec in serve(lines()):
+            now = time.perf_counter()
+            lat.append((now - read_at[len(recs)]) * 1e3)
+            recs.append(rec)
+            first = now - t0 if first is None else first
+            back.set()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+    # startup (index validation, the retriever) ends when the reader takes
+    # the first line; the rate and the first result count from there
+    start = read_at[0] - t0
+    stats = dict(requests=len(recs), seconds=total, startup_ms=start * 1e3,
+                 requests_per_s=len(recs) / (total - start),
+                 first_result_ms=(first - start) * 1e3,
+                 p50_ms=float(np.percentile(lat, 50)),
+                 p95_ms=float(np.percentile(lat, 95)))
+    return recs, stats, counts
+
+
+def compare_records(got, ref, tol=1e-3):
+    """``compare_to_plain`` over result records: moments (video, start,
+    end) in place of rows."""
+    keys = {}
+
+    def arrays(recs):
+        d = np.array([[r["distance"] for r in q["results"]] for q in recs])
+        m = np.array([[keys.setdefault((r["video"], r["start"], r["end"]),
+                                       len(keys))
+                       for r in q["results"]] for q in recs])
+        return d, m
+
+    require([r["query"] for r in got] == [r["query"] for r in ref],
+            "records out of order")
+    (d_k, m_k), (d_p, m_p) = arrays(got), arrays(ref)
+    return compare_to_plain(d_k, m_k, d_p, m_p, tol)
+
+
+def _k2_at(q, index, k, what):
+    """K2 at the follow path's shape (one pack of queries over the flagship
+    index): max |err| vs its plain version, ms, plain ms, library ms and
+    the bound, from this run's inputs."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import fused_bin_size
+    from vfr_tpu_torch.ops.kernels.select_kernel import (
+        distance_select,
+        distance_select_plain,
+    )
+
+    m, m_sq = index.m, index.m_sq
+    w = [float(x) for x in index.weights]
+    S, Q, d = q.shape
+    N = m.shape[1]
+    bin_size, block_n = fused_bin_size(N, k), 4096
+    plan, err, rel, mism = _select_check(q, m, m_sq, w, bin_size, block_n,
+                                         "auto")
+    require(rel <= 1e-3 and mism == 0,
+            f"{what}: K2 at Q={Q} vs plain: rel {rel}, {mism} rows differ")
+    C = -(-N // block_n) * (block_n // bin_size)
+    nbytes = (S * N * d * m.element_size() + S * N * 4 + S * Q * d * 4
+              + Q * C * 8)
+    bound_ms, bound_by = bound(nbytes, 2.0 * S * Q * N * d,
+                               str(m.dtype).split(".")[-1])
+    w_t = torch.tensor(w, device=q.device)
+    return dict(shape=dict(S=S, Q=Q, N=N, d=d, bin=bin_size),
+                variant=plan.variant, max_abs_err=err, max_rel_err=rel,
+                ms=cuda_ms(lambda: distance_select(q, m, m_sq, w, bin_size,
+                                                   block_n)),
+                plain_ms=cuda_ms(lambda: distance_select_plain(
+                    q, m, m_sq, w, bin_size, block_n), iters=10),
+                library_ms=cuda_ms(lambda: _k2_library(
+                    q, m, m_sq, w_t, bin_size, block_n), iters=10),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
+                 C: int = 2048):
+    """Daemon serving (``serve_follow``) on the flagship index: isolated
+    requests and a backlog at micro-batch 8 (depth 1 and 2) and 64 (depth
+    1), exact (K1a) and fused (K1a, K2), and coarse blockmax (K1a, K4)
+    once; each run beside the same run through the kernels' plain
+    versions, its records held to ``serve_queries``' for the same queries.
+    Then one ``cli serve --follow`` subprocess on stdin."""
+    import torch
+
+    from vfr_tpu_torch.eval.coarse import build_coarse_index
+    from vfr_tpu_torch.eval.corpus import serve_follow, serve_queries
+
+    params, model, ds, vocab = (ctx["params"], ctx["model"], ctx["ds"],
+                                ctx["vocab"])
+    index, k, T = ctx["index"], ctx["k"], ctx["T"]
+    queries = ctx["queries"][:FOLLOW_REQUESTS]
+    coarse = ctx.get("coarse")
+    if coarse is None:
+        coarse = build_coarse_index(index, d_coarse=d_coarse)
+    modes = {"exact": {}, "fused": {"topk_method": "fused"},
+             "coarse": {"coarse": coarse, "coarse_candidates": C}}
+    kernels = {"exact": ("lstm_pooled",),
+               "fused": ("lstm_pooled", "distance_select"),
+               "coarse": ("lstm_pooled", "coarse_blockmax")}
+    refs = {mode: serve_queries(params, model, ds, vocab, queries, k=k,
+                                batch_size=ctx["batch"], max_query_len=T,
+                                index=index, **kw)
+            for mode, kw in modes.items()}
+    plan = [(mode, run, mb, depth)
+            for mode in ("exact", "fused")
+            for run, mb, depth in (("isolated", 8, 1), ("mb8_depth1", 8, 1),
+                                   ("mb8_depth2", 8, 2),
+                                   ("mb64_depth1", 64, 1))]
+    plan.append(("coarse", "mb8_depth2", 8, 2))
+    runs = {}
+    for mode, run, mb, depth in plan:
+        iso = run == "isolated"
+        qs = queries[:FOLLOW_ISOLATED] if iso else queries
+
+        def serve(lines, mb=mb, depth=depth, kw=modes[mode]):
+            return serve_follow(params, model, ds, vocab, lines, k=k,
+                                max_query_len=T, index=index,
+                                micro_batch=mb, pipeline_depth=depth, **kw)
+
+        list(serve(iter(qs[:mb])))                   # warm the pack shape
+        recs, stats, counts = _drive_follow(serve, qs, iso)
+        p_recs, p_stats, _ = _drive_follow(serve, qs, iso,
+                                           _plain_everything())
+        tag = f"{mode}_{run}"
+        _served_ok(recs, len(qs), k, f"follow[{tag}]")
+        mism, ddiff = compare_records(recs, refs[mode][:len(qs)])
+        p_mism, p_ddiff = compare_records(recs, p_recs)
+        runs[tag] = dict(micro_batch=mb, pipeline_depth=depth, **stats,
+                         plain=p_stats, launches=counts,
+                         rows_differing_from_serve_queries=mism,
+                         max_distance_diff_vs_serve_queries=ddiff,
+                         rows_differing_from_plain=p_mism,
+                         max_distance_diff_vs_plain=p_ddiff)
+        for name in kernels[mode]:
+            require(counts[name] > 0,
+                    f"follow[{tag}]: {name} never launched")
+        require(mism == 0 and ddiff <= 1e-3,
+                f"follow[{tag}]: vs serve_queries: {mism} moments differ, "
+                f"max |d diff| {ddiff}")
+        require(p_mism == 0 and p_ddiff <= 1e-3,
+                f"follow[{tag}]: vs plain: {p_mism} moments differ, "
+                f"max |d diff| {p_ddiff}")
+    # pipeline depth 1 against 2 at micro-batch 8, in turns in this call
+    # (the host's speed moves between calls): requests/s of the backlog
+    turns = {}
+    for mode in ("exact", "fused"):
+        order = (1, 2, 2, 1) * 2
+        rates = []
+        for depth in order:
+            _, stats, _ = _drive_follow(
+                lambda lines, depth=depth, kw=modes[mode]: serve_follow(
+                    params, model, ds, vocab, lines, k=k, max_query_len=T,
+                    index=index, micro_batch=8, pipeline_depth=depth, **kw),
+                queries, False)
+            rates.append(stats["requests_per_s"])
+        turns[mode] = dict(depths=list(order), requests_per_s=rates)
+    # host syncs of one pack's dispatch + fetch, by mode (the exact top-k
+    # of a row longer than ops.topk.KEY_MAX syncs once, by design)
+    syncs = {f"{mode}_{n // 8}_packs": _sync_warnings(
+        lambda kw=kw, n=n: list(serve_follow(
+            params, model, ds, vocab, queries[:n], k=k, max_query_len=T,
+            index=index, micro_batch=8, pipeline_depth=2, **kw)))
+        for mode, kw in modes.items() for n in (8, 16)}
+    # K2 at one pack of 8 queries, as the fused follow path runs it
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q8 = torch.randn(2, 8, index.m.shape[-1], device="cuda", generator=gen)
+    q8 = q8 / (q8.norm(dim=-1, keepdim=True) + 1e-8)
+    k2_q8 = _k2_at(q8, index, k, "follow")
+    # the CLI: one subprocess, queries on stdin
+    cli_q = "\n".join(queries[:FOLLOW_CLI]) + "\n"
+    out, cli_s = _cli_subprocess(
+        ["serve", "--preset", "didemo_flagship", "--data-dir",
+         os.path.join(workdir, "follow_nodata"), "--queries", "-",
+         "--follow", "--topk", str(k)], cli_q)
+    cli_recs = [json.loads(line) for line in out.splitlines()
+                if line.startswith("{")]
+    _served_ok(cli_recs, FOLLOW_CLI, k, "follow[cli]")
+    require([r["query"] for r in cli_recs] == queries[:FOLLOW_CLI],
+            "follow[cli]: records out of order")
+    rec = dict(phase="follow", rows=index.num_rows, k=k,
+               requests=FOLLOW_REQUESTS, isolated_requests=FOLLOW_ISOLATED,
+               runs=runs, depth_turns_mb8=turns, host_syncs_per_pack=syncs,
+               kernel_distance_select_q8=k2_q8,
+               cli=dict(requests=FOLLOW_CLI, seconds=cli_s))
+    emit(rec)
+    results["follow"] = rec
+
+
+def _sync_warnings(fn) -> dict:
+    """Host syncs torch reports (``set_sync_debug_mode("warn")``) while
+    ``fn`` runs, by the Python line that made each."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def _cli_subprocess(argv, stdin_text: str, timeout: int = 300):
+    """(stdout, seconds) of ``python -m vfr_tpu_torch.cli <argv>`` run from
+    the checkout with ``stdin_text`` on its standard input."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vfr_tpu_torch.cli", *argv],
+                       input=stdin_text, capture_output=True, text=True,
+                       timeout=timeout, cwd=os.path.dirname(
+                           os.path.abspath(__file__)))
+    require(r.returncode == 0, f"cli {' '.join(argv[:2])} exited "
+            f"{r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def _moment_keys(order, ids, video_row, prop_idx, rows):
+    """Rows -> ints naming (video, proposal), by the global ``order`` of
+    video ids, so two indexes' results compare by moment."""
+    return np.vectorize(lambda r: order[ids[video_row[r]]] * 1000
+                        + int(prop_idx[r]))(rows)
+
+
+def phase_live(results, seed: int, workdir: str):
+    """The live index of preset ``serving_10k`` (bf16 index, last pool,
+    top-100): 10,000 videos in a 20,000-video arena (420,000 rows), 4
+    appends of 128 videos, a removal of 500, compact, grow to 25,000,
+    save -> load; after each, the live retriever held to a from-scratch
+    ``build_moment_index`` + ``make_retriever`` over the same corpus.
+    Then one ``cli serve --follow --live-capacity-videos`` subprocess
+    and a second booted from its ``!save`` (``--live-arena``)."""
+    import types
+
+    import torch
+
+    from vfr_tpu_torch.eval import live as L
+    from vfr_tpu_torch.eval.corpus import build_moment_index, make_retriever
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, ds, vocab, glove = make_corpus("serving_10k", LIVE_VIDEOS, seed + 3)
+    n_new = LIVE_APPENDS * LIVE_DELTA
+    _, dds, _, _ = make_corpus("serving_10k", n_new, seed + 29)
+    new_ids = [f"new{v}" for v in dds.video_ids]
+    setup_s = time.perf_counter() - t0
+    model = build_model(cfg)
+    params = init_model_params(torch.Generator().manual_seed(seed + 3),
+                               model, glove, cfg.data.feature_dim, device=dev)
+    q_params = prepare_query_params(params, model)
+    T, k = cfg.data.max_query_len, cfg.eval.corpus_topk
+    method, idx_dtype = cfg.eval.topk_method, cfg.eval.index_dtype
+    toks, lens = encode(vocab, make_queries(vocab, 256, T, seed + 13), 256, T)
+    toks = torch.from_numpy(toks[0]).to(dev)
+    lens = torch.from_numpy(lens[0]).to(dev)
+    feats = {v: (ds.rgb_feats[i], ds.flow_feats[i])
+             for i, v in enumerate(ds.video_ids)}
+    feats.update({v: (dds.rgb_feats[i], dds.flow_feats[i])
+                  for i, v in enumerate(new_ids)})
+    order = {v: i for i, v in enumerate(feats)}
+
+    reset_counts()
+    live, build_s = _timed(lambda: L.make_live_index(
+        params, model, ds, capacity_videos=LIVE_CAPACITY,
+        index_dtype=idx_dtype))
+    retrieve = L.make_live_retriever(model, live, k, topk_method=method)
+    ptr = live.m_cat.data_ptr()
+    timings, checks = {}, {}
+
+    held = list(ds.video_ids)          # the corpus the arena should hold
+
+    def check(label):
+        """Live retrieval vs a rebuild over ``held``; retrieve ms on one
+        pack of 8 and one batch of 256."""
+        alive = list(held)
+        corpus = types.SimpleNamespace(
+            video_ids=alive,
+            rgb_feats=np.stack([feats[v][0] for v in alive]),
+            flow_feats=np.stack([feats[v][1] for v in alive]),
+            num_proposals=ds.num_proposals, span_seconds=ds.span_seconds)
+        ref = build_moment_index(params, model, corpus, index_dtype=idx_dtype,
+                                 with_fingerprint=False)
+        d_r, r_r = (t.cpu().numpy() for t in make_retriever(
+            model, ref, k, topk_method=method)(q_params, toks, lens))
+        d_l, r_l = (t.cpu().numpy() for t in retrieve(q_params, toks, lens))
+        key_l = _moment_keys(order, live.video_ids, live.video_row,
+                             live.prop_idx, r_l)
+        key_r = _moment_keys(order, alive, ref.video_row, ref.prop_idx, r_r)
+        mism, ddiff = compare_to_plain(d_l, key_l, d_r, key_r)
+        checks[label] = dict(videos=len(alive), rows_differing=mism,
+                             max_distance_diff=ddiff,
+                             retrieve_ms_q8=time_batches(
+                                 lambda: retrieve(q_params, toks[:8],
+                                                  lens[:8])),
+                             retrieve_ms_q256=time_batches(
+                                 lambda: retrieve(q_params, toks, lens)))
+        require(mism == 0 and ddiff <= 1e-3,
+                f"live[{label}]: vs rebuild: {mism} moments differ, max "
+                f"|d diff| {ddiff}")
+        del ref
+
+    check("build")
+    appends = []
+    for a in range(LIVE_APPENDS):
+        lo = a * LIVE_DELTA
+        ids = new_ids[lo:lo + LIVE_DELTA]
+        n, secs = _timed(lambda: L.live_append(
+            live, params, model, ds, ids, dds.rgb_feats[lo:lo + LIVE_DELTA],
+            dds.flow_feats[lo:lo + LIVE_DELTA]))
+        require(n == LIVE_DELTA * ds.num_proposals, "live: append rows")
+        held.extend(ids)
+        appends.append(secs)
+        check(f"append{a}")
+    rng = np.random.default_rng(seed + 5)
+    gone = [str(v) for v in rng.choice(live.video_ids, LIVE_REMOVE,
+                                       replace=False)]
+    n_rm, timings["remove_s"] = _timed(lambda: L.live_remove(live, gone))
+    held = [v for v in held if v not in set(gone)]
+    check("remove")
+    n_cp, timings["compact_s"] = _timed(lambda: L.live_compact(live))
+    require(n_rm == n_cp == LIVE_REMOVE * ds.num_proposals,
+            f"live: removed {n_rm}, reclaimed {n_cp} rows")
+    check("compact")
+    in_place = live.m_cat.data_ptr() == ptr
+    require(in_place, "live: append / remove / compact reallocated the arena")
+    _, timings["grow_s"] = _timed(lambda: L.live_grow(live, LIVE_GROW))
+    require(live.capacity == LIVE_GROW * ds.num_proposals
+            and live.m_cat.data_ptr() != ptr, "live: grow")
+    check("grow")
+    path = os.path.join(workdir, "live_arena.npz")
+    _, timings["save_s"] = _timed(lambda: L.save_arena(live, path,
+                                                       params=params,
+                                                       model=model))
+    back, timings["load_s"] = _timed(lambda: L.load_arena(
+        path, params=params, model=model))
+    require(torch.equal(back.m_cat, live.m_cat)
+            and torch.equal(back.msq_fused, live.msq_fused)
+            and back.video_ids == live.video_ids
+            and all(np.array_equal(getattr(back, f), getattr(live, f))
+                    for f in ("video_row", "prop_idx", "spans_sec")),
+            "live: save_arena -> load_arena is not bit-exact")
+    live, retrieve = back, L.make_live_retriever(model, back, k,
+                                                 topk_method=method)
+    check("reload")
+    counts = read_counts()
+    require(counts["lstm_hs"] > 0, "live: K1b (lstm_hs) never launched")
+    arena_bytes = live.m_cat.numel() * 4 + live.msq_fused.numel() * 4
+    cli = _live_cli(workdir)
+    rec = dict(phase="live", preset="serving_10k", videos=LIVE_VIDEOS,
+               capacity_videos=LIVE_CAPACITY, grown_to=LIVE_GROW, k=k,
+               setup_s=setup_s, arena_build_s=build_s,
+               append_s=appends, append_first_s=appends[0],
+               append_steady_s=float(np.median(appends[1:])),
+               **timings, arena_in_place=in_place, reload_bit_exact=True,
+               arena_bytes=arena_bytes,
+               arena_bytes_bf16_carrier=live.m_cat.numel() * 2
+               + live.msq_fused.numel() * 4,
+               launches=counts, checks=checks, cli=cli)
+    emit(rec)
+    results["live"] = rec
+
+
+def _live_cli(workdir: str):
+    """``cli serve --follow --live-capacity-videos`` on the synthetic
+    didemo_flagship fixture (64 videos): queries, !add, a duplicate !add,
+    !remove, !stats, !compact, !grow, !save; then a second process booted
+    from the snapshot with ``--live-arena``."""
+    from vfr_tpu_torch.config import get_preset
+
+    data = get_preset("didemo_flagship").data
+    rng = np.random.default_rng(SEED + 31)
+    delta = os.path.join(workdir, "live_delta.npz")
+    np.savez(delta, video_ids=np.asarray([f"fresh{i}" for i in range(4)]),
+             rgb=rng.standard_normal((4, data.num_clips, data.feature_dim))
+             .astype(np.float32),
+             flow=rng.standard_normal((4, data.num_clips, data.feature_dim))
+             .astype(np.float32))
+    arena = os.path.join(workdir, "cli_arena.npz")
+    common = ["serve", "--preset", "didemo_flagship", "--data-dir",
+              os.path.join(workdir, "live_nodata"), "--queries", "-",
+              "--follow", "--topk", "5"]
+    script = ("w0001 w0002\n"
+              f"!add {delta}\n"
+              "w0003 w0004\n"
+              f"!add {delta}\n"
+              "!remove fresh1\n"
+              "!stats\n"
+              "!compact\n"
+              "!grow 90\n"
+              f"!save {arena}\n"
+              "w0005 w0006\n")
+    out, secs = _cli_subprocess(common + ["--live-capacity-videos", "70"],
+                                script)
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    require(len(recs) == 10, f"live[cli]: {len(recs)} records, wanted 10")
+    q1, add, q2, dup, rm, stats, cp, grow, save, q3 = recs
+    require(add.get("added_rows") == 4 * 21
+            and "already in the corpus" in dup.get("error", "")
+            and rm.get("removed_rows") == 21
+            and stats.get("tombstoned_rows") == 21
+            and cp.get("reclaimed_rows") == 21
+            and grow.get("capacity_rows") == 90 * 21
+            and save.get("saved") == arena,
+            f"live[cli]: control records {recs[1:9]}")
+    for q in (q1, q2, q3):
+        _served_ok([q], 1, 5, "live[cli]")
+    require(all(r["video"] != "fresh1" for r in q3["results"]),
+            "live[cli]: a removed video was retrieved")
+    out2, secs2 = _cli_subprocess(common + ["--live-arena", arena],
+                                  "w0005 w0006\n!stats\n")
+    boot = [json.loads(line) for line in out2.splitlines()
+            if line.startswith("{")]
+    b_mism, b_ddiff = compare_records(boot[:1], [q3])
+    require(len(boot) == 2 and b_mism == 0 and b_ddiff <= 1e-3
+            and boot[1]["num_videos"] == stats["num_videos"] - 1
+            and boot[1]["capacity_rows"] == 90 * 21,
+            f"live[cli]: the reboot from --live-arena differs: {boot}")
+    return dict(records=len(recs), seconds=secs, reboot_seconds=secs2,
+                num_videos=boot[1]["num_videos"])
+
+
+def phase_packed(results, seed: int, workdir: str):
+    """The packed feature store: the synthetic didemo_flagship fixture
+    (PACKED_VIDEOS videos) written in the real layout (split JSONs,
+    features_rgb.npz, features_flow.npz), packed with ``cli pack``, then
+    ``cli corpus`` on the npz directory and on the .vfrf-only one: equal
+    metric dicts; the native reader must serve the store; its gather
+    rate beside the memmap reader's."""
+    import shutil
+
+    from vfr_tpu_torch.config import get_preset
+    from vfr_tpu_torch.data import packed as packed_mod
+    from vfr_tpu_torch.data.loaders import load_datasets
+    from vfr_tpu_torch.data.synthetic import make_didemo_fixture
+
+    cfg = get_preset("didemo_flagship")
+    data = cfg.data
+    fix = make_didemo_fixture(
+        num_videos=PACKED_VIDEOS, num_queries=4 * PACKED_VIDEOS,
+        feature_dim=data.feature_dim, glove_dim=data.glove_dim,
+        num_clips=data.num_clips, clip_seconds=data.clip_seconds,
+        noise=data.synthetic_noise, with_flow=True,
+        vocab_words=data.synthetic_vocab_words, seed=seed + 41)
+    npz_dir = os.path.join(workdir, "packed_npz")
+    vfrf_dir = os.path.join(workdir, "packed_vfrf")
+    os.makedirs(npz_dir)
+    os.makedirs(vfrf_dir)
+    n_val = len(fix.annotations) // 5
+    for d in (npz_dir, vfrf_dir):
+        for name, anns in (("train_data.json", fix.annotations[:-n_val]),
+                           ("val_data.json", fix.annotations[-n_val:])):
+            with open(os.path.join(d, name), "w", encoding="utf-8") as f:
+                json.dump(anns, f)
+    for stream, store in (("rgb", fix.rgb), ("flow", fix.flow)):
+        np.savez(os.path.join(npz_dir, f"features_{stream}.npz"),
+                 **{v: store[v] for v in store.ids()})
+    import contextlib
+    import io
+
+    import vfr_tpu_torch.cli as cli_mod
+
+    pack_s = {}
+    for stream in ("rgb", "flow"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_mod.main(["pack", "--npz", os.path.join(
+                npz_dir, f"features_{stream}.npz"), "--out", os.path.join(
+                vfrf_dir, f"features_{stream}.vfrf")])
+        pack_s[stream] = time.perf_counter() - t0
+        require(rc == 0 and "packed" in out.getvalue(),
+                f"packed: cli pack {stream} exited {rc}")
+    metrics, load_s = {}, {}
+    for form, d in (("npz", npz_dir), ("vfrf", vfrf_dir)):
+        preset = dataclasses.replace(cfg, data=dataclasses.replace(
+            data, data_dir=d))
+        t0 = time.perf_counter()
+        load_datasets(preset.data)
+        load_s[form] = time.perf_counter() - t0
+        metrics[form] = _cli(["corpus", "--preset", "didemo_flagship",
+                              "--data-dir", d], preset, load_datasets)
+    require(metrics["npz"] == metrics["vfrf"],
+            f"packed: cli corpus differs between the npz and the vfrf "
+            f"store: {metrics}")
+    path = os.path.join(vfrf_dir, "features_rgb.vfrf")
+    store = packed_mod.PackedFeatureStore(path)
+    require(store.native and packed_mod._lib is not None,
+            "packed: the native reader did not serve the store")
+    idx = np.random.default_rng(seed).permutation(store.num_videos)
+    rates = {}
+    for name, s in (("native", store),
+                    ("memmap", packed_mod.PackedFeatureStore(
+                        path, prefer_native=False))):
+        s.gather(idx)                                  # page cache warm
+        t0 = time.perf_counter()
+        for _ in range(5):
+            got = s.gather(idx)
+        rates[name] = 5 * got.nbytes / (time.perf_counter() - t0) / 1e9
+    shutil.rmtree(npz_dir)
+    rec = dict(phase="packed", videos=PACKED_VIDEOS,
+               file_bytes=os.path.getsize(path), pack_s=pack_s,
+               load_datasets_s=load_s, reader="native",
+               gather_gb_per_s=rates, metrics=metrics["vfrf"],
+               metrics_equal=True)
+    emit(rec)
+    results["packed"] = rec
 
 
 def kernels_line(results):
@@ -2225,6 +2843,17 @@ def kernels_line(results):
         trained checkpoint."""
         return eval_launches(name, ("train",))
 
+    def follow_launches(name):
+        """Launches of ``name`` over the follow phase's kernel runs."""
+        return sum(run["launches"].get(name, 0) for run in
+                   results.get("follow", {}).get("runs", {}).values())
+
+    def live_launches(name):
+        return results.get("live", {}).get("launches", {}).get(name, 0)
+
+    def new_paths(name):
+        return dict(follow=follow_launches(name), live=live_launches(name))
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     out = []
@@ -2235,6 +2864,7 @@ def kernels_line(results):
                         launches=launches[name],
                         eval_launches=eval_launches(name),
                         train_launches=train_launches(name),
+                        **new_paths(name),
                         **{key: r[key] for key in keys},
                         variant=r["variant"], stepwise_ms=r["stepwise_ms"]))
     # the fused cell's index is f32 (the flagship preset); the bf16-index
@@ -2248,8 +2878,11 @@ def kernels_line(results):
                     replaces=rep, launches=launches["distance_select"],
                     eval_launches=eval_launches("distance_select"),
                     train_launches=train_launches("distance_select"),
+                    **new_paths("distance_select"),
                     **{key: f32[key] for key in keys_v},
                     bf16_index={key: b16[key] for key in keys_v},
+                    follow_q8=results.get("follow", {}).get(
+                        "kernel_distance_select_q8"),
                     charades_s1={key: s1[key] for key in keys_v
                                  if key in s1} if s1 else None))
     # the coarse cell's shape (210,000 rows, d_c 32) first, the others beside
@@ -2259,6 +2892,7 @@ def kernels_line(results):
                     replaces=rep, launches=launches["coarse_blockmax"],
                     eval_launches=eval_launches("coarse_blockmax"),
                     train_launches=train_launches("coarse_blockmax"),
+                    **new_paths("coarse_blockmax"),
                     **{key: main_shape[key] for key in keys_v},
                     other_shapes=[dict(shape=o["shape"],
                                        **{key: o[key] for key in keys_v})
@@ -2266,15 +2900,17 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-ALL_PHASES = ("kernels", "flagship", "coarse", "eval", "train",
-              "eval_charades", "serving_10k", "gru", "coarse_2m")
+ALL_PHASES = ("kernels", "flagship", "coarse", "follow", "eval", "train",
+              "packed", "eval_charades", "serving_10k", "live", "gru",
+              "coarse_2m")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of " + ", ".join(ALL_PHASES)
-                         + " and profile (coarse and eval need flagship); the "
+                         + " and profile (coarse, follow and eval need "
+                           "flagship); the "
                            "default runs all but profile and is the only "
                            "one that ends with the ok line; rnn runs the "
                            "K1 / K3 kernel checks alone, select the K2 and "
@@ -2338,12 +2974,21 @@ def main(argv=None) -> int:
             if "coarse" in phases:
                 phase_coarse(results, ctx, workdir)
                 settle()
+            if "follow" in phases:
+                phase_follow(results, ctx, workdir)
+                settle()
             if "eval" in phases:
                 phase_eval(results, ctx)
             del ctx
             settle()
         if "train" in phases:
             phase_train(results, SEED, workdir)
+            settle()
+        if "packed" in phases:
+            phase_packed(results, SEED, workdir)
+            settle()
+        if "live" in phases:
+            phase_live(results, SEED, workdir)
             settle()
     if "eval_charades" in phases:
         phase_eval_charades(results, SEED + 17, VIDEOS_CHARADES)

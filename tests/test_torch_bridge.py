@@ -125,7 +125,8 @@ def test_index_npz_both_ways_bit_exact(tmp_path, index_dtype):
                                   else np.int32)
 
     # JAX writes, the port reads; the fingerprint validates in the port
-    t_from_j = tcorpus.load_index(jcorpus.save_index(jidx, str(tmp_path / "j")))
+    t_from_j = tcorpus.load_index(
+        jcorpus.save_index(jidx, str(tmp_path / "j")), device="cpu")
     assert t_from_j.m.dtype == getattr(torch, index_dtype)
     assert np.array_equal(bits(t_from_j.m), bits(jidx.m))
     assert np.array_equal(t_from_j.m_sq.numpy(), np.asarray(jidx.m_sq))
@@ -136,7 +137,8 @@ def test_index_npz_both_ways_bit_exact(tmp_path, index_dtype):
     assert np.array_equal(np.asarray(j_from_t.m_sq), tidx.m_sq.numpy())
     jcorpus.validate_index(j_from_t, jparams, jmodel, jds)
     # the port's own round trip
-    again = tcorpus.load_index(tcorpus.save_index(tidx, str(tmp_path / "u")))
+    again = tcorpus.load_index(
+        tcorpus.save_index(tidx, str(tmp_path / "u")), device="cpu")
     assert np.array_equal(bits(again.m), bits(tidx.m))
     assert again.fingerprint == tidx.fingerprint
     for name in ("video_row", "prop_idx", "spans_sec", "weights"):
@@ -168,7 +170,9 @@ def test_port_imports_nothing_of_jax():
         "import vfr_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    vfr_tpu_torch.__path__, 'vfr_tpu_torch.')]\n"
-        "assert 'vfr_tpu_torch.train.loop' in mods, mods\n"
+        "for m in ('train.loop', 'eval.live', 'data.packed',\n"
+        "          'data.prefetch'):\n"
+        "    assert 'vfr_tpu_torch.' + m in mods, mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
@@ -199,6 +203,41 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--data-dir", str(tmp_path / "nodata"),
               "--queries", str(q)])
+
+
+@pytest.mark.parametrize("loader", ["load_index", "banks_to_device",
+                                    "restore_checkpoint", "load_arena"])
+def test_loaders_default_to_cuda(monkeypatch, tmp_path, loader):
+    """Each public loader places on the card unless told otherwise: with no
+    CUDA and no ``device`` it raises; ``device="cpu"`` loads."""
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.eval import live as tlive
+    from vfr_tpu_torch.train import checkpoint as tckpt
+
+    _, tmodel, _, tds, tree = _world()
+    params = params_from_numpy(tree)
+    if loader == "load_index":
+        path = tcorpus.save_index(tcorpus.build_moment_index(
+            params, tmodel, tds), str(tmp_path / "i"))
+        fn = lambda **kw: tcorpus.load_index(path, **kw)  # noqa: E731
+    elif loader == "banks_to_device":
+        fn = lambda **kw: banks_to_device(  # noqa: E731
+            {"rgb": tds.rgb_feats}, **kw)
+    elif loader == "restore_checkpoint":
+        from vfr_tpu_torch.config import TrainConfig
+        from vfr_tpu_torch.train.optim import make_optimizer
+
+        opt_state = make_optimizer(TrainConfig(), 10).init(params)
+        path = tckpt.save_checkpoint(str(tmp_path), 3, params, opt_state)
+        fn = lambda **kw: tckpt.restore_checkpoint(path, **kw)  # noqa: E731
+    else:
+        live = tlive.make_live_index(params, tmodel, tds, capacity_videos=9)
+        path = tlive.save_arena(live, str(tmp_path / "a"))
+        fn = lambda **kw: tlive.load_arena(path, **kw)  # noqa: E731
+    assert fn(device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -5,9 +5,13 @@ validity mask and duration-normalized TEF, ``tiou``, the synthetic fixture
 (features, annotations, GloVe table), the annotation parser, and every
 array of ``CharadesSTADataset`` (features, durations, masks, TEF, tokens,
 targets) and of its eval batches.  Also: the loader's Charades branch (the
-synthetic fixture and the real text layout), its refusal of the packed
-store, and ``banks_to_device``.
+synthetic fixture and the real text layout), the packed ``.vfrf`` store
+(a packed-only data dir loads what its npz loads; a malformed one raises),
+and ``banks_to_device``.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ from vfr_tpu_torch.data.loaders import load_datasets
 from vfr_tpu_torch.data.synthetic import (
     charades_lines,
     make_charades_fixture,
+    make_didemo_fixture,
 )
 from vfr_tpu_torch.ops import proposals as tprop
 from vfr_tpu_torch.ops.tiou import tiou, tiou_matrix
@@ -184,16 +189,57 @@ def test_loader_real_charades_layout(tmp_path):
 
 @pytest.mark.parametrize("dataset", ["didemo", "charades_sta"])
 def test_loader_refuses_packed_store(tmp_path, dataset):
-    """A data dir with only the packed features raises and says the packed
-    store is not ported (not a bare 'features_rgb.npz not found')."""
+    """A data dir whose only feature file is a malformed .vfrf raises and
+    says so (not a bare 'features_rgb.npz not found')."""
     if dataset == "didemo":
         (tmp_path / "train_data.json").write_text("[]")
     else:
         (tmp_path / "charades_sta_train.txt").write_text("v 0.0 1.0##a b\n")
     (tmp_path / "features_rgb.vfrf").write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="vfrf.*not yet ported"):
+    with pytest.raises(ValueError, match="not a VFRF file"):
         load_datasets(DataConfig(dataset=dataset, data_dir=str(tmp_path),
                                  feature_dim=F, glove_dim=E))
+
+
+@pytest.mark.parametrize("dataset", ["didemo", "charades_sta"])
+def test_loader_reads_packed_store(tmp_path, dataset):
+    """A data dir holding only ``features_rgb.vfrf`` (``cli pack`` of the
+    npz) loads the same features, tokens and tables as the npz dir."""
+    from vfr_tpu_torch.cli import main
+
+    if dataset == "didemo":
+        fix = make_didemo_fixture(num_videos=6, num_queries=18,
+                                  feature_dim=F, glove_dim=E, seed=3)
+        files = {"train_data.json": json.dumps(fix.annotations[:12]),
+                 "val_data.json": json.dumps(fix.annotations[12:])}
+    else:
+        fix = make_charades_fixture(num_videos=5, num_queries=15,
+                                    feature_dim=F, glove_dim=E, seed=2)
+        lines = charades_lines(fix.annotations)
+        files = {"charades_sta_train.txt": "\n".join(lines[:10]),
+                 "charades_sta_test.txt": "\n".join(lines[10:])}
+    bundles = []
+    for form in ("npz", "vfrf"):
+        d = tmp_path / form
+        d.mkdir()
+        for name, text in files.items():
+            (d / name).write_text(text)
+        npz = d / "features_rgb.npz"
+        np.savez(npz, **{v: fix.rgb[v] for v in fix.rgb.ids()})
+        if form == "vfrf":
+            assert main(["pack", "--npz", str(npz), "--out",
+                         str(d / "features_rgb.vfrf"), "--device",
+                         "cpu"]) == 0
+            os.remove(npz)
+        bundles.append(load_datasets(DataConfig(
+            dataset=dataset, data_dir=str(d), feature_dim=F, glove_dim=E,
+            use_flow=False)))
+    a, b = bundles
+    assert a.source == b.source == "real"
+    for x, y in ((a.train, b.train), (a.val, b.val)):
+        assert x.video_ids == y.video_ids
+        np.testing.assert_array_equal(x.rgb_feats, y.rgb_feats)
+        np.testing.assert_array_equal(x.tokens, y.tokens)
 
 
 @pytest.mark.parametrize("bank_dtype", ["float32", "bfloat16"])

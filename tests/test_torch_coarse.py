@@ -67,7 +67,8 @@ def world(tmp_path_factory):
     jparams = jax.tree.map(jnp.asarray, tree)
     jidx = jcorpus.build_moment_index(jparams, jmodel, jds)
     d = tmp_path_factory.mktemp("coarse")
-    tidx = tcorpus.load_index(jcorpus.save_index(jidx, str(d / "idx")))
+    tidx = tcorpus.load_index(jcorpus.save_index(jidx, str(d / "idx")),
+                              device="cpu")
     batch = next(jds.eval_batches(16))
     return dict(jmodel=jmodel, tmodel=tmodel, jds=jds, tds=tds,
                 vocab=fix.vocab, jparams=jparams,

@@ -39,7 +39,8 @@ def _distances(world, rnn_kernel):
     je, te = world.ecfgs(rnn_kernel=rnn_kernel)
     js = j_make_scorer(world.jmodel, j_banks_to_device(
         world.jds.feature_banks()), rnn_kernel=rnn_kernel)
-    ts = make_scorer(world.tmodel, banks_to_device(world.tds.feature_banks()),
+    ts = make_scorer(world.tmodel, banks_to_device(world.tds.feature_banks(),
+                                                   device="cpu"),
                      rnn_kernel=rnn_kernel)
     jp, tp = world.jparams, world.tparams
     dj, dt = [], []

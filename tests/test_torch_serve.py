@@ -115,9 +115,10 @@ def test_resolve_length_buckets(spec, want):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
-    """--follow raises; --shards 2 follows the JAX package's rule: with one
-    device visible it serves unsharded, and it raises only where the mesh
-    would be built (the sharded path is not ported)."""
+    """--follow now serves (one record per line); --shards 2 follows the JAX
+    package's rule: with one device visible it serves unsharded, and it
+    raises only where the mesh would be built (the sharded path is not
+    ported)."""
     import vfr_tpu_torch.cli as tcli
 
     _, tmodel, _, tds, vocab, tree = _world()
@@ -125,10 +126,15 @@ def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
         serve_queries(params_from_numpy(tree), tmodel, tds, vocab, ["w0001"],
                       mesh=object())
     q = tmp_path / "q.txt"
+    q.write_text("w0001\nw0002 w0003\n")
+    assert cli_main(["serve", "--queries", str(q), "--device", "cpu",
+                     "--data-dir", str(tmp_path / "none"), "--topk", "2",
+                     "--follow"]) == 0
+    recs = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert [r["query"] for r in recs] == ["w0001", "w0002 w0003"]
+    assert all(len(r["results"]) == 2 for r in recs)
     q.write_text("w0001\n")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli_main(["serve", "--queries", str(q), "--device", "cpu",
-                  "--follow"])
     argv = ["serve", "--queries", str(q), "--device", "cpu", "--topk", "3",
             "--data-dir", str(tmp_path / "none"), "--shards", "2"]
     assert cli_main(argv) == 0

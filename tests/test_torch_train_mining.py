@@ -60,7 +60,7 @@ def test_mining_from_device_banks_and_mesh_refused():
     from vfr_tpu_torch.data.features import banks_to_device
 
     world = tw.didemo_world()
-    banks = banks_to_device(world.tds.feature_banks())
+    banks = banks_to_device(world.tds.feature_banks(), device="cpu")
     a = t_mine(world.tparams, world.tmodel, world.tds, 4)
     b = t_mine(world.tparams, world.tmodel, world.tds, 4,
                feature_banks=banks)

@@ -1,5 +1,5 @@
-"""CLI of the PyTorch port: ``train``, ``eval``, ``corpus``, ``index`` and
-``serve``.
+"""CLI of the PyTorch port: ``train``, ``eval``, ``corpus``, ``index``,
+``serve`` and ``pack``.
 
     python -m vfr_tpu_torch.cli train  --preset didemo_flagship \
         --checkpoint-dir ck
@@ -9,6 +9,10 @@
     python -m vfr_tpu_torch.cli index --preset didemo_flagship --out idx.npz
     python -m vfr_tpu_torch.cli serve --preset didemo_flagship \
         --index-path idx.npz --queries queries.txt --topk 10
+    python -m vfr_tpu_torch.cli serve --preset didemo_flagship \
+        --queries - --follow --live-capacity-videos 20000
+    python -m vfr_tpu_torch.cli pack --npz features_rgb.npz \
+        --out features_rgb.vfrf
 
 ``eval`` is per-video localization (``--protocol threshold`` or
 ``didemo_official``), ``corpus`` corpus retrieval eval (through the exact,
@@ -29,14 +33,20 @@ idx.coarse.npz`` (or ``--coarse-dim D`` to build it in-process) serves
 through the two-stage retriever (``--coarse-mode``,
 ``--coarse-candidates``).
 
+``serve --follow`` is the daemon (``eval.corpus.serve_follow``): queries
+from ``--queries`` (``-`` for stdin) are packed up to ``--micro-batch`` per
+dispatch and answered one JSON line each, flushed.  With
+``--live-capacity-videos N`` (or ``--live-arena snapshot.npz``) it serves
+a live index (``eval.live``) that control lines change while it runs.
+``pack`` writes the packed ``.vfrf`` feature store the loaders prefer.
+
 The flags are the JAX package's for these subcommands, plus ``--device``
 (default ``cuda``; ``--device cpu`` is the only way onto the CPU).  With no
-real data under --data-dir the synthetic fixture is used.  ``--follow``,
-the live index and ``train --data-parallel`` are not ported yet and raise;
-``corpus`` and ``serve --shards N`` follow the JAX package's rule (a mesh
-only when N > 1 and at least N devices are visible: otherwise unsharded)
-and raise where that rule would build the mesh, since the sharded path is
-not ported yet.
+real data under --data-dir the synthetic fixture is used.  ``train
+--data-parallel`` is not ported yet and raises; ``corpus`` and ``serve
+--shards N`` follow the JAX package's rule (a mesh only when N > 1 and at
+least N devices are visible: otherwise unsharded) and raise where that
+rule would build the mesh, since the sharded path is not ported yet.
 """
 
 from __future__ import annotations
@@ -167,10 +177,24 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--coarse-mode", choices=["blockmax", "centroid"],
                    default="blockmax")
     s.add_argument("--coarse-candidates", type=int, default=2048)
-    s.add_argument("--follow", action="store_true")
-    s.add_argument("--live-arena", default=None)
-    s.add_argument("--live-capacity-videos", type=int, default=0)
-    s.add_argument("--micro-batch", type=int, default=8)
+    s.add_argument("--follow", action="store_true",
+                   help="daemon mode: answer the queries line by line (one "
+                        "JSON line per query, flushed at once) until EOF")
+    s.add_argument("--live-arena", default=None,
+                   help="--follow only: boot the live index from an arena "
+                        "snapshot (written by the '!save <path>' control "
+                        "line) instead of embedding the corpus")
+    s.add_argument("--live-capacity-videos", type=int, default=0,
+                   help="--follow only: serve from a capacity-padded live "
+                        "index that changes while the daemon runs: control "
+                        "lines '!add <delta.npz>', '!remove <id> ...', "
+                        "'!save <path>', '!stats', '!compact', '!grow "
+                        "<capacity_videos>'; value = the arena's capacity "
+                        "in videos; exact/approx scan (no --index-path / "
+                        "--coarse-path)")
+    s.add_argument("--micro-batch", type=int, default=8,
+                   help="--follow only: most queries packed into one "
+                        "dispatch")
     s.add_argument("--length-buckets", default=None,
                    help="group queries by token length and run each group "
                         "with the token axis sliced to its bucket: 'auto' "
@@ -184,6 +208,17 @@ def build_parser() -> argparse.ArgumentParser:
     ix.add_argument("--index-dtype", default=None,
                     choices=["float32", "bfloat16"])
     ix.add_argument("--coarse-dim", type=int, default=0)
+
+    k = sub.add_parser("pack", help="convert an .npz feature dump to the "
+                       "packed mmap .vfrf format (native reader)")
+    k.add_argument("--npz", required=True)
+    k.add_argument("--out", required=True)
+    k.add_argument("--rows", type=int, default=0,
+                   help="static row grid (0 = max rows over videos)")
+    k.add_argument("--device", default="cuda",
+                   help="as every entry point: raises when CUDA is absent "
+                        "unless 'cpu' is given (packing itself is host "
+                        "work)")
     return p
 
 
@@ -257,14 +292,29 @@ def _visible_devices(device) -> int:
 def _not_ported(args):
     """The options this port does not have yet, by flag."""
     bad = []
-    if getattr(args, "follow", False):
-        bad.append("--follow")
-    if getattr(args, "live_arena", None) or getattr(
-            args, "live_capacity_videos", 0):
-        bad.append("--live-arena/--live-capacity-videos")
     if getattr(args, "data_parallel", False):
         bad.append("--data-parallel")
     return bad
+
+
+def _pack(args) -> int:
+    import numpy as np
+
+    from vfr_tpu_torch.data.packed import pack_features
+    from vfr_tpu_torch.device import resolve_device
+
+    resolve_device(args.device)
+
+    try:
+        with np.load(args.npz) as z:
+            table = {k: z[k] for k in z.files}
+    except FileNotFoundError:
+        print(f"error: feature archive not found: {args.npz}",
+              file=sys.stderr)
+        return 2
+    path = pack_features(table, args.out, rows=args.rows or None)
+    print(f"packed {len(table)} videos -> {path}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -273,6 +323,8 @@ def main(argv=None) -> int:
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not yet ported to vfr_tpu_torch")
+    if args.cmd == "pack":
+        return _pack(args)
     cfg = apply_overrides(get_preset(args.preset), args)
     if args.cmd == "train":
         return _train(cfg, args)
@@ -340,6 +392,8 @@ def main(argv=None) -> int:
         from vfr_tpu_torch.eval.coarse import load_coarse
 
         coarse = load_coarse(args.coarse_path, index)
+    if args.follow:
+        return _follow(cfg, args, params, model, bundle, index, coarse)
     if args.queries == "-":
         queries = [l.strip() for l in sys.stdin if l.strip()]
     else:
@@ -362,6 +416,53 @@ def main(argv=None) -> int:
         length_buckets=args.length_buckets,
     ):
         print(json.dumps(rec))
+    return 0
+
+
+def _follow(cfg, args, params, model, bundle, index, coarse) -> int:
+    """``serve --follow``: one JSON line per record, flushed."""
+    import contextlib
+
+    from vfr_tpu_torch.eval.corpus import serve_follow
+
+    live = None
+    if args.live_capacity_videos > 0 or args.live_arena:
+        from vfr_tpu_torch.eval.live import load_arena, make_live_index
+
+        if index is not None or coarse is not None:
+            print("error: live serving is exact serving over its own arena "
+                  "(no --index-path/--coarse-path)", file=sys.stderr)
+            return 2
+        if args.live_arena:
+            live = load_arena(args.live_arena, params=params, model=model,
+                              device=args.device)
+        else:
+            live = make_live_index(
+                params, model, bundle.val,
+                capacity_videos=args.live_capacity_videos,
+                num_videos=cfg.eval.corpus_num_videos,
+                index_dtype=cfg.eval.index_dtype)
+    with contextlib.ExitStack() as stack:
+        src = (sys.stdin if args.queries == "-" else stack.enter_context(
+            open(args.queries, "r", encoding="utf-8")))
+        lines = (t for t in (line.strip() for line in src) if t)
+        for rec in serve_follow(
+            params, model, bundle.val, bundle.vocab, lines,
+            k=args.topk,
+            max_query_len=cfg.data.max_query_len,
+            num_videos=cfg.eval.corpus_num_videos,
+            topk_method=cfg.eval.topk_method,
+            approx_recall=cfg.eval.approx_recall,
+            index_dtype=cfg.eval.index_dtype,
+            index=index,
+            micro_batch=max(args.micro_batch, 1),
+            live=live,
+            coarse=coarse,
+            coarse_dim=args.coarse_dim or 0,
+            coarse_candidates=args.coarse_candidates,
+            coarse_mode=args.coarse_mode,
+        ):
+            print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -1,8 +1,8 @@
 """Precomputed clip-feature store: video id -> ``[num_clips, feature_dim]``
 float32 (DiDeMo) or ``[T, feature_dim]`` per-second rows (Charades-STA),
-from one ``.npz`` per stream or a directory of ``<video_id>.npy`` files;
-and ``banks_to_device``, the one-time copy of full-corpus banks to the
-device.  (The packed ``.vfrf`` format is not ported yet.)"""
+from one ``.npz`` per stream, a directory of ``<video_id>.npy`` files or a
+packed ``.vfrf`` file (``data/packed.py``); and ``banks_to_device``, the
+one-time copy of full-corpus banks to the device."""
 
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from typing import Dict, Iterable
 
 import numpy as np
 import torch
+
+from vfr_tpu_torch.device import resolve_device
 
 
 class FeatureStore:
@@ -35,13 +37,20 @@ class FeatureStore:
         out[:n] = f[:n]
         return out
 
+    def __contains__(self, video_id: str) -> bool:
+        return video_id in self._table
+
+    def __len__(self) -> int:
+        return len(self._table)
+
     @classmethod
     def load(cls, path: str):
-        """Load from ``.npz`` or a ``<video_id>.npy`` directory."""
+        """Load from ``.npz``, a ``<video_id>.npy`` directory, or a packed
+        ``.vfrf`` file (a ``PackedFeatureStore``: mapped, not read)."""
         if path.endswith(".vfrf"):
-            raise NotImplementedError(
-                "packed .vfrf feature stores are not yet ported to "
-                "vfr_tpu_torch; convert to features_<stream>.npz")
+            from vfr_tpu_torch.data.packed import PackedFeatureStore
+
+            return PackedFeatureStore(path)
         if os.path.isdir(path):
             table = {}
             for fn in sorted(os.listdir(path)):
@@ -54,8 +63,7 @@ class FeatureStore:
     @classmethod
     def maybe_load(cls, path: str):
         """``load(path)`` when it exists; else the packed twin
-        ``<stem>.vfrf`` when that exists (which ``load`` refuses: not
-        ported yet); else None."""
+        ``<stem>.vfrf`` when that exists; else None."""
         if os.path.exists(path):
             return cls.load(path)
         vfrf = os.path.splitext(path)[0] + ".vfrf"
@@ -70,8 +78,9 @@ _STREAM_KEYS = ("rgb", "flow")
 
 
 def banks_to_device(banks: dict, bank_dtype: str = "float32",
-                    device="cpu") -> Dict[str, torch.Tensor]:
-    """One-time copy of full-corpus feature banks to ``device``.
+                    device=None) -> Dict[str, torch.Tensor]:
+    """One-time copy of full-corpus feature banks to ``device`` (CUDA unless
+    asked otherwise; raises without CUDA).
 
     ``bank_dtype="bfloat16"`` converts the rgb/flow streams on the host
     before the copy (half the bytes moved and held); consumers upcast at
@@ -79,6 +88,7 @@ def banks_to_device(banks: dict, bank_dtype: str = "float32",
     their dtype."""
     if bank_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown bank_dtype {bank_dtype!r}")
+    device = resolve_device(device)
     out = {}
     for k, v in banks.items():
         t = torch.from_numpy(np.ascontiguousarray(v))

@@ -10,8 +10,8 @@ didemo:        <data_dir>/{train,val,test}_data.json   (DiDeMo schema)
 charades_sta:  <data_dir>/charades_sta_{train,test}.txt
                <data_dir>/features_rgb.npz  [per video: [T, F]]
 
-The packed ``features_<stream>.vfrf`` store is not ported yet: a data dir
-that holds only that form raises and says so.
+A packed ``features_<stream>.vfrf`` (``cli pack``) is preferred over the
+``.npz`` of the same stream.
 """
 
 from __future__ import annotations
@@ -46,26 +46,25 @@ class DataBundle:
 
 
 def _load_store(data_dir: str, stream: str):
-    """``features_<stream>.npz`` (or its packed ``.vfrf`` twin, which
-    raises: not ported yet)."""
-    store = FeatureStore.maybe_load(
-        os.path.join(data_dir, f"features_{stream}.npz"))
-    if store is None:
-        raise FileNotFoundError(
-            f"neither features_{stream}.npz nor features_{stream}.vfrf "
-            f"exists under {data_dir}")
-    return store
+    """The packed ``features_<stream>.vfrf`` when present, else the
+    ``.npz``."""
+    vfrf = os.path.join(data_dir, f"features_{stream}.vfrf")
+    if os.path.exists(vfrf):
+        return FeatureStore.load(vfrf)
+    return FeatureStore.load(os.path.join(data_dir, f"features_{stream}.npz"))
 
 
 def _load_flow(data_dir: str, use_flow: bool):
+    """The flow store (``.npz``, else its ``.vfrf`` twin), raising when the
+    config wants a flow stream and neither file exists."""
     if not use_flow:
         return None
     flow = FeatureStore.maybe_load(os.path.join(data_dir, "features_flow.npz"))
     if flow is None:
         raise FileNotFoundError(
-            f"use_flow=True but features_flow.npz does not exist under "
-            f"{data_dir}; provide the flow feature dump or use an rgb-only "
-            "preset (e.g. didemo_rgb)")
+            f"use_flow=True but neither features_flow.npz nor "
+            f"features_flow.vfrf exists under {data_dir}; provide the flow "
+            "feature dump or use an rgb-only preset (e.g. didemo_rgb)")
     return flow
 
 

@@ -18,11 +18,13 @@ under ``protocol="didemo_official"``, the official rank aggregation over
 exact corpus ranks of the GT rows (``make_gt_ranker``).
 
 Coarse-to-fine retrieval (the two-stage prefilter for large corpora) lives
-in ``eval/coarse.py``; ``serve_queries`` and ``corpus_evaluate`` route to
-it when asked.  Not ported yet: the mesh (sharded) paths, the live index
-and ``serve_follow``, and the ``carrier_dtype="auto"`` policy (a TPU layout
-choice; the port always carries the score operand as f32, see
-``prep_score_operands``).
+in ``eval/coarse.py``; ``serve_queries``, ``serve_follow`` and
+``corpus_evaluate`` route to it when asked.  ``serve_follow`` is the
+request-at-a-time daemon (micro-batched, pipelined), over a fixed index or
+the live arena of ``eval/live.py``, whose retriever is
+``make_operand_retriever``.  Not ported yet: the mesh (sharded) paths and
+the ``carrier_dtype="auto"`` policy (a TPU layout choice; the port always
+carries the score operand as f32, see ``prep_score_operands``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 
 from vfr_tpu_torch.config import EvalConfig
 from vfr_tpu_torch.data.glove import tokenize
+from vfr_tpu_torch.device import resolve_device
 from vfr_tpu_torch.models.mcn import (
     Model,
     embed_moments,
@@ -221,9 +224,11 @@ def save_index(index: MomentIndex, path: str) -> str:
     ))
 
 
-def load_index(path: str, device="cpu") -> MomentIndex:
+def load_index(path: str, device=None) -> MomentIndex:
     """Inverse of ``save_index`` (bit-exact, incl. the bf16 pattern); the
-    embedding tensors go to ``device``."""
+    embedding tensors go to ``device`` (CUDA unless asked otherwise; raises
+    without CUDA)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         if str(z["m_dtype"]) == "bfloat16":
             m = torch.from_numpy(z["m"].view(np.int16)).view(torch.bfloat16)
@@ -302,40 +307,64 @@ def make_retriever(
     return retrieve
 
 
+def score_in_dtype(index_is_bf16: bool, compute_dtype: torch.dtype
+                   ) -> torch.dtype:
+    """Product dtype of the score GEMM: bf16 for a bf16 index, else the
+    model's compute dtype (the JAX package's ``fused_corpus_scores``)."""
+    return torch.bfloat16 if index_is_bf16 else compute_dtype
+
+
 def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype):
     """(m_cat [N, S*d] f32, msq_fused [N], in_dtype): the one-GEMM score
     operands.  ``m_cat`` is rounded to the product dtype (bf16 for a bf16
     index or bf16 compute) once and carried as f32 — exact, and the score
     GEMM then gives f32 sums of the rounded products on every call."""
     m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
-    in_dtype = (torch.bfloat16 if m_cat.dtype == torch.bfloat16
-                else compute_dtype)
+    in_dtype = score_in_dtype(m_cat.dtype == torch.bfloat16, compute_dtype)
     m_cat = m_cat.to(in_dtype).float().contiguous()
     return m_cat, msq_fused, in_dtype
 
 
-def _score_topk_with_operands(model: Model, index: MomentIndex, k: int,
-                              topk_method: str, approx_recall: float,
-                              rnn_kernel: Optional[str]):
-    """(fn(m_cat, msq_fused, params, toks, lens), m_cat, msq_fused)."""
+_RETRIEVERS: Dict[tuple, object] = {}
+
+
+def make_operand_retriever(model: Model, weights, k: int,
+                           topk_method: str = "exact",
+                           approx_recall: float = 0.95,
+                           rnn_kernel: Optional[str] = None,
+                           in_dtype: Optional[torch.dtype] = None):
+    """The one-GEMM retriever with its index operands as call-time
+    arguments: ``(m_cat [N, S*d], msq_fused [N], params, tokens, lengths)
+    -> (dists [Q, k], rows [Q, k])``, cached by the model's semantic key.
+    ``make_score_topk`` binds a fixed index to it; the live index
+    (``eval/live.py``) passes its arena, whose buffers change in place.
+
+    ``m_cat`` is an f32 carrier already holding ``in_dtype`` values
+    (``prep_score_operands``; default: the model's compute dtype).
+    ``topk_method="fused"`` raises, as in the JAX package: the fused
+    kernel reads the per-stream index, not these operands."""
     _check_distance(model)
     if topk_method == "fused":
         raise ValueError(
-            "topk_method='fused' is not supported on the stream-retriever "
-            "path; use make_retriever (single-batch) or 'exact'/'approx'")
-    m_cat, msq_fused, in_dtype = prep_score_operands(index,
-                                                     model.compute_dtype)
-    weights = index.weights
+            "unknown topk method 'fused' for the operand retriever: the "
+            "fused distance+select kernel reads the per-stream index "
+            "(make_retriever); use 'exact' or 'approx'")
+    in_dtype = model.compute_dtype if in_dtype is None else in_dtype
+    weights = np.asarray(weights, np.float32)
+    key = ("retrieve", _model_key(model), k, topk_method, approx_recall,
+           rnn_kernel, tuple(weights.tolist()), in_dtype)
+    fn = _RETRIEVERS.get(key)
+    if fn is None:
+        @torch.no_grad()
+        def fn(m_cat, msq_fused, params, toks, lens):
+            qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
+            scores = fused_corpus_scores(qs, m_cat, msq_fused, weights,
+                                         in_dtype=in_dtype)
+            vals, rows = top_k_select(scores, k, topk_method, approx_recall)
+            return query_sq_const(qs, weights)[:, None] - vals, rows
 
-    @torch.no_grad()
-    def fn(m_cat, msq_fused, params, toks, lens):
-        qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
-        scores = fused_corpus_scores(qs, m_cat, msq_fused, weights,
-                                     in_dtype=in_dtype)
-        vals, rows = top_k_select(scores, k, topk_method, approx_recall)
-        return query_sq_const(qs, weights)[:, None] - vals, rows
-
-    return fn, m_cat, msq_fused
+        _RETRIEVERS[key] = fn
+    return fn
 
 
 def make_score_topk(model: Model, index: MomentIndex, k: int,
@@ -346,8 +375,11 @@ def make_score_topk(model: Model, index: MomentIndex, k: int,
     retriever of this module and of ``eval.coarse``) a tree that went
     through ``prepare_query_params`` once, as ``serve_queries`` does, and no
     batch casts the recurrence weights again."""
-    fn, m_cat, msq_fused = _score_topk_with_operands(
-        model, index, k, topk_method, approx_recall, rnn_kernel)
+    in_dtype = score_in_dtype(index.m.dtype == torch.bfloat16,
+                              model.compute_dtype)
+    fn = make_operand_retriever(model, index.weights, k, topk_method,
+                                approx_recall, rnn_kernel, in_dtype)
+    m_cat, msq_fused, _ = prep_score_operands(index, model.compute_dtype)
 
     def score_topk(params, toks, lens):
         return fn(m_cat, msq_fused, params, toks, lens)
@@ -536,6 +568,286 @@ def serve_queries(
         ]
         out.append({"query": text, "results": results})
     return out
+
+
+def serve_follow(
+    params, model: Model, dataset, vocab, lines, k: int = 10,
+    max_query_len: int = 24, num_videos: int = 0,
+    topk_method: str = "exact", approx_recall: float = 0.95,
+    index_dtype: str = "float32",
+    index: Optional[MomentIndex] = None,
+    micro_batch: int = 8,
+    mesh=None,
+    pipeline_depth: int = 2,
+    coarse=None, coarse_dim: int = 0, coarse_candidates: int = 2048,
+    coarse_mode: str = "blockmax",
+    live=None,
+):
+    """Daemon serving: answer an ITERATOR of query strings, yielding one
+    result record per query in input order (``serve --follow``).
+
+    * **Aggregation** — a reader thread drains ``lines`` into a bounded
+      queue (``4 * micro_batch + 2``); each dispatch packs every waiting
+      line, up to ``micro_batch``, into one [micro_batch, T] token block.
+    * **Pipelining** — up to ``pipeline_depth`` packs stay in flight.  A
+      dispatch launches the retrieval and the non-blocking device->host
+      copies of its results into pinned buffers and records an event; the
+      fetch waits on that event.  When no input waits, in-flight packs are
+      flushed at once, so an isolated request never waits on a successor.
+      (The tie-ordered top-k of a row longer than ``ops.topk.KEY_MAX``
+      syncs once inside the dispatch: the exact path over a large corpus
+      cannot overlap two packs.)
+
+    ``live`` (an ``eval.live.LiveIndex``): the corpus changes while the
+    daemon runs, through control lines ``!add <delta.npz>``, ``!remove
+    <id> ...``, ``!save <path>``, ``!stats``, ``!compact`` and ``!grow
+    <capacity_videos>``, each answered by one record (an error record for
+    a bad one, never a dead daemon).  A control line is an ordering
+    barrier: in-flight packs are fetched before it applies, and every
+    arena write runs on the retrievals' stream, so a dispatched pack keeps
+    the corpus it was dispatched against.  Live serving is the exact (or
+    approx) scan: no coarse, no ``fused``.
+
+    Otherwise the index is built (or ``index`` validated) once, and the
+    packs go through ``make_coarse_retriever`` (``coarse`` or
+    ``coarse_dim > 0``) or ``make_retriever``.  An error of the input
+    iterator is re-raised after the results before it were served."""
+    import queue as _queue
+    import threading
+    from collections import deque
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded follow serving is not yet ported to vfr_tpu_torch")
+    dev = _params_device(params)
+    # the recurrence kernel's bf16 weights, cast once for every pack; the
+    # raw tree embeds deltas and fingerprints the index and the arena
+    q_params = prepare_query_params(params, model)
+    if live is not None:
+        if coarse is not None or coarse_dim > 0:
+            raise ValueError("live-growth serving is exact (no coarse)")
+        from vfr_tpu_torch.eval.live import make_live_retriever
+
+        retrieve = make_live_retriever(model, live, k,
+                                       topk_method=topk_method,
+                                       approx_recall=approx_recall)
+
+        # read at FETCH time: !add grows the tables in place and !grow
+        # reallocates them
+        def _tables():
+            return live.video_ids, live.video_row, live.spans_sec
+    else:
+        owns_index = index is None
+        if owns_index:
+            index = build_moment_index(params, model, dataset,
+                                       num_videos=num_videos,
+                                       index_dtype=index_dtype,
+                                       with_fingerprint=False)
+        else:
+            validate_index(index, params, model, dataset)
+        if coarse is None and coarse_dim > 0:
+            from vfr_tpu_torch.eval.coarse import build_coarse_index
+
+            coarse = build_coarse_index(index, d_coarse=coarse_dim)
+        k_eff = min(k, index.num_rows)
+        if coarse is not None:
+            from vfr_tpu_torch.eval.coarse import make_coarse_retriever
+
+            retrieve = make_coarse_retriever(
+                model, coarse, k_eff, num_candidates=coarse_candidates,
+                approx_recall=approx_recall, mode=coarse_mode)
+        else:
+            retrieve = make_retriever(model, index, k_eff,
+                                      topk_method=topk_method,
+                                      approx_recall=approx_recall)
+        if owns_index and topk_method != "fused":
+            # the retriever holds its own operands; drop the per-stream
+            # rows so a long-lived daemon holds the index once ("fused"
+            # reads index.m on every call)
+            index.m = index.m_sq = None
+        video_ids = dataset.video_ids
+        row_video, spans_sec = index.video_row, index.spans_sec
+
+        def _tables():
+            return video_ids, row_video, spans_sec
+
+    _DONE = object()
+    # bounded: a few packs of lookahead keep the aggregation, and a long
+    # input is not read into memory ahead of the consumer
+    q: "_queue.Queue" = _queue.Queue(maxsize=4 * max(micro_batch, 1) + 2)
+    reader_err = []
+
+    def _reader():
+        try:
+            for text in lines:
+                q.put(text)
+        except BaseException as e:   # to the consumer, after its results
+            reader_err.append(e)
+        finally:
+            q.put(_DONE)
+
+    threading.Thread(target=_reader, daemon=True).start()
+
+    def _is_cmd(text) -> bool:
+        return live is not None and isinstance(text, str) \
+            and text.startswith("!")
+
+    pending: deque = deque()   # items pulled but deferred (cmd ordering)
+
+    def _next_block():
+        """Block for one item, then take what else is already waiting; a
+        control line is returned alone, in order."""
+        first = pending.popleft() if pending else q.get()
+        if first is _DONE:
+            return None
+        if _is_cmd(first):
+            return ("cmd", first)
+        texts = [first]
+        while len(texts) < micro_batch:
+            if pending:
+                item = pending.popleft()
+            else:
+                try:
+                    item = q.get_nowait()
+                except _queue.Empty:
+                    break
+            if item is _DONE:
+                pending.append(_DONE)  # re-post EOF for the outer loop
+                break
+            if _is_cmd(item):
+                pending.append(item)   # keep order; handle next round
+                break
+            texts.append(item)
+        return ("queries", texts)
+
+    on_cuda = dev.type == "cuda"
+
+    def _to_host(t):
+        """Start the copy of ``t`` to (pinned) host memory."""
+        if not on_cuda:
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
+    def _dispatch(texts):
+        toks = np.zeros((micro_batch, max_query_len), np.int32)
+        lens = np.ones(micro_batch, np.int32)
+        for i, text in enumerate(texts):
+            toks[i], lens[i] = vocab.encode(tokenize(text), max_query_len)
+        toks_t, lens_t = torch.from_numpy(toks), torch.from_numpy(lens)
+        if on_cuda:
+            toks_t = toks_t.pin_memory().to(dev, non_blocking=True)
+            lens_t = lens_t.pin_memory().to(dev, non_blocking=True)
+        d, rows = retrieve(q_params, toks_t, lens_t)
+        d, rows = _to_host(d), _to_host(rows)
+        done = None
+        if on_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return texts, d, rows, done
+
+    def _fetch(job):
+        texts, d, rows, done = job
+        if done is not None:
+            done.synchronize()
+        d, rows = d.numpy(), rows.numpy()
+        vids, row_vid, spans = _tables()
+        for i, text in enumerate(texts):
+            yield {
+                "query": text,
+                "results": [
+                    {
+                        "video": vids[int(row_vid[r])],
+                        "start": float(spans[r, 0]),
+                        "end": float(spans[r, 1]),
+                        "distance": float(d[i, j]),
+                    }
+                    for j, r in enumerate(rows[i])
+                ],
+            }
+
+    inflight: deque = deque()
+    while True:
+        block = _next_block()
+        if block is None:
+            break
+        kind, payload = block
+        if kind == "cmd":
+            # order barrier: earlier queries see the old corpus, later
+            # ones the new
+            while inflight:
+                yield from _fetch(inflight.popleft())
+            yield _apply_cmd(live, params, model, dataset, payload)
+            continue
+        inflight.append(_dispatch(payload))
+        while len(inflight) >= max(pipeline_depth, 1):
+            yield from _fetch(inflight.popleft())
+        if q.empty() and not pending:
+            # nothing waiting: flush now so an isolated request never
+            # waits on a successor that may not come
+            while inflight:
+                yield from _fetch(inflight.popleft())
+    while inflight:
+        yield from _fetch(inflight.popleft())
+    if reader_err:
+        # the input raised mid-stream: the results before it were served;
+        # re-raise instead of ending as a clean EOF
+        raise reader_err[0]
+
+
+def _apply_cmd(live, params, model: Model, dataset, line: str) -> Dict:
+    """One control line of ``serve_follow``'s live mode -> its record."""
+    from vfr_tpu_torch.eval import live as L
+
+    try:
+        if line.startswith("!add "):
+            vids, rgb, flow, durations = L.load_delta_npz(
+                line[len("!add "):].strip())
+            n = L.live_append(live, params, model, dataset, vids, rgb,
+                              flow=flow, durations=durations)
+            return {"command": line, "added_rows": int(n),
+                    "num_videos": live.num_videos,
+                    "free_rows": live.free_rows}
+        if line.startswith("!remove "):
+            n = L.live_remove(live, line[len("!remove "):].split())
+            return {"command": line, "removed_rows": int(n)}
+        if line.startswith("!save "):
+            out = L.save_arena(live, line[len("!save "):].strip(),
+                               params=params, model=model)
+            return {"command": line, "saved": out,
+                    "num_videos": live.num_videos}
+        if line.strip() == "!stats":
+            # the [cap] msq column on the host: a few hundred KB even at
+            # 10M rows
+            msq = live.msq_fused[:live.used_rows].cpu().numpy()
+            return {"command": line,
+                    "num_videos": live.num_videos,
+                    "capacity_rows": live.capacity,
+                    "used_rows": live.used_rows,
+                    "free_rows": live.free_rows,
+                    "tombstoned_rows": int((msq >= L._INVALID).sum()),
+                    "rows_per_video": live.rows_per_video,
+                    "index_dtype": live.index_dtype,
+                    "shards": 1}
+        if line.strip() == "!compact":
+            n = L.live_compact(live)
+            return {"command": line, "reclaimed_rows": int(n),
+                    "num_videos": live.num_videos,
+                    "free_rows": live.free_rows}
+        if line.startswith("!grow "):
+            L.live_grow(live, int(line[len("!grow "):].strip()))
+            # the JAX package's record, word for word (one wire format)
+            return {"command": line, "capacity_rows": live.capacity,
+                    "free_rows": live.free_rows,
+                    "note": "next retrieval compiles once for the "
+                            "new capacity"}
+        raise ValueError(f"unknown control line {line.split()[0]!r}"
+                         " (supported: !add <delta.npz>, "
+                         "!remove <video_id> [...], !save <path>, "
+                         "!compact, !grow <capacity_videos>, !stats)")
+    except Exception as e:   # a bad delta must not kill the daemon
+        return {"command": line, "error": str(e)}
 
 
 def make_gt_ranker(model: Model, index: MomentIndex,

@@ -14,6 +14,9 @@ builds from.  ``build_all`` starts one ``nvcc`` per source at once.
 
 ``nvcc`` is found as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under
 ``/usr/local/cuda``.  Without it the build raises; nothing falls back.
+
+Host libraries (``csrc/host/*.cc``: the packed feature store's reader) are
+built the same way with ``g++ -O3 -shared`` by ``load_host``.
 """
 
 from __future__ import annotations
@@ -55,6 +58,25 @@ SIGNATURES = {
     "coarse_blockmax": {
         "vfr_coarse_blockmax": [_P] * 4 + [_I] * 5 + [_P],
         "vfr_coarse_blockmax_mma": [_P] * 4 + [_I] * 7 + [_P],
+    },
+}
+
+# host libraries (csrc/host/<name>.cc), built with g++
+HOST_CSRC = os.path.join(CSRC, "host")
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+_I64 = ctypes.c_int64
+HOST_SIGNATURES = {
+    "vfr_io": {
+        "vfr_open": ([ctypes.c_char_p], _P),
+        "vfr_close": ([_P], None),
+        "vfr_num_videos": ([_P], _I64),
+        "vfr_rows": ([_P], ctypes.c_int32),
+        "vfr_dim": ([_P], ctypes.c_int32),
+        "vfr_find": ([_P, ctypes.c_char_p], _I64),
+        "vfr_id_at": ([_P, _I64, ctypes.c_char_p], None),
+        "vfr_gather": ([_P, ctypes.POINTER(_I64), _I64,
+                        ctypes.POINTER(ctypes.c_float), ctypes.c_int32],
+                       None),
     },
 }
 
@@ -147,3 +169,44 @@ def check(err: int, what: str) -> None:
     """Raise when a kernel entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def host_library_path(name: str) -> str:
+    h = hashlib.sha1()
+    with open(os.path.join(HOST_CSRC, name + ".cc"), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/host/<name>.cc``, built with ``g++``
+    (``$CXX`` when set) on first use; raises when the build fails."""
+    with _lock:
+        lib = _libs.get("host:" + name)
+        if lib is not None:
+            return lib
+        out = host_library_path(name)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", tmp,
+                   os.path.join(HOST_CSRC, name + ".cc")]
+            try:
+                r = subprocess.run(cmd, capture_output=True, text=True,
+                                   timeout=120)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                raise RuntimeError(f"building {name}.cc: {e}") from e
+            if r.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(
+                    f"g++ failed building {name}.cc:\n{r.stdout}{r.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        for fn, (argtypes, restype) in HOST_SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        _libs["host:" + name] = lib
+        return lib

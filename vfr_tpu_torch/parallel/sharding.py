@@ -10,8 +10,9 @@ product that JAX's ``preferred_element_type=float32`` gives, never a bf16
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from vfr_tpu_torch.device import mm_f32
@@ -19,8 +20,20 @@ from vfr_tpu_torch.device import mm_f32
 Weights = Union[torch.Tensor, Sequence[float]]
 
 
-def _w(weights: Weights, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(weights, dtype=torch.float32).to(like.device)
+def _w(weights: Weights) -> List[float]:
+    """The stream weights as host floats holding f32 values: scalars of
+    the device ops, never a host -> device copy (a sync) per call."""
+    if isinstance(weights, torch.Tensor):
+        weights = weights.detach().cpu().numpy()
+    return [float(x) for x in np.asarray(weights, np.float32).reshape(-1)]
+
+
+def _weighted_sum(w: List[float], x: torch.Tensor) -> torch.Tensor:
+    """sum_s w_s x[s] over the leading axis."""
+    out = w[0] * x[0]
+    for s in range(1, len(w)):
+        out = out + w[s] * x[s]
+    return out
 
 
 def fused_corpus_distances(
@@ -32,7 +45,7 @@ def fused_corpus_distances(
 ) -> torch.Tensor:
     """Fused squared-euclidean distance [Q, N] = sum_s w_s ||q_s - m_s||^2;
     products at m's storage dtype when it is bf16, else ``compute_dtype``."""
-    w = _w(weights, q)
+    w = _w(weights)
     in_dt = m.dtype if m.dtype == torch.bfloat16 else compute_dtype
     D = None
     for s in range(q.shape[0]):
@@ -47,22 +60,19 @@ def fuse_index_cat(m: torch.Tensor, m_sq: torch.Tensor, weights: Weights):
     """One-matmul score layout ``(m_cat [N, S*d], msq_fused [N])``: the
     fused distance ranks like the negated score 2 sum_s w_s q_s.m_s -
     sum_s w_s |m_s|^2."""
-    w = _w(weights, m_sq)
     m_cat = torch.cat([m[s] for s in range(m.shape[0])], dim=-1)
-    msq_fused = (w[:, None] * m_sq).sum(dim=0)
-    return m_cat, msq_fused
+    return m_cat, _weighted_sum(_w(weights), m_sq)
 
 
 def query_cat_scaled(q: torch.Tensor, weights: Weights) -> torch.Tensor:
     """[S, Q, d] -> [Q, S*d]: concat_s(2 w_s q_s)."""
-    w = _w(weights, q)
+    w = _w(weights)
     return torch.cat([2.0 * w[s] * q[s] for s in range(q.shape[0])], dim=-1)
 
 
 def query_sq_const(q: torch.Tensor, weights: Weights) -> torch.Tensor:
     """[Q]: sum_s w_s |q_s|^2 (distance = q_sq_const - score)."""
-    w = _w(weights, q)
-    return (w[:, None] * (q * q).sum(-1)).sum(dim=0)
+    return _weighted_sum(_w(weights), (q * q).sum(-1))
 
 
 def fused_corpus_scores(

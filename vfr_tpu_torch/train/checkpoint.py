@@ -20,6 +20,7 @@ import numpy as np
 
 from vfr_tpu_torch.bridge import _flatten, _unflatten, params_from_numpy
 from vfr_tpu_torch.config import ExperimentConfig
+from vfr_tpu_torch.device import resolve_device
 from vfr_tpu_torch.utils.io import atomic_savez
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
@@ -89,10 +90,12 @@ def _opt_state(tree: Dict, device) -> Dict:
 
 
 def restore_checkpoint(path: str, payload: Optional[Dict] = None,
-                       device="cpu"
+                       device=None
                        ) -> Tuple[int, Dict, Optional[Dict],
                                   Optional[ExperimentConfig]]:
-    """(step, params, opt_state or None, config) on ``device``."""
+    """(step, params, opt_state or None, config) on ``device`` (CUDA unless
+    asked otherwise; raises without CUDA)."""
+    device = resolve_device(device)
     stored = load_payload(path) if payload is None else payload
     params = params_from_numpy(_unflatten(stored, "params"), device)
     opt = _unflatten(stored, "opt_state")
@@ -100,9 +103,11 @@ def restore_checkpoint(path: str, payload: Optional[Dict] = None,
             _opt_state(opt, device) if opt else None, config_of(stored))
 
 
-def restore_ema(path: str, payload: Optional[Dict] = None, device="cpu"):
-    """The Polyak-averaged params of an ``ema_decay > 0`` run; the raw
-    params, with a warning, when the file has no average."""
+def restore_ema(path: str, payload: Optional[Dict] = None, device=None):
+    """The Polyak-averaged params of an ``ema_decay > 0`` run (on ``device``,
+    CUDA unless asked otherwise); the raw params, with a warning, when the
+    file has no average."""
+    device = resolve_device(device)
     stored = load_payload(path) if payload is None else payload
     tree = _unflatten(stored, "ema")
     if not tree:

@@ -1,12 +1,11 @@
 """Training loop (the port of the JAX package's ``train/loop.py``):
 epochs, hard-negative mining refreshes, eval, checkpoints, resume.
 
-The host assembles id-and-token batches (a few KB each) and copies each
-chunk of K steps to the device at the chunk boundary; clip features live
-on the device for the whole run (``banks_to_device``) and are gathered
-there by ``video_idx``.  There is no background prefetch thread: the
-chunks are too small for one to pay (the JAX package's ``Prefetcher``
-comes with the packed feature store).
+A background thread (``data.prefetch.Prefetcher``, ``prefetch_depth``
+chunks ahead) assembles id-and-token batches (a few KB each) into chunks of
+K steps and copies each to the device off the step's stream; clip features
+live on the device for the whole run (``banks_to_device``) and are
+gathered there by ``video_idx``.
 
 Query-dropout masks depend only on (seed, absolute step)
 (``dropout_keep_mask``), so a resumed run draws the masks the original
@@ -29,6 +28,7 @@ from vfr_tpu_torch.checkpoint import init_train_params
 from vfr_tpu_torch.config import ExperimentConfig, infonce_tau_warning
 from vfr_tpu_torch.data.features import banks_to_device
 from vfr_tpu_torch.data.loaders import DataBundle, load_datasets
+from vfr_tpu_torch.data.prefetch import Prefetcher
 from vfr_tpu_torch.device import resolve_device
 from vfr_tpu_torch.eval.moment_eval import evaluate
 from vfr_tpu_torch.models.build import build_model
@@ -227,8 +227,8 @@ def train(
                 yield _stack_chunk(buf)
 
         t_last = time.perf_counter()
-        for chunk in epoch_chunks():
-            chunk = {k: torch.from_numpy(v).to(dev) for k, v in chunk.items()}
+        for chunk in Prefetcher(epoch_chunks, depth=tcfg.prefetch_depth,
+                                device=dev):
             k = chunk["tokens"].shape[0]
             if ema is None:
                 params, opt_state, aux = multi_step_fn(params, opt_state,
