@@ -132,6 +132,9 @@ LIVE_GROW = 25_000       # scripts/probe_live.py set-up; then grown
 LIVE_APPENDS = 4         # appends of
 LIVE_DELTA = 128         # videos each,
 LIVE_REMOVE = 500        # one removal of 500 videos
+LIVE_FOLLOW_SEGMENT = 24  # live daemon: 4 runs of 24 queries between
+LIVE_FOLLOW_ADD = 64      # !add of 64 videos, !remove of
+LIVE_FOLLOW_REMOVE = 64   # 64 (8 of them just added) and !compact
 PACKED_VIDEOS = 2_000    # packed: the fixture written in the real layout
 GRAD_TOL = 1e-3          # fused BPTT vs scan autograd, of max |grad| per leaf
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -2524,20 +2527,53 @@ def _moment_keys(order, ids, video_row, prop_idx, rows):
                         + int(prop_idx[r]))(rows)
 
 
+def _records(texts, d, rows, ids, video_row, spans):
+    """``serve_follow``'s result records of ``rows`` over the tables
+    (ids, video_row, spans) of an index or arena."""
+    return [{"query": text, "results": [
+        {"video": ids[int(video_row[r])], "start": float(spans[r, 0]),
+         "end": float(spans[r, 1]), "distance": float(d[i, j])}
+        for j, r in enumerate(rows[i])]} for i, text in enumerate(texts)]
+
+
+def _add_counts(total, counts):
+    """Add ``read_counts()`` to ``total`` in place."""
+    for name, v in counts.items():
+        if name != "variants":
+            total[name] = total.get(name, 0) + v
+            continue
+        for fam, by in v.items():
+            f = total.setdefault("variants", {}).setdefault(fam, {})
+            for var, c in by.items():
+                f[var] = f.get(var, 0) + c
+
+
 def phase_live(results, seed: int, workdir: str):
     """The live index of preset ``serving_10k`` (bf16 index, last pool,
     top-100): 10,000 videos in a 20,000-video arena (420,000 rows), 4
     appends of 128 videos, a removal of 500, compact, grow to 25,000,
-    save -> load; after each, the live retriever held to a from-scratch
-    ``build_moment_index`` + ``make_retriever`` over the same corpus.
-    Then one ``cli serve --follow --live-capacity-videos`` subprocess
-    and a second booted from its ``!save`` (``--live-arena``)."""
+    save -> load; after each, the live retriever at packs of 8 and 256
+    held to itself through K1b's plain version and to a from-scratch
+    ``build_moment_index`` + ``make_retriever`` through the plain version
+    over the same corpus.  Then ``serve_follow`` over that arena (packs of
+    8, depth 2) with queries between ``!add``, ``!remove`` and
+    ``!compact``, each run of queries held to a shadow arena taken
+    through the same operations and to a rebuild at the same point.
+    Launch counts are zeroed just before each live retrieval and each
+    daemon run and read just after; the references run outside those
+    windows.  Then one ``cli serve --follow --live-capacity-videos``
+    subprocess and a second booted from its ``!save``
+    (``--live-arena``)."""
     import types
 
     import torch
 
     from vfr_tpu_torch.eval import live as L
-    from vfr_tpu_torch.eval.corpus import build_moment_index, make_retriever
+    from vfr_tpu_torch.eval.corpus import (
+        build_moment_index,
+        make_retriever,
+        serve_follow,
+    )
     from vfr_tpu_torch.models.build import build_model
     from vfr_tpu_torch.models.mcn import (
         init_model_params,
@@ -2550,6 +2586,8 @@ def phase_live(results, seed: int, workdir: str):
     n_new = LIVE_APPENDS * LIVE_DELTA
     _, dds, _, _ = make_corpus("serving_10k", n_new, seed + 29)
     new_ids = [f"new{v}" for v in dds.video_ids]
+    _, fds, _, _ = make_corpus("serving_10k", LIVE_FOLLOW_ADD, seed + 41)
+    add_ids = [f"live{v}" for v in fds.video_ids]
     setup_s = time.perf_counter() - t0
     model = build_model(cfg)
     params = init_model_params(torch.Generator().manual_seed(seed + 3),
@@ -2562,11 +2600,37 @@ def phase_live(results, seed: int, workdir: str):
     lens = torch.from_numpy(lens[0]).to(dev)
     feats = {v: (ds.rgb_feats[i], ds.flow_feats[i])
              for i, v in enumerate(ds.video_ids)}
-    feats.update({v: (dds.rgb_feats[i], dds.flow_feats[i])
-                  for i, v in enumerate(new_ids)})
+    for ids, src in ((new_ids, dds), (add_ids, fds)):
+        feats.update({v: (src.rgb_feats[i], src.flow_feats[i])
+                      for i, v in enumerate(ids)})
     order = {v: i for i, v in enumerate(feats)}
+    launches = {}        # the live path's launches, counted windows only
 
-    reset_counts()
+    def counted(fn):
+        """(fn(), its launches): counts zeroed just before, read just
+        after, and added to ``launches``."""
+        reset_counts()
+        out = fn()
+        counts = read_counts()
+        _add_counts(launches, counts)
+        return out, counts
+
+    def rebuild(alive):
+        """A from-scratch index over ``alive`` and its retriever through
+        K1b's plain version."""
+        corpus = types.SimpleNamespace(
+            video_ids=alive,
+            rgb_feats=np.stack([feats[v][0] for v in alive]),
+            flow_feats=np.stack([feats[v][1] for v in alive]),
+            num_proposals=ds.num_proposals, span_seconds=ds.span_seconds)
+        ref = build_moment_index(params, model, corpus, index_dtype=idx_dtype,
+                                 with_fingerprint=False)
+        return ref, make_retriever(model, ref, k, topk_method=method,
+                                   rnn_kernel="plain")
+
+    def host(pair):
+        return tuple(t.cpu().numpy() for t in pair)
+
     live, build_s = _timed(lambda: L.make_live_index(
         params, model, ds, capacity_videos=LIVE_CAPACITY,
         index_dtype=idx_dtype))
@@ -2577,34 +2641,38 @@ def phase_live(results, seed: int, workdir: str):
     held = list(ds.video_ids)          # the corpus the arena should hold
 
     def check(label):
-        """Live retrieval vs a rebuild over ``held``; retrieve ms on one
-        pack of 8 and one batch of 256."""
+        """Live retrieval (counted) at a pack of 8 and a batch of 256, vs
+        the live retriever through K1b's plain version and vs a rebuild
+        over ``held``; retrieve ms of both."""
         alive = list(held)
-        corpus = types.SimpleNamespace(
-            video_ids=alive,
-            rgb_feats=np.stack([feats[v][0] for v in alive]),
-            flow_feats=np.stack([feats[v][1] for v in alive]),
-            num_proposals=ds.num_proposals, span_seconds=ds.span_seconds)
-        ref = build_moment_index(params, model, corpus, index_dtype=idx_dtype,
-                                 with_fingerprint=False)
-        d_r, r_r = (t.cpu().numpy() for t in make_retriever(
-            model, ref, k, topk_method=method)(q_params, toks, lens))
-        d_l, r_l = (t.cpu().numpy() for t in retrieve(q_params, toks, lens))
-        key_l = _moment_keys(order, live.video_ids, live.video_row,
-                             live.prop_idx, r_l)
+        ref, ref_fn = rebuild(alive)
+        d_r, r_r = host(ref_fn(q_params, toks, lens))
         key_r = _moment_keys(order, alive, ref.video_row, ref.prop_idx, r_r)
-        mism, ddiff = compare_to_plain(d_l, key_l, d_r, key_r)
-        checks[label] = dict(videos=len(alive), rows_differing=mism,
-                             max_distance_diff=ddiff,
-                             retrieve_ms_q8=time_batches(
-                                 lambda: retrieve(q_params, toks[:8],
-                                                  lens[:8])),
-                             retrieve_ms_q256=time_batches(
-                                 lambda: retrieve(q_params, toks, lens)))
-        require(mism == 0 and ddiff <= 1e-3,
-                f"live[{label}]: vs rebuild: {mism} moments differ, max "
-                f"|d diff| {ddiff}")
-        del ref
+        del ref, ref_fn
+        plain = L.make_live_retriever(model, live, k, topk_method=method,
+                                      rnn_kernel="plain")
+        rec = dict(videos=len(alive))
+        for Q in (8, 256):
+            tq, lq = toks[:Q], lens[:Q]
+            (d_l, r_l), _ = counted(lambda: host(retrieve(q_params, tq, lq)))
+            d_p, r_p = host(plain(q_params, tq, lq))
+            p_mism, p_ddiff = compare_to_plain(d_l, r_l, d_p, r_p)
+            key_l = _moment_keys(order, live.video_ids, live.video_row,
+                                 live.prop_idx, r_l)
+            mism, ddiff = compare_to_plain(d_l, key_l, d_r[:Q], key_r[:Q])
+            rec[f"q{Q}"] = dict(
+                rows_differing_from_plain=p_mism,
+                max_distance_diff_vs_plain=p_ddiff,
+                rows_differing_from_rebuild=mism,
+                max_distance_diff_vs_rebuild=ddiff,
+                retrieve_ms=time_batches(lambda: retrieve(q_params, tq, lq)))
+            require(p_mism == 0 and p_ddiff <= 1e-3,
+                    f"live[{label}] Q={Q}: vs plain K1b: {p_mism} rows "
+                    f"differ, max |d diff| {p_ddiff}")
+            require(mism == 0 and ddiff <= 1e-3,
+                    f"live[{label}] Q={Q}: vs rebuild: {mism} moments "
+                    f"differ, max |d diff| {ddiff}")
+        checks[label] = rec
 
     check("build")
     appends = []
@@ -2649,9 +2717,78 @@ def phase_live(results, seed: int, workdir: str):
     live, retrieve = back, L.make_live_retriever(model, back, k,
                                                  topk_method=method)
     check("reload")
-    counts = read_counts()
-    require(counts["lstm_hs"] > 0, "live: K1b (lstm_hs) never launched")
     arena_bytes = live.m_cat.numel() * 4 + live.msq_fused.numel() * 4
+    bf16_bytes = live.m_cat.numel() * 2 + live.msq_fused.numel() * 4
+
+    # the daemon over this arena: queries between !add, !remove, !compact
+    delta = os.path.join(workdir, "live_follow_delta.npz")
+    np.savez(delta, video_ids=np.asarray(add_ids), rgb=fds.rgb_feats,
+             flow=fds.flow_feats)
+    drop = [str(v) for v in rng.choice(held, LIVE_FOLLOW_REMOVE - 8,
+                                       replace=False)] + add_ids[:8]
+    segments = [make_queries(vocab, LIVE_FOLLOW_SEGMENT, T, seed + 43 + s)
+                for s in range(4)]
+    ops = [f"!add {delta}", "!remove " + " ".join(drop), "!compact"]
+    script = segments[0]
+    for op, seg in zip(ops, segments[1:]):
+        script = script + [op] + seg
+    shadow = L.load_arena(path, params=params, model=model)
+    ptr = live.m_cat.data_ptr()
+    (recs, daemon_s), daemon_counts = counted(lambda: _timed(lambda: list(
+        serve_follow(params, model, ds, vocab, iter(script), k=k,
+                     max_query_len=T, topk_method=method, live=live,
+                     micro_batch=8, pipeline_depth=2))))
+    require(live.m_cat.data_ptr() == ptr,
+            "live[follow]: !add / !remove / !compact reallocated the arena")
+    require(daemon_counts["lstm_hs"] > 0,
+            "live[follow]: K1b (lstm_hs) never launched")
+    acks = [r for r in recs if "command" in r]
+    answered = [r for r in recs if "query" in r]
+    require(len(acks) == 3 and len(answered) == 4 * LIVE_FOLLOW_SEGMENT
+            and acks[0].get("added_rows") == LIVE_FOLLOW_ADD
+            * ds.num_proposals
+            and acks[1].get("removed_rows") == LIVE_FOLLOW_REMOVE
+            * ds.num_proposals
+            and acks[2].get("reclaimed_rows") == LIVE_FOLLOW_REMOVE
+            * ds.num_proposals,
+            f"live[follow]: control records {acks}")
+    _served_ok(answered, len(answered), k, "live[follow]")
+    shadow_fn = L.make_live_retriever(model, shadow, k, topk_method=method,
+                                      rnn_kernel="plain")
+    follow_checks = []
+    for s, texts in enumerate(segments):
+        if s == 1:
+            L.live_append(shadow, params, model, ds, add_ids, fds.rgb_feats,
+                          fds.flow_feats)
+            held.extend(add_ids)
+        elif s == 2:
+            L.live_remove(shadow, drop)
+            held = [v for v in held if v not in set(drop)]
+        elif s == 3:
+            L.live_compact(shadow)
+        t_s, l_s = encode(vocab, texts, len(texts), T)
+        t_s = torch.from_numpy(t_s[0]).to(dev)
+        l_s = torch.from_numpy(l_s[0]).to(dev)
+        d_a, r_a = host(shadow_fn(q_params, t_s, l_s))
+        ref, ref_fn = rebuild(list(held))
+        d_b, r_b = host(ref_fn(q_params, t_s, l_s))
+        got = answered[s * LIVE_FOLLOW_SEGMENT:(s + 1) * LIVE_FOLLOW_SEGMENT]
+        a_mism, a_ddiff = compare_records(got, _records(
+            texts, d_a, r_a, shadow.video_ids, shadow.video_row,
+            shadow.spans_sec))
+        b_mism, b_ddiff = compare_records(got, _records(
+            texts, d_b, r_b, list(held), ref.video_row, ref.spans_sec))
+        del ref, ref_fn
+        follow_checks.append(dict(
+            videos=len(held), rows_differing_from_shadow_arena=a_mism,
+            max_distance_diff_vs_shadow_arena=a_ddiff,
+            rows_differing_from_rebuild=b_mism,
+            max_distance_diff_vs_rebuild=b_ddiff))
+        require(a_mism == 0 and a_ddiff <= 1e-3 and b_mism == 0
+                and b_ddiff <= 1e-3,
+                f"live[follow] segment {s}: {follow_checks[-1]}")
+    del shadow
+    require(launches["lstm_hs"] > 0, "live: K1b (lstm_hs) never launched")
     cli = _live_cli(workdir)
     rec = dict(phase="live", preset="serving_10k", videos=LIVE_VIDEOS,
                capacity_videos=LIVE_CAPACITY, grown_to=LIVE_GROW, k=k,
@@ -2659,10 +2796,14 @@ def phase_live(results, seed: int, workdir: str):
                append_s=appends, append_first_s=appends[0],
                append_steady_s=float(np.median(appends[1:])),
                **timings, arena_in_place=in_place, reload_bit_exact=True,
-               arena_bytes=arena_bytes,
-               arena_bytes_bf16_carrier=live.m_cat.numel() * 2
-               + live.msq_fused.numel() * 4,
-               launches=counts, checks=checks, cli=cli)
+               arena_bytes=arena_bytes, arena_bytes_bf16_carrier=bf16_bytes,
+               launches=launches, checks=checks,
+               follow=dict(micro_batch=8, pipeline_depth=2,
+                           requests=len(answered), controls=len(acks),
+                           seconds=daemon_s,
+                           requests_per_s=len(answered) / daemon_s,
+                           launches=daemon_counts, segments=follow_checks),
+               cli=cli)
     emit(rec)
     results["live"] = rec
 

@@ -325,9 +325,6 @@ def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype):
     return m_cat, msq_fused, in_dtype
 
 
-_RETRIEVERS: Dict[tuple, object] = {}
-
-
 def make_operand_retriever(model: Model, weights, k: int,
                            topk_method: str = "exact",
                            approx_recall: float = 0.95,
@@ -335,9 +332,9 @@ def make_operand_retriever(model: Model, weights, k: int,
                            in_dtype: Optional[torch.dtype] = None):
     """The one-GEMM retriever with its index operands as call-time
     arguments: ``(m_cat [N, S*d], msq_fused [N], params, tokens, lengths)
-    -> (dists [Q, k], rows [Q, k])``, cached by the model's semantic key.
-    ``make_score_topk`` binds a fixed index to it; the live index
-    (``eval/live.py``) passes its arena, whose buffers change in place.
+    -> (dists [Q, k], rows [Q, k])``.  ``make_score_topk`` binds a fixed
+    index to it; the live index (``eval/live.py``) passes its arena, whose
+    buffers change in place.
 
     ``m_cat`` is an f32 carrier already holding ``in_dtype`` values
     (``prep_score_operands``; default: the model's compute dtype).
@@ -351,20 +348,16 @@ def make_operand_retriever(model: Model, weights, k: int,
             "(make_retriever); use 'exact' or 'approx'")
     in_dtype = model.compute_dtype if in_dtype is None else in_dtype
     weights = np.asarray(weights, np.float32)
-    key = ("retrieve", _model_key(model), k, topk_method, approx_recall,
-           rnn_kernel, tuple(weights.tolist()), in_dtype)
-    fn = _RETRIEVERS.get(key)
-    if fn is None:
-        @torch.no_grad()
-        def fn(m_cat, msq_fused, params, toks, lens):
-            qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
-            scores = fused_corpus_scores(qs, m_cat, msq_fused, weights,
-                                         in_dtype=in_dtype)
-            vals, rows = top_k_select(scores, k, topk_method, approx_recall)
-            return query_sq_const(qs, weights)[:, None] - vals, rows
 
-        _RETRIEVERS[key] = fn
-    return fn
+    @torch.no_grad()
+    def retrieve(m_cat, msq_fused, params, toks, lens):
+        qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
+        scores = fused_corpus_scores(qs, m_cat, msq_fused, weights,
+                                     in_dtype=in_dtype)
+        vals, rows = top_k_select(scores, k, topk_method, approx_recall)
+        return query_sq_const(qs, weights)[:, None] - vals, rows
+
+    return retrieve
 
 
 def make_score_topk(model: Model, index: MomentIndex, k: int,

@@ -444,13 +444,17 @@ def make_live_retriever(
     1e29, video_row -1.  ``topk_method="fused"`` raises at the first call,
     as in the JAX package."""
     k_req = int(k)
+    built = {}          # the retriever of the current clamped k
 
     def retrieve(params, tokens, lengths):
         k_eff = int(min(k_req, live.capacity))
-        fn = make_operand_retriever(
-            model, live.weights, k_eff, topk_method=topk_method,
-            approx_recall=approx_recall, rnn_kernel=rnn_kernel,
-            in_dtype=arena_in_dtype(live, model))
+        fn = built.get(k_eff)
+        if fn is None:
+            built.clear()
+            fn = built[k_eff] = make_operand_retriever(
+                model, live.weights, k_eff, topk_method=topk_method,
+                approx_recall=approx_recall, rnn_kernel=rnn_kernel,
+                in_dtype=arena_in_dtype(live, model))
         return fn(live.m_cat, live.msq_fused, params, tokens, lengths)
 
     return retrieve
