@@ -87,6 +87,23 @@ Phases, one JSON line each:
               after, the arena's bytes; a `cli serve --follow
               --live-capacity-videos` subprocess running a script of queries
               and control lines, and a second booted from its `!save`.
+  sharded     the corpus index row-sharded over a "corpus" mesh of n
+              shards (n distinct cards when visible, else the first card n
+              times; a line names the mesh's devices): flagship exact at
+              n = 4 and 8 (K1a; held to the unsharded results and to K1a's
+              plain version; ms per batch beside unsharded; host syncs per
+              batch: one at 52,500 rows a shard, none at 26,250), coarse at
+              n = 4 (blockmax: K4 on every shard, held to its plain version;
+              centroid; recall@10; the full quota equal to exact), corpus
+              eval at n = 4 (official protocol, GT ranker; exact and coarse
+              held to the unsharded runs within 0.1% of the queries, coarse
+              also to its plain-version run);
+              riding on the phases it needs: eval_charades corpus exact at
+              n = 4 (K1b), live (a second, sharded arena through the same
+              operations, held to the unsharded arena and the rebuild, its
+              snapshot on one device, the daemon's script over a sharded
+              arena; K1b), coarse_2m at n = 4 (full scan held to the
+              unsharded one; blockmax K4).
 Every serving and eval run zeroes the kernels' launch counts just before
 it runs and fails unless each kernel of its path launched.  Then one
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
@@ -137,6 +154,8 @@ LIVE_FOLLOW_ADD = 64      # !add of 64 videos, !remove of
 LIVE_FOLLOW_REMOVE = 64   # 64 (8 of them just added) and !compact
 PACKED_VIDEOS = 2_000    # packed: the fixture written in the real layout
 GRAD_TOL = 1e-3          # fused BPTT vs scan autograd, of max |grad| per leaf
+SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
+                         # top-k's KEY_MAX: its one sync), and 26,250 (none)
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "tf32": 495e12,       # dense tensor-core rate
@@ -1199,7 +1218,7 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     results["fused"] = rec
     return dict(cfg=cfg, params=params, q_params=q_params, model=model, ds=ds,
                 vocab=vocab, index=loaded, queries=queries, toks=toks_d, lens=lens_d,
-                exact_rows=rows_k, k=k, batch=batch, T=T)
+                exact_rows=rows_k, exact_d=d_k, k=k, batch=batch, T=T)
 
 
 def _topk_cost(model, index, params, toks, lens, k):
@@ -1247,6 +1266,44 @@ def _recall(rows, ref_rows):
     k = ref_rows.shape[1]
     return float(np.mean([len(set(a[:k]) & set(b)) / k
                           for a, b in zip(rows, ref_rows)]))
+
+
+RECHECK_REL_TOL = 1e-5   # |d - d'| over the distance's terms (f32 sums)
+
+
+def recheck_rows(model, q_params, index, toks, lens, d, rows):
+    """Checks of a prefilter's run over batches ``toks [M, Q, T]`` (``d``,
+    ``rows`` [M, Q, k] on the host) that a plain run cannot give row for
+    row (a query moved by the kernel's rounding may pick another block at
+    a near-tie of stage 1, and so another candidate set):
+    (max |q - q_plain|: the query streams through the recurrence kernel,
+    as the retriever ran it, against its plain version, held to the
+    kernel checks' 2e-3; max |d - d'| / scale: d' the fused distance
+    recomputed from ``index``'s own rows at the reported global ids with
+    those queries, scale = sum_s w_s (|q_s|^2 + |m_s|^2), the terms the
+    two f32 orders of summation round, held to ``RECHECK_REL_TOL``; a
+    wrong global row is off by the distance's spread instead)."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import _embed_query_streams
+
+    w = [float(x) for x in np.asarray(index.weights, np.float32)]
+    q_err = rel = 0.0
+    for b in range(toks.shape[0]):
+        qs = _embed_query_streams(q_params, model, toks[b], lens[b])
+        qp = _embed_query_streams(q_params, model, toks[b], lens[b],
+                                  "plain")                        # [S, Q, d]
+        q_err = max(q_err, float((qs - qp).abs().max()))
+        r = torch.as_tensor(rows[b], device=qs.device).long()     # [Q, k]
+        dd = scale = 0.0
+        for s_, q in enumerate(qs):
+            qm = (index.m[s_][r].float() * q[:, None, :]).sum(-1)
+            terms = (q * q).sum(-1)[:, None] + index.m_sq[s_][r]
+            dd = dd + w[s_] * (terms - 2.0 * qm)
+            scale = scale + w[s_] * terms
+        got = torch.as_tensor(d[b], device=qs.device)
+        rel = max(rel, float(((got - dd).abs() / scale).max()))
+    return q_err, rel
 
 
 def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
@@ -1329,6 +1386,226 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
             f"coarse: blockmax vs plain stage 1: {mism} rows differ, "
             f"max |d diff| {ddiff}")
     results["coarse"] = rec
+
+
+# --------------------------------------------------------------- sharded
+
+def corpus_mesh(n: int):
+    """A "corpus" mesh of ``n`` shards: ``n`` distinct cards when that
+    many are visible, else the first card ``n`` times; its devices and how
+    many cards are distinct go out on a line of their own."""
+    import torch
+
+    from vfr_tpu_torch.parallel.mesh import make_mesh
+
+    devices = ([torch.device("cuda", i) for i in range(n)]
+               if torch.cuda.device_count() >= n
+               else [torch.device("cuda", 0)] * n)
+    emit({"phase": "sharded_mesh", "shards": n,
+          "devices": [str(d) for d in devices],
+          "distinct_cards": len(set(devices))})
+    return make_mesh(("corpus",), devices=devices)
+
+
+def _sharded_record(results, part: str, counts, rec: dict):
+    """Emit one part of the sharded phase, keep it, and add its launches
+    (counted around its own runs only) to the phase's."""
+    out = results.setdefault("sharded", {"launches": {}})
+    _add_counts(out["launches"], counts)
+    out[part] = dict(launches=counts, **rec)
+    emit({"phase": "sharded", "part": part, "launches": counts, **rec})
+
+
+def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
+    """The flagship index (210,000 rows) row-sharded over a "corpus" mesh
+    (``corpus_mesh``): exact serving at SHARDS (K1a; each run held to the
+    unsharded retriever's results and to itself through K1a's plain
+    version; host syncs per batch), coarse at 4 shards (blockmax: K4 on
+    every shard, held to itself through K4's plain version; centroid; in
+    both modes K1a's queries held to its plain version and every returned
+    row's distance to the one recomputed from the index
+    (``recheck_rows``); recall@10
+    vs exact; the full quota held to exact) and corpus eval at 4 shards (official protocol, GT ranker;
+    exact and coarse blockmax, held to the unsharded runs within 0.1% of
+    the queries)."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.eval import coarse as coarse_mod
+    from vfr_tpu_torch.eval.corpus import (
+        corpus_evaluate,
+        make_retriever,
+        make_stream_retriever,
+    )
+    from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
+    from vfr_tpu_torch.ops.topk import KEY_MAX
+
+    q_params, model, index, k = (ctx["q_params"], ctx["model"],
+                                 ctx["index"], ctx["k"])
+    toks, lens = ctx["toks"], ctx["lens"]
+    M = toks.shape[0]
+    d_ref, r_ref = ctx["exact_d"], ctx["exact_rows"]
+
+    def batches(r, Q=None):
+        return [r(q_params, toks[b, :Q], lens[b, :Q]) for b in range(M)]
+
+    def host(outs):
+        return tuple(torch.stack(t).cpu().numpy() for t in zip(*outs))
+
+    unsharded = make_stream_retriever(model, index, k, "exact")
+    unsharded_ms = time_batches(lambda: unsharded(q_params, toks, lens)) / M
+    del unsharded
+    meshes = {}
+    for n in SHARDS:
+        mesh = meshes[n] = corpus_mesh(n)
+        r = make_retriever(model, index, k, mesh=mesh)
+        reset_counts()
+        d_s, r_s = host(batches(r))
+        counts = read_counts()
+        require(counts["lstm_pooled"] > 0,
+                f"sharded[exact n={n}]: K1a never launched")
+        require_persistent(counts, "lstm", f"sharded[exact n={n}]")
+        mism, ddiff = compare_to_plain(d_s, r_s, d_ref, r_ref)
+        plain = make_retriever(model, index, k, rnn_kernel="plain",
+                               mesh=mesh)
+        d_p, r_p = host(batches(plain))
+        del plain
+        p_mism, p_ddiff = compare_to_plain(d_s, r_s, d_p, r_p)
+        syncs = _steady_syncs(lambda: r(q_params, toks[0], lens[0]))
+        n_loc = -(-index.num_rows // n)
+        _sharded_record(results, f"exact_n{n}", counts, dict(
+            shards=n, rows_per_shard=n_loc, batch=toks.shape[1], k=k,
+            ms_per_batch=time_batches(lambda: batches(r)) / M,
+            unsharded_ms_per_batch=unsharded_ms,
+            host_syncs_per_batch=sum(syncs.values()),
+            host_syncs_by_line=syncs,
+            rows_differing_from_unsharded=mism,
+            max_distance_diff_vs_unsharded=ddiff,
+            rows_differing_from_plain=p_mism,
+            max_distance_diff_vs_plain=p_ddiff))
+        del r
+        require(mism == 0 and ddiff <= 1e-3,
+                f"sharded[exact n={n}] vs unsharded: {mism} rows differ, "
+                f"max |d diff| {ddiff}")
+        require(p_mism == 0 and p_ddiff <= 1e-3,
+                f"sharded[exact n={n}] vs plain K1a: {p_mism} rows differ, "
+                f"max |d diff| {p_ddiff}")
+        require(sum(syncs.values()) == (1 if n_loc > KEY_MAX else 0),
+                f"sharded[exact n={n}]: host syncs {syncs}")
+
+    mesh = meshes[4]
+    coarse = ctx.get("coarse") or coarse_mod.build_coarse_index(
+        index, d_coarse=d_coarse)
+    # the full quota (every block of every shard): exact, on 16 queries
+    # (stage 2 gathers a shard's whole rows per query)
+    full = coarse_mod.make_sharded_coarse_retriever(
+        model, coarse, k, mesh,
+        num_candidates=coarse.num_blocks * coarse.block_rows)
+    d_f, r_f = host(batches(full, 16))
+    del full
+    f_mism, f_ddiff = compare_to_plain(d_f, r_f, d_ref[:, :16],
+                                       r_ref[:, :16])
+    rec = dict(shards=4, d_coarse=coarse.d_coarse, candidates=C,
+               blocks_per_shard=-(-coarse.num_blocks // 4),
+               full_quota_rows_differing_from_exact=f_mism,
+               full_quota_max_distance_diff_vs_exact=f_ddiff)
+    require(f_mism == 0 and f_ddiff <= 1e-3,
+            f"sharded[coarse] full quota vs exact: {f_mism} rows differ, "
+            f"max |d diff| {f_ddiff}")
+    counts = {}
+    for mode in ("blockmax", "centroid"):
+        r = coarse_mod.make_sharded_coarse_retriever(
+            model, coarse, k, mesh, num_candidates=C, mode=mode)
+        reset_counts()
+        d_m, r_m = host(batches(r))
+        counts[mode] = read_counts()
+        require(bool(np.isfinite(d_m).all())
+                and d_m.shape == (M, toks.shape[1], k)
+                and 0 <= r_m.min() and r_m.max() < index.num_rows,
+                f"sharded[coarse {mode}]: malformed results")
+        q_err, rel = recheck_rows(model, q_params, index, toks, lens, d_m,
+                                  r_m)
+        rec[mode] = dict(
+            launches=counts[mode],
+            ms_per_batch=time_batches(lambda: batches(r)) / M,
+            recall_at_10_vs_exact=_recall(r_m, r_ref),
+            max_query_diff_vs_plain_k1a=q_err,
+            max_rel_distance_diff_vs_recomputed=rel)
+        require(counts[mode]["lstm_pooled"] > 0,
+                f"sharded[coarse {mode}]: K1a never launched")
+        require(q_err <= 2e-3 and rel <= RECHECK_REL_TOL,
+                f"sharded[coarse {mode}]: queries vs plain K1a {q_err}, "
+                f"returned distances vs recomputed (relative) {rel}")
+        if mode == "blockmax":
+            with mock.patch.object(coarse_mod, "coarse_blockmax",
+                                   coarse_blockmax_plain):
+                d_p, r_p = host(batches(r))
+            mism, ddiff = compare_to_plain(d_m, r_m, d_p, r_p)
+            rec[mode].update(variant="mma", rows_differing_from_plain=mism,
+                             max_distance_diff_vs_plain=ddiff)
+            require(counts[mode]["coarse_blockmax"] > 0,
+                    "sharded[coarse]: K4 never launched under blockmax")
+            require_mma(counts[mode], "coarse", "sharded[coarse]")
+            require(mism == 0 and ddiff <= 1e-3,
+                    f"sharded[coarse] vs plain K4: {mism} rows differ, "
+                    f"max |d diff| {ddiff}")
+    both = {}
+    for c in counts.values():
+        _add_counts(both, c)
+    _sharded_record(results, "coarse", both, rec)
+
+    # corpus eval at 4 shards, each held to the unsharded run of the eval
+    # phase (run here when it did not run); coarse blockmax also to itself
+    # through the plain versions (its per-shard quotas pick another
+    # candidate set than the unsharded retriever, as in the JAX package)
+    cfg, params, ds = ctx["cfg"], ctx["params"], ctx["ds"]
+    base = dataclasses.replace(cfg.eval, protocol="didemo_official",
+                               rnn_kernel="pallas")
+    banks = ctx.get("banks")
+    if banks is None:
+        banks = banks_to_device(ds.feature_banks(), base.bank_dtype,
+                                device=torch.device("cuda"))
+    runs = EvalRuns(ds.num_queries)
+    diffs, counts = {}, {}
+
+    def corpus(e, **kw):
+        return lambda: corpus_evaluate(params, model, ds, e,
+                                       feature_banks=banks, **kw)
+
+    for tag, kw, kernels in (
+            ("exact", {}, ("lstm_pooled",)),
+            ("coarse", dict(coarse_dim=d_coarse, coarse_candidates=C,
+                            coarse_mode="blockmax"),
+             ("lstm_pooled", "coarse_blockmax"))):
+        e = dataclasses.replace(base, **kw)
+        unsharded = results.get("eval", {}).get("runs", {}).get(
+            f"corpus_{tag}_pallas", {}).get("metrics")
+        if unsharded is None:
+            unsharded, _ = runs(f"corpus_{tag}_unsharded", corpus(e))
+        got, counts[tag] = runs(f"corpus_{tag}_sharded4", corpus(e, mesh=mesh))
+        require(list(got) == corpus_keys(base, ds),
+                f"sharded[eval {tag}]: keys {list(got)}")
+        for name in kernels:
+            require(counts[tag][name] > 0,
+                    f"sharded[eval {tag}]: {name} never launched")
+        diffs[tag] = metrics_close(got, unsharded, f"sharded[eval {tag}]")
+        if tag == "coarse":
+            plain, _ = runs(f"corpus_{tag}_sharded4_plain",
+                            corpus(dataclasses.replace(e, rnn_kernel="plain"),
+                                   mesh=mesh),
+                            patches=_plain_patches(kernels))
+            diffs["coarse_vs_plain"] = metrics_close(
+                got, plain, "sharded[eval coarse] vs plain")
+    require_mma(counts["coarse"], "coarse", "sharded[eval coarse]")
+    both = {}
+    for c in counts.values():
+        _add_counts(both, c)
+    _sharded_record(results, "eval", both, dict(
+        shards=4, queries=ds.num_queries, max_metric_diff_vs_unsharded=diffs,
+        runs={t: {x: v for x, v in r.items() if x != "launches"}
+              for t, r in runs.runs.items()}))
 
 
 # ------------------------------------------------------------------ eval
@@ -1447,6 +1724,7 @@ def phase_eval(results, ctx, d_coarse: int = 32, C: int = 2048):
     base = dataclasses.replace(cfg.eval, protocol="didemo_official")
     banks, banks_s = _timed(lambda: banks_to_device(
         ds.feature_banks(), base.bank_dtype, device=torch.device("cuda")))
+    ctx["banks"] = banks
     runs = EvalRuns(ds.num_queries)
 
     def ev(**kw):
@@ -1565,7 +1843,8 @@ def make_charades_corpus(num_videos: int, seed: int):
     return cfg, ds, fix.vocab, fix.glove
 
 
-def phase_eval_charades(results, seed: int, num_videos: int):
+def phase_eval_charades(results, seed: int, num_videos: int,
+                        shards: int = 0):
     """charades_flagship at full width (F=2048, H=1024, joint 128, one
     stream, cosine, last pool) on a synthetic corpus (T=40, W=64): per-video
     eval (scan; K1b held against plain), corpus eval exact and fused (K1b;
@@ -1641,6 +1920,23 @@ def phase_eval_charades(results, seed: int, num_videos: int):
         if kernels:
             variants["corpus_fused_K2"] = k_counts["variants"]["select"]
             variants["corpus_fused_K2_plan"] = str(select_kernel.LAST_PLAN)
+    if shards:
+        # corpus exact over a "corpus" mesh, held to the unsharded run
+        mesh = corpus_mesh(shards)
+        sruns = EvalRuns(ds.num_queries)
+        e = dataclasses.replace(base, rnn_kernel="pallas")
+        s_m, s_counts = sruns("corpus_exact_sharded", lambda: corpus_evaluate(
+            params, model, ds, e, feature_banks=banks, mesh=mesh))
+        s_diff = metrics_close(s_m, runs.runs["corpus_exact_pallas"][
+            "metrics"], "sharded[eval_charades]")
+        require(s_counts["lstm_hs"] > 0,
+                "sharded[eval_charades]: K1b never launched")
+        run = sruns.runs["corpus_exact_sharded"]
+        _sharded_record(results, "eval_charades", s_counts, dict(
+            shards=shards, queries=ds.num_queries,
+            max_metric_diff_vs_unsharded=s_diff, seconds=run["seconds"],
+            queries_per_s=run["queries_per_s"], metrics=s_m,
+            unsharded_seconds=runs.runs["corpus_exact_pallas"]["seconds"]))
 
     # max pooling: the direct form over [B, W, T, F] chunks
     max_model = build_model(dataclasses.replace(
@@ -1772,8 +2068,10 @@ def _coarse_2m_setup(seed: int, num_videos: int, d_coarse: int = 32):
                 setup_s=setup_s, build_s=build_s)
 
 
-def phase_coarse_2m(results, seed: int, num_videos: int):
-    """2.1M-row serving: exact full scan vs the coarse retriever."""
+def phase_coarse_2m(results, seed: int, num_videos: int, shards: int = 0):
+    """2.1M-row serving: exact full scan vs the coarse retriever; with
+    ``shards``, both again over a "corpus" mesh (the full scan held to the
+    unsharded one, blockmax C=2048 with K4 on every shard)."""
     import torch
 
     from vfr_tpu_torch.eval import coarse as coarse_mod
@@ -1785,7 +2083,8 @@ def phase_coarse_2m(results, seed: int, num_videos: int):
     args = (w["params"], w["toks"], w["lens"])
     Q, N = w["toks"].shape[0], w["index"].num_rows
     full = make_score_topk(model, w["index"], k, w["cfg"].eval.topk_method)
-    _, rows_full = full(*args)
+    d_full, rows_full = full(*args)
+    d_full = d_full.cpu().numpy()
     rec = dict(phase="coarse_2m", rows=N, videos=num_videos,
                S=w["index"].m.shape[0], d=w["index"].m.shape[2],
                queries_per_batch=Q, k=k, d_coarse=coarse.d_coarse,
@@ -1821,6 +2120,86 @@ def phase_coarse_2m(results, seed: int, num_videos: int):
                         coarse_mod, "coarse_blockmax", lambda: fn(*args)))
     emit(rec)
     results["coarse_2m"] = rec
+    if shards:
+        _coarse_2m_sharded(results, w, shards, d_full, rows_full)
+
+
+def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
+                       C: int = 2048):
+    """The 2.1M-row index over ``n`` shards: the exact full scan (held to
+    the unsharded one) and blockmax at C (K4 on every shard, ``mma``; its
+    results checked for shape, finiteness and row range, held to the same
+    retriever through K4's plain version; K1b's queries held to its plain
+    version and every returned row's distance to the one recomputed from
+    the index, ``recheck_rows``)."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch.eval import coarse as coarse_mod
+    from vfr_tpu_torch.eval.coarse import make_sharded_coarse_retriever
+    from vfr_tpu_torch.eval.corpus import make_retriever
+    from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
+
+    model, index, coarse, k = w["model"], w["index"], w["coarse"], w["k"]
+    args = (w["params"], w["toks"], w["lens"])
+    mesh = corpus_mesh(n)
+    full = make_retriever(model, index, k, w["cfg"].eval.topk_method,
+                          mesh=mesh)
+    reset_counts()
+    d_s, r_s = (t.cpu().numpy() for t in full(*args))
+    counts = read_counts()
+    mism, ddiff = compare_to_plain(d_s, r_s, d_full, rows_full)
+    rec = dict(shards=n, rows=index.num_rows, k=k, candidates=C,
+               full_scan_ms_per_batch=time_batches(lambda: full(*args)),
+               full_scan_unsharded_ms_per_batch=results["coarse_2m"][
+                   "full_scan_ms_per_batch"],
+               full_scan_host_syncs=sum(_steady_syncs(
+                   lambda: full(*args)).values()),
+               full_scan_rows_differing_from_unsharded=mism,
+               full_scan_max_distance_diff_vs_unsharded=ddiff)
+    del full
+    require(mism == 0 and ddiff <= 1e-3,
+            f"sharded[coarse_2m] full scan vs unsharded: {mism} rows "
+            f"differ, max |d diff| {ddiff}")
+    fn = make_sharded_coarse_retriever(model, coarse, k, mesh,
+                                       num_candidates=C, mode="blockmax")
+    reset_counts()
+    d_c, rows_c = fn(*args)
+    c_counts = read_counts()
+    _add_counts(counts, c_counts)
+    Q, N = w["toks"].shape[0], index.num_rows
+    require(bool(torch.isfinite(d_c).all()) and tuple(d_c.shape) == (Q, k)
+            and tuple(rows_c.shape) == (Q, k)
+            and 0 <= int(rows_c.min()) and int(rows_c.max()) < N,
+            "sharded[coarse_2m]: malformed blockmax results")
+    with mock.patch.object(coarse_mod, "coarse_blockmax",
+                           coarse_blockmax_plain):
+        d_p, r_p = (t.cpu().numpy() for t in fn(*args))
+    d_c, rows_c = d_c.cpu().numpy(), rows_c.cpu().numpy()
+    p_mism, p_ddiff = compare_to_plain(d_c, rows_c, d_p, r_p)
+    q_err, rel = recheck_rows(model, w["params"], index, w["toks"][None],
+                              w["lens"][None], d_c[None], rows_c[None])
+    rec["blockmax"] = dict(
+        launches=c_counts, ms_per_batch=time_batches(lambda: fn(*args)),
+        unsharded_ms_per_batch=results["coarse_2m"][f"blockmax_C{C}"][
+            "ms_per_batch"],
+        recall_at_k_vs_full_scan=_recall(rows_c, rows_full),
+        rows_differing_from_plain=p_mism,
+        max_distance_diff_vs_plain=p_ddiff,
+        max_query_diff_vs_plain_k1b=q_err,
+        max_rel_distance_diff_vs_recomputed=rel)
+    require(c_counts["coarse_blockmax"] > 0,
+            "sharded[coarse_2m]: K4 never launched")
+    require(p_mism == 0 and p_ddiff <= 1e-3,
+            f"sharded[coarse_2m] blockmax vs plain K4: {p_mism} rows "
+            f"differ, max |d diff| {p_ddiff}")
+    require(q_err <= 2e-3 and rel <= RECHECK_REL_TOL,
+            f"sharded[coarse_2m]: queries vs plain K1b {q_err}, returned "
+            f"distances vs recomputed (relative) {rel}")
+    require_mma(c_counts, "coarse", "sharded[coarse_2m]")
+    require(counts["lstm_hs"] > 0, "sharded[coarse_2m]: K1b never launched")
+    _sharded_record(results, "coarse_2m", counts, rec)
 
 
 def phase_gru(results, seed: int, num_videos: int):
@@ -2507,6 +2886,13 @@ def _sync_warnings(fn) -> dict:
         if "synchroniz" in str(w.message)))
 
 
+def _steady_syncs(fn) -> dict:
+    """``_sync_warnings`` of a second call of ``fn``: the first call under
+    the debug mode also reports a one-time sync inside torch.cuda."""
+    _sync_warnings(fn)
+    return _sync_warnings(fn)
+
+
 def _cli_subprocess(argv, stdin_text: str, timeout: int = 300):
     """(stdout, seconds) of ``python -m vfr_tpu_torch.cli <argv>`` run from
     the checkout with ``stdin_text`` on its standard input."""
@@ -2548,7 +2934,7 @@ def _add_counts(total, counts):
                 f[var] = f.get(var, 0) + c
 
 
-def phase_live(results, seed: int, workdir: str):
+def phase_live(results, seed: int, workdir: str, shards: int = 0):
     """The live index of preset ``serving_10k`` (bf16 index, last pool,
     top-100): 10,000 videos in a 20,000-video arena (420,000 rows), 4
     appends of 128 videos, a removal of 500, compact, grow to 25,000,
@@ -2563,7 +2949,14 @@ def phase_live(results, seed: int, workdir: str):
     daemon run and read just after; the references run outside those
     windows.  Then one ``cli serve --follow --live-capacity-videos``
     subprocess and a second booted from its ``!save``
-    (``--live-arena``)."""
+    (``--live-arena``).
+
+    With ``shards``, a second arena row-sharded over a "corpus" mesh takes
+    the same operations: after each, its retrievals (counted apart, as the
+    sharded phase's) are held to the unsharded arena's and to the rebuild;
+    its snapshot loads on one device with equal results; and the daemon
+    runs the same script over a sharded arena booted from the unsharded
+    snapshot, held to the same shadow arena and rebuilds."""
     import types
 
     import torch
@@ -2637,6 +3030,23 @@ def phase_live(results, seed: int, workdir: str):
     retrieve = L.make_live_retriever(model, live, k, topk_method=method)
     ptr = live.m_cat.data_ptr()
     timings, checks = {}, {}
+    live_s, launches_s, checks_s, timings_s = None, {}, {}, {}
+    if shards:
+        mesh = corpus_mesh(shards)
+        live_s, timings_s["build_s"] = _timed(lambda: L.make_live_index(
+            params, model, ds, capacity_videos=LIVE_CAPACITY,
+            index_dtype=idx_dtype, mesh=mesh))
+        retrieve_s = L.make_live_retriever(model, live_s, k,
+                                           topk_method=method)
+
+    def live_op(name, fn):
+        """``fn(arena)`` on the live arena (timed under ``name``) and on the
+        sharded one (timed apart); the unsharded result."""
+        out, timings[name] = _timed(lambda: fn(live))
+        if live_s is not None:
+            out_s, timings_s[name] = _timed(lambda: fn(live_s))
+            require(out_s == out, f"live[sharded] {name}: {out_s} != {out}")
+        return out
 
     held = list(ds.video_ids)          # the corpus the arena should hold
 
@@ -2672,6 +3082,26 @@ def phase_live(results, seed: int, workdir: str):
             require(mism == 0 and ddiff <= 1e-3,
                     f"live[{label}] Q={Q}: vs rebuild: {mism} moments "
                     f"differ, max |d diff| {ddiff}")
+            if live_s is None:
+                continue
+            reset_counts()
+            d_s, r_s = host(retrieve_s(q_params, tq, lq))
+            _add_counts(launches_s, read_counts())
+            key_s = _moment_keys(order, live_s.video_ids, live_s.video_row,
+                                 live_s.prop_idx, r_s)
+            u_mism, u_ddiff = compare_to_plain(d_s, key_s, d_l, key_l)
+            b_mism, b_ddiff = compare_to_plain(d_s, key_s, d_r[:Q],
+                                               key_r[:Q])
+            checks_s.setdefault(label, {})[f"q{Q}"] = dict(
+                rows_differing_from_unsharded=u_mism,
+                max_distance_diff_vs_unsharded=u_ddiff,
+                rows_differing_from_rebuild=b_mism,
+                max_distance_diff_vs_rebuild=b_ddiff,
+                retrieve_ms=time_batches(
+                    lambda: retrieve_s(q_params, tq, lq)))
+            require(u_mism == 0 and u_ddiff <= 1e-3 and b_mism == 0
+                    and b_ddiff <= 1e-3, f"live[sharded {label}] Q={Q}: "
+                    f"{checks_s[label][f'q{Q}']}")
         checks[label] = rec
 
     check("build")
@@ -2679,26 +3109,29 @@ def phase_live(results, seed: int, workdir: str):
     for a in range(LIVE_APPENDS):
         lo = a * LIVE_DELTA
         ids = new_ids[lo:lo + LIVE_DELTA]
-        n, secs = _timed(lambda: L.live_append(
-            live, params, model, ds, ids, dds.rgb_feats[lo:lo + LIVE_DELTA],
+        n = live_op("append_s", lambda x: L.live_append(
+            x, params, model, ds, ids, dds.rgb_feats[lo:lo + LIVE_DELTA],
             dds.flow_feats[lo:lo + LIVE_DELTA]))
         require(n == LIVE_DELTA * ds.num_proposals, "live: append rows")
         held.extend(ids)
-        appends.append(secs)
+        appends.append(timings.pop("append_s"))
+        if live_s is not None:
+            timings_s.setdefault("appends_s", []).append(
+                timings_s.pop("append_s"))
         check(f"append{a}")
     rng = np.random.default_rng(seed + 5)
     gone = [str(v) for v in rng.choice(live.video_ids, LIVE_REMOVE,
                                        replace=False)]
-    n_rm, timings["remove_s"] = _timed(lambda: L.live_remove(live, gone))
+    n_rm = live_op("remove_s", lambda x: L.live_remove(x, gone))
     held = [v for v in held if v not in set(gone)]
     check("remove")
-    n_cp, timings["compact_s"] = _timed(lambda: L.live_compact(live))
+    n_cp = live_op("compact_s", L.live_compact)
     require(n_rm == n_cp == LIVE_REMOVE * ds.num_proposals,
             f"live: removed {n_rm}, reclaimed {n_cp} rows")
     check("compact")
     in_place = live.m_cat.data_ptr() == ptr
     require(in_place, "live: append / remove / compact reallocated the arena")
-    _, timings["grow_s"] = _timed(lambda: L.live_grow(live, LIVE_GROW))
+    live_op("grow_s", lambda x: L.live_grow(x, LIVE_GROW))
     require(live.capacity == LIVE_GROW * ds.num_proposals
             and live.m_cat.data_ptr() != ptr, "live: grow")
     check("grow")
@@ -2716,6 +3149,28 @@ def phase_live(results, seed: int, workdir: str):
             "live: save_arena -> load_arena is not bit-exact")
     live, retrieve = back, L.make_live_retriever(model, back, k,
                                                  topk_method=method)
+    if live_s is not None:
+        # the sharded snapshot on one device: the unsharded arena's results
+        path_s = os.path.join(workdir, "live_arena_sharded.npz")
+        _, timings_s["save_s"] = _timed(lambda: L.save_arena(
+            live_s, path_s, params=params, model=model))
+        one, timings_s["load_one_device_s"] = _timed(lambda: L.load_arena(
+            path_s, params=params, model=model))
+        d_o, r_o = host(L.make_live_retriever(model, one, k,
+                                              topk_method=method)(
+            q_params, toks, lens))
+        d_b, r_b = host(retrieve(q_params, toks, lens))
+        o_mism, o_ddiff = compare_to_plain(d_o, r_o, d_b, r_b)
+        checks_s["sharded_snapshot_on_one_device"] = dict(
+            rows_differing_from_unsharded=o_mism,
+            max_distance_diff_vs_unsharded=o_ddiff,
+            arena_bit_equal_to_unsharded=bool(
+                torch.equal(one.m_cat, back.m_cat)
+                and torch.equal(one.msq_fused, back.msq_fused)))
+        require(o_mism == 0 and o_ddiff <= 1e-3,
+                f"live[sharded] snapshot on one device: {o_mism} rows "
+                f"differ, max |d diff| {o_ddiff}")
+        del one
     check("reload")
     arena_bytes = live.m_cat.numel() * 4 + live.msq_fused.numel() * 4
     bf16_bytes = live.m_cat.numel() * 2 + live.msq_fused.numel() * 4
@@ -2740,6 +3195,24 @@ def phase_live(results, seed: int, workdir: str):
                      micro_batch=8, pipeline_depth=2))))
     require(live.m_cat.data_ptr() == ptr,
             "live[follow]: !add / !remove / !compact reallocated the arena")
+    if live_s is not None:
+        # the same script over a sharded arena booted from the snapshot
+        del live_s
+        live_sd = L.load_arena(path, params=params, model=model, mesh=mesh)
+        reset_counts()
+        recs_s, daemon_s_s = _timed(lambda: list(serve_follow(
+            params, model, ds, vocab, iter(script), k=k, max_query_len=T,
+            topk_method=method, live=live_sd, mesh=mesh, micro_batch=8,
+            pipeline_depth=2)))
+        daemon_counts_s = read_counts()
+        _add_counts(launches_s, daemon_counts_s)
+        del live_sd
+        require(daemon_counts_s["lstm_hs"] > 0,
+                "live[sharded follow]: K1b (lstm_hs) never launched")
+        require([r for r in recs_s if "command" in r]
+                == [r for r in recs if "command" in r],
+                "live[sharded follow]: control records differ")
+        answered_s = [r for r in recs_s if "query" in r]
     require(daemon_counts["lstm_hs"] > 0,
             "live[follow]: K1b (lstm_hs) never launched")
     acks = [r for r in recs if "command" in r]
@@ -2753,6 +3226,8 @@ def phase_live(results, seed: int, workdir: str):
             * ds.num_proposals,
             f"live[follow]: control records {acks}")
     _served_ok(answered, len(answered), k, "live[follow]")
+    if not shards:
+        answered_s = None
     shadow_fn = L.make_live_retriever(model, shadow, k, topk_method=method,
                                       rnn_kernel="plain")
     follow_checks = []
@@ -2772,21 +3247,26 @@ def phase_live(results, seed: int, workdir: str):
         d_a, r_a = host(shadow_fn(q_params, t_s, l_s))
         ref, ref_fn = rebuild(list(held))
         d_b, r_b = host(ref_fn(q_params, t_s, l_s))
-        got = answered[s * LIVE_FOLLOW_SEGMENT:(s + 1) * LIVE_FOLLOW_SEGMENT]
-        a_mism, a_ddiff = compare_records(got, _records(
-            texts, d_a, r_a, shadow.video_ids, shadow.video_row,
-            shadow.spans_sec))
-        b_mism, b_ddiff = compare_records(got, _records(
-            texts, d_b, r_b, list(held), ref.video_row, ref.spans_sec))
+        seg = slice(s * LIVE_FOLLOW_SEGMENT, (s + 1) * LIVE_FOLLOW_SEGMENT)
+        ref_a = _records(texts, d_a, r_a, shadow.video_ids,
+                         shadow.video_row, shadow.spans_sec)
+        ref_b = _records(texts, d_b, r_b, list(held), ref.video_row,
+                         ref.spans_sec)
         del ref, ref_fn
-        follow_checks.append(dict(
-            videos=len(held), rows_differing_from_shadow_arena=a_mism,
-            max_distance_diff_vs_shadow_arena=a_ddiff,
-            rows_differing_from_rebuild=b_mism,
-            max_distance_diff_vs_rebuild=b_ddiff))
-        require(a_mism == 0 and a_ddiff <= 1e-3 and b_mism == 0
-                and b_ddiff <= 1e-3,
-                f"live[follow] segment {s}: {follow_checks[-1]}")
+        for what, got in (("", answered), ("sharded ", answered_s)):
+            if got is None:
+                continue
+            a_mism, a_ddiff = compare_records(got[seg], ref_a)
+            b_mism, b_ddiff = compare_records(got[seg], ref_b)
+            follow_checks.append(dict(
+                daemon=what + "arena", videos=len(held),
+                rows_differing_from_shadow_arena=a_mism,
+                max_distance_diff_vs_shadow_arena=a_ddiff,
+                rows_differing_from_rebuild=b_mism,
+                max_distance_diff_vs_rebuild=b_ddiff))
+            require(a_mism == 0 and a_ddiff <= 1e-3 and b_mism == 0
+                    and b_ddiff <= 1e-3,
+                    f"live[{what}follow] segment {s}: {follow_checks[-1]}")
     del shadow
     require(launches["lstm_hs"] > 0, "live: K1b (lstm_hs) never launched")
     cli = _live_cli(workdir)
@@ -2806,6 +3286,12 @@ def phase_live(results, seed: int, workdir: str):
                cli=cli)
     emit(rec)
     results["live"] = rec
+    if shards:
+        _sharded_record(results, "live", launches_s, dict(
+            shards=shards, timings=timings_s, checks=checks_s,
+            follow=dict(requests=len(answered_s), seconds=daemon_s_s,
+                        requests_per_s=len(answered_s) / daemon_s_s,
+                        launches=daemon_counts_s)))
 
 
 def _live_cli(workdir: str):
@@ -2993,7 +3479,9 @@ def kernels_line(results):
         return results.get("live", {}).get("launches", {}).get(name, 0)
 
     def new_paths(name):
-        return dict(follow=follow_launches(name), live=live_launches(name))
+        return dict(follow=follow_launches(name), live=live_launches(name),
+                    sharded=results.get("sharded", {}).get(
+                        "launches", {}).get(name, 0))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3041,9 +3529,11 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-ALL_PHASES = ("kernels", "flagship", "coarse", "follow", "eval", "train",
-              "packed", "eval_charades", "serving_10k", "live", "gru",
-              "coarse_2m")
+ALL_PHASES = ("kernels", "flagship", "coarse", "follow", "eval", "sharded",
+              "train", "packed", "eval_charades", "serving_10k", "live",
+              "gru", "coarse_2m")
+# the phases whose set-ups the sharded checks ride on
+SHARDED_HOSTS = ("flagship", "eval_charades", "live", "coarse_2m")
 
 
 def main(argv=None) -> int:
@@ -3051,7 +3541,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of " + ", ".join(ALL_PHASES)
                          + " and profile (coarse, follow and eval need "
-                           "flagship); the "
+                           "flagship; sharded adds its mesh checks to "
+                         + ", ".join(SHARDED_HOSTS) + " and runs them); the "
                            "default runs all but profile and is the only "
                            "one that ends with the ok line; rnn runs the "
                            "K1 / K3 kernel checks alone, select the K2 and "
@@ -3074,6 +3565,9 @@ def main(argv=None) -> int:
     from vfr_tpu_torch.kernels.build import build_all
 
     phases = set(args.phases.split(","))
+    shards = 4 if "sharded" in phases else 0
+    if shards:
+        phases |= set(SHARDED_HOSTS)
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -3120,6 +3614,9 @@ def main(argv=None) -> int:
                 settle()
             if "eval" in phases:
                 phase_eval(results, ctx)
+                settle()
+            if "sharded" in phases:
+                phase_sharded(results, ctx)
             del ctx
             settle()
         if "train" in phases:
@@ -3129,10 +3626,11 @@ def main(argv=None) -> int:
             phase_packed(results, SEED, workdir)
             settle()
         if "live" in phases:
-            phase_live(results, SEED, workdir)
+            phase_live(results, SEED, workdir, shards=shards)
             settle()
     if "eval_charades" in phases:
-        phase_eval_charades(results, SEED + 17, VIDEOS_CHARADES)
+        phase_eval_charades(results, SEED + 17, VIDEOS_CHARADES,
+                            shards=shards)
         settle()
     if "serving_10k" in phases:
         phase_serving_10k(results, SEED, VIDEOS_10K)
@@ -3141,7 +3639,7 @@ def main(argv=None) -> int:
         phase_gru(results, SEED, VIDEOS_10K)
         settle()
     if "coarse_2m" in phases:
-        phase_coarse_2m(results, SEED, VIDEOS_2M)
+        phase_coarse_2m(results, SEED, VIDEOS_2M, shards=shards)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if not set(ALL_PHASES) <= phases:
         emit({"partial": sorted(phases)})

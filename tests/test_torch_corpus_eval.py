@@ -13,7 +13,8 @@ same numpy weights, fixture and EvalConfig (F=32, H=24, joint 24).
   fused), after checking the fixture has no near-tie (a gap > 1e-5 at every
   top-k boundary and around every GT row).
 * ``cli corpus --device cpu`` prints the keys the JAX package's CLI prints;
-  ``--shards`` follows the JAX package's rule.
+  ``--shards`` follows the JAX package's rule (sharded where N devices are
+  visible, with the unsharded metrics).
 """
 
 import jax.numpy as jnp
@@ -202,14 +203,26 @@ def test_corpus_evaluate_kernel_path_matches_scan(worlds):
 
 
 def test_mesh_paths_raise(worlds):
+    """The mesh paths no longer raise: on a two-shard CPU mesh the sharded
+    GT ranker returns the single-device ranks and ``corpus_evaluate`` the
+    single-device metrics (its JAX parity is in
+    ``test_torch_sharded_serve.py``)."""
+    from vfr_tpu_torch.parallel.mesh import make_mesh
+
     world = worlds["didemo"]["world"]
-    _, te = world.ecfgs()
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tcorpus.corpus_evaluate(world.tparams, world.tmodel, world.tds, te,
-                                mesh=object())
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tcorpus.make_gt_ranker(world.tmodel, worlds["didemo"]["tindex"],
-                               mesh=object())
+    tindex = worlds["didemo"]["tindex"]
+    _, te = world.ecfgs(protocol="didemo_official")
+    mesh = make_mesh(("corpus",), devices=[torch.device("cpu")] * 2)
+    assert tcorpus.corpus_evaluate(world.tparams, world.tmodel, world.tds,
+                                   te, mesh=mesh) == \
+        tcorpus.corpus_evaluate(world.tparams, world.tmodel, world.tds, te)
+    toks, lens = (torch.from_numpy(x) for x in _batch(world))
+    gt = torch.randint(0, tindex.num_rows, (toks.shape[0], 3),
+                       generator=torch.Generator().manual_seed(0))
+    args = (world.tparams, toks, lens, gt)
+    assert torch.equal(
+        tcorpus.make_gt_ranker(world.tmodel, tindex, mesh=mesh)(*args),
+        tcorpus.make_gt_ranker(world.tmodel, tindex)(*args))
 
 
 @pytest.mark.parametrize("preset,extra", [
@@ -228,7 +241,10 @@ def test_cli_corpus_keys_match_jax(monkeypatch, capsys, tmp_path, preset,
 def test_cli_corpus_shards_rule(monkeypatch, capsys, tmp_path):
     """corpus_didemo asks for 8 shards: with one device visible it runs
     unsharded, as the JAX package does on one chip; where 8 are visible
-    the sharded path would run, and that raises (not ported)."""
+    it runs sharded over an 8-device mesh (here CPU devices), with the
+    same metrics."""
+    import ast
+
     import vfr_tpu_torch.cli as tcli
 
     from test_torch_eval import narrow
@@ -237,9 +253,20 @@ def test_cli_corpus_shards_rule(monkeypatch, capsys, tmp_path):
         tcli.PRESETS[name], str(tmp_path / "nodata")))
     argv = ["corpus", "--preset", "corpus_didemo", "--device", "cpu",
             "--checkpoint-dir", str(tmp_path / "ck")]
-    assert tcli.main(argv) == 0
-    assert "corpus_video_R@1" in capsys.readouterr().out
+
+    def metrics(*extra):
+        assert tcli.main([*argv, *extra]) == 0
+        return ast.literal_eval(capsys.readouterr().out.strip())
+
+    plain = metrics()
+    assert "corpus_video_R@1" in plain
     monkeypatch.setattr(tcli, "_visible_devices", lambda device: 8)
-    with pytest.raises(NotImplementedError, match="sharded corpus eval"):
-        tcli.main(argv)
-    assert tcli.main([*argv, "--shards", "1"]) == 0
+    monkeypatch.setattr(tcli, "_devices",
+                        lambda device: [torch.device("cpu")] * 8)
+    built = []
+    real = tcli._corpus_mesh
+    monkeypatch.setattr(tcli, "_corpus_mesh", lambda cfg, args: built.append(
+        real(cfg, args)) or built[-1])
+    assert metrics() == plain
+    assert built[0].shape == {"corpus": 8}
+    assert metrics("--shards", "1") == plain and built[1] is None

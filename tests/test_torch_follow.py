@@ -174,12 +174,17 @@ def test_reader_lookahead_is_bounded(w):
 
 
 def test_refusals(w):
-    from vfr_tpu_torch.eval.live import make_live_index
+    import torch
 
-    with pytest.raises(NotImplementedError, match="sharded follow"):
-        next(tcorpus.serve_follow(w.tparams, w.tmodel, w.tds, w.vocab,
-                                  ["w0001"], mesh=object()))
+    from vfr_tpu_torch.eval.live import make_live_index
+    from vfr_tpu_torch.parallel.mesh import make_mesh
+
     live = make_live_index(w.tparams, w.tmodel, w.tds, capacity_videos=12)
+    # a mesh serves, but a live arena must be built on that same mesh
+    mesh = make_mesh(("corpus",), devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="built on that mesh"):
+        next(tcorpus.serve_follow(w.tparams, w.tmodel, w.tds, w.vocab,
+                                  ["w0001"], mesh=mesh, live=live))
     with pytest.raises(ValueError, match="no coarse"):
         next(tcorpus.serve_follow(w.tparams, w.tmodel, w.tds, w.vocab,
                                   ["w0001"], live=live, coarse_dim=4))

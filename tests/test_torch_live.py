@@ -200,12 +200,18 @@ def test_rejected_delta_leaves_arena_unchanged(w, case):
 
 
 def test_remove_unknown_and_mesh_raise(w):
+    """Unknown ids raise; on a mesh, an arena of fewer videos than shards
+    raises, with the JAX package's message (the sharded arena itself is
+    tested in ``test_torch_sharded_live.py``)."""
+    from vfr_tpu_torch.parallel.mesh import make_mesh
+
     t = tlive.make_live_index(w.tparams, w.tmodel, w.tds, capacity_videos=12)
     with pytest.raises(ValueError, match="not in the corpus"):
         tlive.live_remove(t, ["nope"])
-    with pytest.raises(NotImplementedError, match="sharded live arena"):
+    mesh = make_mesh(("corpus",), devices=[torch.device("cpu")] * 16)
+    with pytest.raises(ValueError, match="at least one video"):
         tlive.make_live_index(w.tparams, w.tmodel, w.tds,
-                              capacity_videos=12, mesh=object())
+                              capacity_videos=12, mesh=mesh)
     retrieve = tlive.make_live_retriever(w.tmodel, t, 5,
                                          topk_method="fused")
     with pytest.raises(ValueError, match="fused"):

@@ -115,34 +115,60 @@ def test_resolve_length_buckets(spec, want):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
-    """--follow now serves (one record per line); --shards 2 follows the JAX
-    package's rule: with one device visible it serves unsharded, and it
-    raises only where the mesh would be built (the sharded path is not
-    ported)."""
-    import vfr_tpu_torch.cli as tcli
+    """--shards 2 follows the JAX package's rule: with one device visible
+    it serves unsharded; with two visible it builds a two-device "corpus"
+    mesh (here of CPU devices) and serves sharded, batch and --follow, the
+    unsharded records (moments equal, distances within 1e-5).  The one
+    option left that raises is --data-parallel (not ported)."""
+    import torch
 
-    _, tmodel, _, tds, vocab, tree = _world()
-    with pytest.raises(NotImplementedError):
-        serve_queries(params_from_numpy(tree), tmodel, tds, vocab, ["w0001"],
-                      mesh=object())
+    import vfr_tpu_torch.cli as tcli
+    from vfr_tpu_torch.parallel import mesh as mesh_mod
+
     q = tmp_path / "q.txt"
-    q.write_text("w0001\nw0002 w0003\n")
-    assert cli_main(["serve", "--queries", str(q), "--device", "cpu",
-                     "--data-dir", str(tmp_path / "none"), "--topk", "2",
-                     "--follow"]) == 0
-    recs = [json.loads(line) for line in
-            capsys.readouterr().out.strip().splitlines()]
-    assert [r["query"] for r in recs] == ["w0001", "w0002 w0003"]
-    assert all(len(r["results"]) == 2 for r in recs)
-    q.write_text("w0001\n")
+    q.write_text("w0001\nw0002 w0003\nw0042 w0007 w0009\n")
     argv = ["serve", "--queries", str(q), "--device", "cpu", "--topk", "3",
-            "--data-dir", str(tmp_path / "none"), "--shards", "2"]
-    assert cli_main(argv) == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["query"] == "w0001" and len(rec["results"]) == 3
+            "--data-dir", str(tmp_path / "none")]
+
+    def records(*extra):
+        assert cli_main([*argv, *extra]) == 0
+        return [json.loads(line) for line in
+                capsys.readouterr().out.strip().splitlines()]
+
+    def same(got, ref):
+        assert [r["query"] for r in got] == [r["query"] for r in ref]
+        for a, b in zip(got, ref):
+            assert [(x["video"], x["start"], x["end"]) for x in a["results"]] \
+                == [(x["video"], x["start"], x["end"]) for x in b["results"]]
+            np.testing.assert_allclose(
+                [x["distance"] for x in a["results"]],
+                [x["distance"] for x in b["results"]], atol=1e-5)
+
+    plain = records()
+    assert [r["query"] for r in plain] == ["w0001", "w0002 w0003",
+                                           "w0042 w0007 w0009"]
+    assert all(len(r["results"]) == 3 for r in plain)
+    built = []
+    real = mesh_mod.make_mesh
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(mesh_mod, "make_mesh", spy)
+    same(records("--shards", "2"), plain)           # one device visible
+    assert built == []
     monkeypatch.setattr(tcli, "_visible_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="sharded serving"):
-        cli_main(argv)
+    monkeypatch.setattr(tcli, "_devices",
+                        lambda device: [torch.device("cpu")] * 2)
+    same(records("--shards", "2"), plain)
+    same(records("--shards", "2", "--follow"), plain)
+    assert [m.shape for m in built] == [{"corpus": 2}] * 2
+    assert all(m.axis_devices("corpus") == [torch.device("cpu")] * 2
+               for m in built)
+    with pytest.raises(NotImplementedError, match="--data-parallel"):
+        cli_main(["train", "--data-parallel", "--device", "cpu",
+                  "--data-dir", str(tmp_path / "none")])
 
 
 def test_cli_index_and_serve_on_cpu(tmp_path, capsys):

@@ -42,11 +42,12 @@ a live index (``eval.live``) that control lines change while it runs.
 
 The flags are the JAX package's for these subcommands, plus ``--device``
 (default ``cuda``; ``--device cpu`` is the only way onto the CPU).  With no
-real data under --data-dir the synthetic fixture is used.  ``train
---data-parallel`` is not ported yet and raises; ``corpus`` and ``serve
---shards N`` follow the JAX package's rule (a mesh only when N > 1 and at
-least N devices are visible: otherwise unsharded) and raise where that
-rule would build the mesh, since the sharded path is not ported yet.
+real data under --data-dir the synthetic fixture is used.  ``corpus`` and
+``serve --shards N`` (with ``--follow`` and the live flags too) follow the
+JAX package's rule: a "corpus" mesh of the first N devices of ``--device``'s
+type when N > 1 and at least N are visible, the index row-sharded over it
+(``parallel/mesh.py``); otherwise unsharded on one device.  ``train
+--data-parallel`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -283,10 +284,31 @@ def apply_overrides(cfg, args):
 
 def _visible_devices(device) -> int:
     """Devices of ``device``'s type this process sees."""
+    return len(_devices(device))
+
+
+def _devices(device):
+    """The devices of ``device``'s type this process sees, in order."""
     import torch
 
-    return (torch.cuda.device_count() if torch.device(device).type == "cuda"
-            else 1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _corpus_mesh(cfg, args):
+    """The JAX package's rule for ``--shards N``: a "corpus" mesh of N
+    devices when N > 1 and at least N are visible, else None (unsharded
+    on one device)."""
+    shards = cfg.eval.corpus_shards
+    if shards > 1 and _visible_devices(args.device) >= shards:
+        from vfr_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(("corpus",), shape=(shards,),
+                         devices=_devices(args.device))
+    return None
 
 
 def _not_ported(args):
@@ -337,16 +359,8 @@ def main(argv=None) -> int:
         serve_queries,
     )
 
-    if args.cmd in ("corpus", "serve"):
-        # the JAX package's rule: a mesh only when it can be built;
-        # otherwise the index is served unsharded on one device
-        shards = cfg.eval.corpus_shards
-        if shards > 1 and _visible_devices(args.device) >= shards:
-            what = "corpus eval" if args.cmd == "corpus" else "serving"
-            raise NotImplementedError(
-                f"--shards {shards} with {shards} devices visible: sharded "
-                f"{what} is not yet ported to vfr_tpu_torch")
-
+    mesh = _corpus_mesh(cfg, args) if args.cmd in ("corpus", "serve") \
+        else None
     params, model, bundle = load_for_eval(cfg, prefer_best=args.best,
                                           device=args.device)
     if args.cmd in ("eval", "corpus"):
@@ -357,7 +371,8 @@ def main(argv=None) -> int:
         else:
             from vfr_tpu_torch.eval.corpus import corpus_evaluate
 
-            metrics = corpus_evaluate(params, model, bundle.val, cfg.eval)
+            metrics = corpus_evaluate(params, model, bundle.val, cfg.eval,
+                                      mesh=mesh)
         print({k: round(v, 4) for k, v in metrics.items()})
         return 0
     if args.cmd == "index":
@@ -393,7 +408,7 @@ def main(argv=None) -> int:
 
         coarse = load_coarse(args.coarse_path, index)
     if args.follow:
-        return _follow(cfg, args, params, model, bundle, index, coarse)
+        return _follow(cfg, args, params, model, bundle, index, coarse, mesh)
     if args.queries == "-":
         queries = [l.strip() for l in sys.stdin if l.strip()]
     else:
@@ -402,6 +417,7 @@ def main(argv=None) -> int:
     for rec in serve_queries(
         params, model, bundle.val, bundle.vocab, queries,
         k=args.topk,
+        mesh=mesh,
         batch_size=cfg.eval.corpus_query_batch,
         max_query_len=cfg.data.max_query_len,
         num_videos=cfg.eval.corpus_num_videos,
@@ -419,8 +435,9 @@ def main(argv=None) -> int:
     return 0
 
 
-def _follow(cfg, args, params, model, bundle, index, coarse) -> int:
-    """``serve --follow``: one JSON line per record, flushed."""
+def _follow(cfg, args, params, model, bundle, index, coarse, mesh) -> int:
+    """``serve --follow``: one JSON line per record, flushed; with a mesh
+    the live arena is built or loaded row-sharded over it."""
     import contextlib
 
     from vfr_tpu_torch.eval.corpus import serve_follow
@@ -435,13 +452,13 @@ def _follow(cfg, args, params, model, bundle, index, coarse) -> int:
             return 2
         if args.live_arena:
             live = load_arena(args.live_arena, params=params, model=model,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
         else:
             live = make_live_index(
                 params, model, bundle.val,
                 capacity_videos=args.live_capacity_videos,
                 num_videos=cfg.eval.corpus_num_videos,
-                index_dtype=cfg.eval.index_dtype)
+                index_dtype=cfg.eval.index_dtype, mesh=mesh)
     with contextlib.ExitStack() as stack:
         src = (sys.stdin if args.queries == "-" else stack.enter_context(
             open(args.queries, "r", encoding="utf-8")))
@@ -456,6 +473,7 @@ def _follow(cfg, args, params, model, bundle, index, coarse) -> int:
             index_dtype=cfg.eval.index_dtype,
             index=index,
             micro_batch=max(args.micro_batch, 1),
+            mesh=mesh,
             live=live,
             coarse=coarse,
             coarse_dim=args.coarse_dim or 0,

@@ -23,8 +23,10 @@ of rows per query and only those are scored exactly.
   approximate.
 
 The port of the JAX package's ``eval/coarse.py``; coarse files cross
-between the two packages bit for bit.  Not ported yet: the sharded
-retriever (``pad_coarse_blocks``, ``make_sharded_coarse_retriever``).
+between the two packages bit for bit.  ``make_sharded_coarse_retriever``
+splits every block-indexed operand over a mesh's "corpus" axis: each shard
+runs both stages over its own blocks and contributes its local top-k to
+the merge of ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
@@ -41,8 +43,13 @@ from vfr_tpu_torch.ops.kernels.coarse_kernel import (
     KERNEL_BLOCK_N,
     coarse_blockmax,
 )
-from vfr_tpu_torch.ops.topk import topk_lowest_index
-from vfr_tpu_torch.parallel.sharding import fuse_index_cat, query_sq_const
+from vfr_tpu_torch.ops.topk import topk_lowest_index, topk_lowest_index_many
+from vfr_tpu_torch.parallel.sharding import (
+    fuse_index_cat,
+    merge_candidates,
+    query_sq_const,
+    shard_rows,
+)
 from vfr_tpu_torch.utils.io import atomic_savez, to_numpy
 
 _INVALID = 1e29   # rows with msq above this are padding: never retrievable
@@ -338,12 +345,18 @@ def make_coarse_score_topk(
     num_candidates: int = 2048,
     rnn_kernel: Optional[str] = None,
     mode: str = "blockmax",
+    mesh=None,
 ):
     """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
     [Q, k], rows [Q, k])``.  Distances are exact fused distances of the
     returned rows; only candidate-set membership is approximate.
     ``num_candidates`` (rows) is rounded up to whole blocks.  Stage 1 is
-    exact, so the JAX package's ``approx_recall`` has no counterpart."""
+    exact, so the JAX package's ``approx_recall`` has no counterpart.
+    With ``mesh``: ``make_sharded_coarse_retriever``."""
+    if mesh is not None:
+        return make_sharded_coarse_retriever(
+            model, coarse, k, mesh, num_candidates, rnn_kernel=rnn_kernel,
+            mode=mode)
     g = _num_blocks(num_candidates, coarse.block_rows, coarse.num_blocks)
     k = int(min(k, coarse.num_rows, g * coarse.block_rows))
     return _coarse_fn(model, coarse, k, g, rnn_kernel, mode)
@@ -357,13 +370,15 @@ def make_coarse_retriever(
     approx_recall: float = 0.95,
     rnn_kernel: Optional[str] = None,
     mode: str = "blockmax",
+    mesh=None,
 ):
     """The JAX package's ``make_coarse_retriever`` contract (what
     ``corpus_evaluate`` calls): ``(params, tokens [Q, T], lengths [Q]) ->
     (dists [Q, k], rows [Q, k])``; ``approx_recall`` is accepted for that
-    contract and unused (stage 1 is exact)."""
+    contract and unused (stage 1 is exact).  With ``mesh``:
+    ``make_sharded_coarse_retriever``."""
     return make_coarse_score_topk(model, coarse, k, num_candidates,
-                                  rnn_kernel, mode)
+                                  rnn_kernel, mode, mesh)
 
 
 def make_coarse_stream_retriever(
@@ -373,13 +388,14 @@ def make_coarse_stream_retriever(
     num_candidates: int = 2048,
     rnn_kernel: Optional[str] = None,
     mode: str = "blockmax",
+    mesh=None,
 ):
     """Throughput serving through the two-stage retriever: ``(params,
     tokens [M, Q, T], lengths [M, Q]) -> (dists [M, Q, k], rows [M, Q,
     k])``, the M batches in a Python loop (the JAX package scans them
-    inside one program)."""
+    inside one program), each sharded over ``mesh`` when given."""
     fn = make_coarse_score_topk(model, coarse, k, num_candidates,
-                                rnn_kernel, mode)
+                                rnn_kernel, mode, mesh)
 
     def retrieve_stream(params, tokens, lengths):
         outs = [fn(params, tokens[b], lengths[b])
@@ -388,3 +404,104 @@ def make_coarse_stream_retriever(
                 torch.stack([o[1] for o in outs]))
 
     return retrieve_stream
+
+
+def pad_coarse_blocks(coarse: CoarseIndex, multiple: int) -> CoarseIndex:
+    """Pad the BLOCK axis to a multiple (for an even split over a mesh);
+    pad blocks get msq 1e30 in both stages (never selected) and ``perm``
+    maps their rows past the real ones."""
+    rem = (-coarse.num_blocks) % multiple
+    if rem == 0:
+        return coarse
+    B = coarse.block_rows
+    Npad = int(coarse.m_low.shape[0])
+    return CoarseIndex(
+        proj=coarse.proj,
+        m_low=_pad_rows(coarse.m_low, rem * B),
+        msq_low=_pad_rows(coarse.msq_low, rem * B, 1e30),
+        m_blk=_pad_rows(coarse.m_blk, rem),
+        msq_blk=_pad_rows(coarse.msq_blk, rem, 1e30),
+        c_low=_pad_rows(coarse.c_low, rem),
+        csq=_pad_rows(coarse.csq, rem, 1e30),
+        perm=torch.cat([coarse.perm, torch.arange(
+            Npad, Npad + rem * B, device=coarse.perm.device)]),
+        n_rows=coarse.n_rows,
+        block_rows=B)
+
+
+def make_sharded_coarse_retriever(
+    model: Model,
+    coarse: CoarseIndex,
+    k: int,
+    mesh,
+    num_candidates: int = 2048,
+    approx_recall: float = 0.95,
+    rnn_kernel: Optional[str] = None,
+    mode: str = "blockmax",
+):
+    """Two-stage retrieval with every block-indexed operand split over the
+    mesh's "corpus" axis (blocks padded to it): ``(params, tokens [Q, T],
+    lengths [Q]) -> (dists [Q, k], rows [Q, k])`` on the lead device.
+
+    Each shard runs stage 1 over its own G_loc blocks (K4 or its
+    centroids) and keeps ``g_loc = min(max(1, ceil(g / ndev)), G_loc)`` of
+    them, rescores them exactly from its own full rows and contributes its
+    top ``min(k, g_loc * B)``; the merge (``parallel.sharding.
+    merge_candidates``) takes the global top-k of the candidates, whose
+    rows are ``(shard * G_loc + block) * B + j``, and ``perm`` maps them to
+    the original rows.  The quotas split the candidate budget by shard; at
+    g_loc = G_loc the result is the exact one.  ``approx_recall`` is
+    accepted and unused, as in ``make_coarse_retriever``."""
+    if mode not in ("blockmax", "centroid"):
+        raise ValueError(f"unknown coarse mode {mode!r}")
+    devices = mesh.axis_devices("corpus")
+    ndev = len(devices)
+    coarse = pad_coarse_blocks(coarse, ndev)
+    B = coarse.block_rows
+    G_loc = coarse.num_blocks // ndev
+    g_total = _num_blocks(num_candidates, B, coarse.num_blocks)
+    g_loc = int(min(max(1, -(-g_total // ndev)), G_loc))
+    k_loc = int(min(k, g_loc * B))
+    k = int(min(k, coarse.num_rows))
+    D = coarse.row_dim
+    w = np.asarray(model.cfg.stream_weights, np.float32)
+    sqrt_w = np.sqrt(w.astype(np.float64)).astype(np.float32)
+    # stage 1 reads the coarse operands, stage 2 the blocked full rows;
+    # proj and perm stay on the lead device
+    sh = {f: shard_rows(getattr(coarse, f), devices)
+          for f in ("m_low", "msq_low", "m_blk", "msq_blk", "c_low", "csq")}
+    lead = devices[0]
+    proj, perm = coarse.proj.to(lead), coarse.perm.to(lead)
+    del coarse
+
+    @torch.no_grad()
+    def retrieve(params, tokens, lengths):
+        qs = _embed_query_streams(params, model, tokens, lengths,
+                                  rnn_kernel).to(lead)            # [S, Q, d]
+        S, Q = qs.shape[0], qs.shape[1]
+        q_t = torch.cat([qs[s] * float(sqrt_w[s]) for s in range(S)], -1)
+        q_low = q_t @ proj                                        # [Q, d_c]
+        qc = torch.cat([2.0 * float(w[s]) * qs[s] for s in range(S)], -1)
+        s_full, blks = [], []
+        for i, dev in enumerate(devices):
+            ql = q_low.to(dev, non_blocking=True)
+            if mode == "centroid":
+                sb = (2.0 * ql) @ sh["c_low"][i].T - sh["csq"][i][None, :]
+            else:
+                sb = coarse_blockmax(ql, sh["m_low"][i], sh["msq_low"][i], B)
+            _, blk = topk_lowest_index(sb, g_loc)                 # [Q, g_loc]
+            mc = sh["m_blk"][i][blk].view(Q, g_loc * B, D)
+            msq_c = sh["msq_blk"][i][blk].view(Q, g_loc * B)
+            s_full.append(torch.bmm(mc.float(), qc.to(dev, non_blocking=True)
+                                    .float()[:, :, None])[..., 0] - msq_c)
+            blks.append(blk)
+        local = topk_lowest_index_many(s_full, k_loc)
+        rows = []
+        for i, (blk, (_, pos)) in enumerate(zip(blks, local)):
+            cand = ((i * G_loc + blk[:, :, None]) * B
+                    + torch.arange(B, device=blk.device)).view(Q, g_loc * B)
+            rows.append(torch.gather(cand, 1, pos))
+        best, brows = merge_candidates([v for v, _ in local], rows, k, lead)
+        return query_sq_const(qs, w)[:, None] - best, perm[brows]
+
+    return retrieve

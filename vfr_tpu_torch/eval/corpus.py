@@ -22,9 +22,15 @@ in ``eval/coarse.py``; ``serve_queries``, ``serve_follow`` and
 ``corpus_evaluate`` route to it when asked.  ``serve_follow`` is the
 request-at-a-time daemon (micro-batched, pipelined), over a fixed index or
 the live arena of ``eval/live.py``, whose retriever is
-``make_operand_retriever``.  Not ported yet: the mesh (sharded) paths and
-the ``carrier_dtype="auto"`` policy (a TPU layout choice; the port always
-carries the score operand as f32, see ``prep_score_operands``).
+``make_operand_retriever``.  The ``carrier_dtype="auto"`` policy (a TPU
+layout choice) has no counterpart: the port always carries the score
+operand as f32, see ``prep_score_operands``.
+
+With a ``mesh`` (``parallel/mesh.py``) the index rows are split over its
+"corpus" axis (``shard_index_operands``) and every retriever, the GT ranker
+and the live arena run the hierarchical top-k of ``parallel/sharding.py``:
+each shard scores and selects its own rows, the candidates are merged on
+the lead device.  The queries are encoded once, on the params' device.
 """
 
 from __future__ import annotations
@@ -48,12 +54,17 @@ from vfr_tpu_torch.models.mcn import (
 )
 from vfr_tpu_torch.ops.kernels.select_kernel import distance_select
 from vfr_tpu_torch.ops.tiou import tiou
-from vfr_tpu_torch.ops.topk import top_k_select, topk_lowest_index
+from vfr_tpu_torch.ops.topk import (
+    check_topk_method,
+    topk_lowest_index,
+)
 from vfr_tpu_torch.parallel.sharding import (
+    corpus_topk_shards,
     fuse_index_cat,
     fused_corpus_distances,
-    fused_corpus_scores,
-    query_sq_const,
+    pad_index,
+    shard_rows,
+    sharded_gt_ranks,
 )
 from vfr_tpu_torch.utils.io import atomic_savez, to_numpy, tree_fingerprint
 
@@ -281,16 +292,20 @@ def make_retriever(
     topk_method: str = "exact",
     approx_recall: float = 0.95,
     rnn_kernel: Optional[str] = None,
+    mesh=None,
 ):
     """``(params, tokens [Q, T], lengths [Q]) -> (dists [Q, k], rows [Q, k])``.
 
     ``topk_method="fused"`` runs the distance+selection kernel over the
     per-stream index and an exact top-k over its candidates; otherwise the
-    one-GEMM score path of ``make_score_topk``."""
+    one-GEMM score path of ``make_score_topk``.  With ``mesh`` the index is
+    split over its "corpus" axis once (``shard_index_operands``) and every
+    call runs the sharded top-k ("fused" raises there, as in the JAX
+    package)."""
     _check_distance(model)
-    if topk_method != "fused":
+    if topk_method != "fused" or mesh is not None:
         return make_score_topk(model, index, k, topk_method, approx_recall,
-                               rnn_kernel)
+                               rnn_kernel, mesh)
     w = [float(x) for x in model.cfg.stream_weights]
     bin_size = fused_bin_size(index.num_rows, k)
 
@@ -314,12 +329,16 @@ def score_in_dtype(index_is_bf16: bool, compute_dtype: torch.dtype
     return torch.bfloat16 if index_is_bf16 else compute_dtype
 
 
-def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype):
+def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype,
+                        multiple: int = 1):
     """(m_cat [N, S*d] f32, msq_fused [N], in_dtype): the one-GEMM score
     operands.  ``m_cat`` is rounded to the product dtype (bf16 for a bf16
     index or bf16 compute) once and carried as f32 — exact, and the score
-    GEMM then gives f32 sums of the rounded products on every call."""
-    m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
+    GEMM then gives f32 sums of the rounded products on every call.  The
+    rows are padded to a ``multiple`` first (``parallel.sharding.
+    pad_index``: pad rows never retrievable)."""
+    m, m_sq = pad_index(index.m, index.m_sq, multiple)
+    m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
     in_dtype = score_in_dtype(m_cat.dtype == torch.bfloat16, compute_dtype)
     m_cat = m_cat.to(in_dtype).float().contiguous()
     return m_cat, msq_fused, in_dtype
@@ -331,10 +350,15 @@ def make_operand_retriever(model: Model, weights, k: int,
                            rnn_kernel: Optional[str] = None,
                            in_dtype: Optional[torch.dtype] = None):
     """The one-GEMM retriever with its index operands as call-time
-    arguments: ``(m_cat [N, S*d], msq_fused [N], params, tokens, lengths)
-    -> (dists [Q, k], rows [Q, k])``.  ``make_score_topk`` binds a fixed
-    index to it; the live index (``eval/live.py``) passes its arena, whose
-    buffers change in place.
+    arguments: ``(m_cat, msq_fused, params, tokens, lengths) -> (dists
+    [Q, k], rows [Q, k])``.  The operands are whole (``m_cat [N, S*d]``,
+    ``msq_fused [N]``) or lists of shards, one per device of a mesh
+    (``shard_index_operands``): the top-k is ``parallel.sharding.
+    corpus_topk_shards``, a whole tensor being one shard.
+    ``make_score_topk`` binds a fixed index to it; the live index
+    (``eval/live.py``) passes its arena, whose buffers change in place.
+    The queries are encoded once, on the params' device, and copied to
+    each shard's.
 
     ``m_cat`` is an f32 carrier already holding ``in_dtype`` values
     (``prep_score_operands``; default: the model's compute dtype).
@@ -345,26 +369,42 @@ def make_operand_retriever(model: Model, weights, k: int,
         raise ValueError(
             "unknown topk method 'fused' for the operand retriever: the "
             "fused distance+select kernel reads the per-stream index "
-            "(make_retriever); use 'exact' or 'approx'")
+            "(make_retriever, unsharded); use 'exact' or 'approx'")
+    check_topk_method(topk_method)
     in_dtype = model.compute_dtype if in_dtype is None else in_dtype
     weights = np.asarray(weights, np.float32)
 
     @torch.no_grad()
     def retrieve(m_cat, msq_fused, params, toks, lens):
         qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
-        scores = fused_corpus_scores(qs, m_cat, msq_fused, weights,
-                                     in_dtype=in_dtype)
-        vals, rows = top_k_select(scores, k, topk_method, approx_recall)
-        return query_sq_const(qs, weights)[:, None] - vals, rows
+        if isinstance(m_cat, torch.Tensor):
+            m_cat, msq_fused = [m_cat], [msq_fused]
+        return corpus_topk_shards(qs, m_cat, msq_fused, weights, k,
+                                  method=topk_method, recall=approx_recall,
+                                  in_dtype=in_dtype)
 
     return retrieve
 
 
+def shard_index_operands(index: MomentIndex, mesh,
+                         compute_dtype: torch.dtype = torch.float32):
+    """(m_cat shards, msq_fused shards, in_dtype): ``prep_score_operands``
+    padded to the mesh's "corpus" axis and split over its devices
+    (``parallel.sharding.shard_rows``), once: the sharded operands of
+    ``make_operand_retriever``."""
+    devices = mesh.axis_devices("corpus")
+    m_cat, msq_fused, in_dtype = prep_score_operands(index, compute_dtype,
+                                                     len(devices))
+    return (shard_rows(m_cat, devices), shard_rows(msq_fused, devices),
+            in_dtype)
+
+
 def make_score_topk(model: Model, index: MomentIndex, k: int,
                     topk_method: str = "exact", approx_recall: float = 0.95,
-                    rnn_kernel: Optional[str] = None):
+                    rnn_kernel: Optional[str] = None, mesh=None):
     """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
-    [Q, k], rows [Q, k])`` over operands prepared once.  Hand it (and every
+    [Q, k], rows [Q, k])`` over operands prepared once, split over
+    ``mesh`` when given (``shard_index_operands``).  Hand it (and every
     retriever of this module and of ``eval.coarse``) a tree that went
     through ``prepare_query_params`` once, as ``serve_queries`` does, and no
     batch casts the recurrence weights again."""
@@ -372,7 +412,11 @@ def make_score_topk(model: Model, index: MomentIndex, k: int,
                               model.compute_dtype)
     fn = make_operand_retriever(model, index.weights, k, topk_method,
                                 approx_recall, rnn_kernel, in_dtype)
-    m_cat, msq_fused, _ = prep_score_operands(index, model.compute_dtype)
+    if mesh is None:
+        m_cat, msq_fused, _ = prep_score_operands(index, model.compute_dtype)
+    else:
+        m_cat, msq_fused, _ = shard_index_operands(index, mesh,
+                                                   model.compute_dtype)
 
     def score_topk(params, toks, lens):
         return fn(m_cat, msq_fused, params, toks, lens)
@@ -404,12 +448,10 @@ def corpus_retrieval(
     params, model: Model, index: MomentIndex, tokens, lengths, k: int,
     mesh=None, topk_method: str = "exact", approx_recall: float = 0.95,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """One query batch (host arrays) -> (dists [Q, k], rows [Q, k]) numpy."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded corpus retrieval is not yet ported to vfr_tpu_torch")
+    """One query batch (host arrays) -> (dists [Q, k], rows [Q, k]) numpy;
+    sharded over ``mesh`` when given."""
     retrieve = make_retriever(model, index, k, topk_method=topk_method,
-                              approx_recall=approx_recall)
+                              approx_recall=approx_recall, mesh=mesh)
     dev = _params_device(params)
     d, rows = retrieve(params, torch.as_tensor(np.asarray(tokens)).to(dev),
                        torch.as_tensor(np.asarray(lengths)).to(dev))
@@ -457,10 +499,11 @@ def serve_queries(
     ``resolve_length_buckets``) groups queries by token length and runs
     each group with the token axis sliced to its bucket; results are
     identical to the unbucketed path (the sliced steps are frozen-carry
-    no-ops).  Batch tails are padded with token 0 and length 1."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded serving is not yet ported to vfr_tpu_torch")
+    no-ops).  Batch tails are padded with token 0 and length 1.
+
+    With ``mesh`` every batch runs sharded over its "corpus" axis: the
+    sharded coarse retriever (``eval.coarse.make_sharded_coarse_retriever``)
+    or the sharded exact one (``make_retriever(mesh=)``; "fused" raises)."""
     if len(queries) == 0:
         return []
     if index is None:
@@ -492,10 +535,10 @@ def serve_queries(
             if r is None:
                 r = state["coarse_stream"] = make_coarse_stream_retriever(
                     model, coarse, k_eff, num_candidates=coarse_candidates,
-                    mode=coarse_mode)
+                    mode=coarse_mode, mesh=mesh)
             d, rows = r(params, toks, lens)
             return d.cpu().numpy(), rows.cpu().numpy()
-        if topk_method != "fused":
+        if mesh is None and topk_method != "fused":
             r = state.get("stream")
             if r is None:
                 r = state["stream"] = make_stream_retriever(
@@ -503,11 +546,12 @@ def serve_queries(
                     approx_recall=approx_recall)
             d, rows = r(params, toks, lens)
             return d.cpu().numpy(), rows.cpu().numpy()
+        # one batch at a time: fused, and the sharded exact retriever
         r = state.get("single")
         if r is None:
             r = state["single"] = make_retriever(
                 model, index, k_eff, topk_method=topk_method,
-                approx_recall=approx_recall)
+                approx_recall=approx_recall, mesh=mesh)
         outs = [r(params, toks[b], lens[b]) for b in range(toks.shape[0])]
         return (np.stack([o[0].cpu().numpy() for o in outs]),
                 np.stack([o[1].cpu().numpy() for o in outs]))
@@ -604,14 +648,16 @@ def serve_follow(
     Otherwise the index is built (or ``index`` validated) once, and the
     packs go through ``make_coarse_retriever`` (``coarse`` or
     ``coarse_dim > 0``) or ``make_retriever``.  An error of the input
-    iterator is re-raised after the results before it were served."""
+    iterator is re-raised after the results before it were served.
+
+    With ``mesh`` the packs run sharded over its "corpus" axis: the
+    sharded coarse or exact retriever over a fixed index, or a live arena
+    built on that same mesh (``make_live_index`` / ``load_arena(mesh=)``;
+    another arena raises ``ValueError``)."""
     import queue as _queue
     import threading
     from collections import deque
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded follow serving is not yet ported to vfr_tpu_torch")
     dev = _params_device(params)
     # the recurrence kernel's bf16 weights, cast once for every pack; the
     # raw tree embeds deltas and fingerprints the index and the arena
@@ -619,6 +665,10 @@ def serve_follow(
     if live is not None:
         if coarse is not None or coarse_dim > 0:
             raise ValueError("live-growth serving is exact (no coarse)")
+        if mesh is not None and live.mesh is not mesh:
+            raise ValueError("live-growth serving on a mesh needs the "
+                             "arena built on that mesh (make_live_index/"
+                             "load_arena mesh=...)")
         from vfr_tpu_torch.eval.live import make_live_retriever
 
         retrieve = make_live_retriever(model, live, k,
@@ -648,11 +698,11 @@ def serve_follow(
 
             retrieve = make_coarse_retriever(
                 model, coarse, k_eff, num_candidates=coarse_candidates,
-                approx_recall=approx_recall, mode=coarse_mode)
+                approx_recall=approx_recall, mode=coarse_mode, mesh=mesh)
         else:
             retrieve = make_retriever(model, index, k_eff,
                                       topk_method=topk_method,
-                                      approx_recall=approx_recall)
+                                      approx_recall=approx_recall, mesh=mesh)
         if owns_index and topk_method != "fused":
             # the retriever holds its own operands; drop the per-stream
             # rows so a long-lived daemon holds the index once ("fused"
@@ -733,11 +783,14 @@ def serve_follow(
             toks_t = toks_t.pin_memory().to(dev, non_blocking=True)
             lens_t = lens_t.pin_memory().to(dev, non_blocking=True)
         d, rows = retrieve(q_params, toks_t, lens_t)
-        d, rows = _to_host(d), _to_host(rows)
         done = None
         if on_cuda:
+            # the copies run on the stream of the results' device (the
+            # mesh's lead device when sharded)
             done = torch.cuda.Event()
-            done.record()
+            stream = torch.cuda.current_stream(d.device)
+            d, rows = _to_host(d), _to_host(rows)
+            done.record(stream)
         return texts, d, rows, done
 
     def _fetch(job):
@@ -813,7 +866,7 @@ def _apply_cmd(live, params, model: Model, dataset, line: str) -> Dict:
         if line.strip() == "!stats":
             # the [cap] msq column on the host: a few hundred KB even at
             # 10M rows
-            msq = live.msq_fused[:live.used_rows].cpu().numpy()
+            msq = L.msq_host(live)[:live.used_rows]
             return {"command": line,
                     "num_videos": live.num_videos,
                     "capacity_rows": live.capacity,
@@ -822,7 +875,8 @@ def _apply_cmd(live, params, model: Model, dataset, line: str) -> Dict:
                     "tombstoned_rows": int((msq >= L._INVALID).sum()),
                     "rows_per_video": live.rows_per_video,
                     "index_dtype": live.index_dtype,
-                    "shards": 1}
+                    "shards": (1 if live.mesh is None
+                               else int(live.mesh.shape["corpus"]))}
         if line.strip() == "!compact":
             n = L.live_compact(live)
             return {"command": line, "reclaimed_rows": int(n),
@@ -844,8 +898,7 @@ def _apply_cmd(live, params, model: Model, dataset, line: str) -> Dict:
 
 
 def make_gt_ranker(model: Model, index: MomentIndex,
-                   rnn_kernel: Optional[str] = None, mesh=None,
-                   axis: str = "corpus"):
+                   rnn_kernel: Optional[str] = None, mesh=None):
     """Exact corpus ranks of given index rows (official protocol).
 
     ``(params, tokens [Q, T], lengths [Q], gt_rows [Q, A]) -> ranks [Q, A]``
@@ -855,11 +908,28 @@ def make_gt_ranker(model: Model, index: MomentIndex,
     position, counted without sorting (the two sets are disjoint, so one
     count of their union).  The GT row's distance is gathered from the
     same [Q, N] f32 distance tensor it is compared against, never
-    recomputed, so exact ties count as the reference counts them."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded GT ranker is not yet ported to vfr_tpu_torch")
+    recomputed, so exact ties count as the reference counts them.
+
+    With ``mesh`` the per-stream index is padded to its "corpus" axis and
+    split over it once, and the ranks are counted shard by shard and summed
+    (``parallel.sharding.sharded_gt_ranks``), with the same arithmetic."""
     compute_dtype = model.compute_dtype
+    if mesh is not None:
+        devices = mesh.axis_devices("corpus")
+        m, m_sq = pad_index(index.m, index.m_sq, len(devices))
+        m_sh = shard_rows(m, devices, dim=1)
+        sq_sh = shard_rows(m_sq, devices, dim=1)
+        del m, m_sq
+
+        @torch.no_grad()
+        def ranks_sharded(params, tokens, lengths, gt_rows):
+            qs = _embed_query_streams(params, model, tokens, lengths,
+                                      rnn_kernel)
+            return sharded_gt_ranks(mesh, qs, m_sh, sq_sh, index.weights,
+                                    gt_rows,
+                                    compute_dtype=compute_dtype)
+
+        return ranks_sharded
 
     @torch.no_grad()
     def ranks(params, tokens, lengths, gt_rows):
@@ -889,10 +959,8 @@ def corpus_evaluate(
     through the exact/approx/fused retriever (``ecfg.topk_method``) or,
     with ``ecfg.coarse_dim > 0``, the coarse-to-fine one.  The official GT
     ranker is exact whatever the retriever.  ``feature_banks``: see
-    ``build_moment_index``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded corpus eval is not yet ported to vfr_tpu_torch")
+    ``build_moment_index``.  With ``mesh`` the retriever and the GT ranker
+    run sharded over its "corpus" axis."""
     from vfr_tpu_torch.eval.moment_eval import _official_hit
 
     dev = _params_device(params)
@@ -917,16 +985,16 @@ def corpus_evaluate(
         retrieve = make_coarse_retriever(
             model, coarse, kmax, num_candidates=ecfg.coarse_candidates,
             approx_recall=ecfg.approx_recall, mode=ecfg.coarse_mode,
-            rnn_kernel=rnn_kernel)
+            rnn_kernel=rnn_kernel, mesh=mesh)
     else:
         retrieve = make_retriever(model, index, kmax,
                                   topk_method=ecfg.topk_method,
                                   approx_recall=ecfg.approx_recall,
-                                  rnn_kernel=rnn_kernel)
+                                  rnn_kernel=rnn_kernel, mesh=mesh)
     official = (ecfg.protocol == "didemo_official"
                 and hasattr(dataset, "num_proposals"))
     if official:
-        gt_ranker = make_gt_ranker(model, index, rnn_kernel)
+        gt_ranker = make_gt_ranker(model, index, rnn_kernel, mesh=mesh)
         P = dataset.num_proposals
         n_official = 0
         official_rank_sum = {k: 0.0 for k in ks}

@@ -1,4 +1,4 @@
-"""Online corpus growth at serving time: the live index (single device).
+"""Online corpus growth at serving time: the live index.
 
 The index lives in an arena allocated at a fixed CAPACITY up front
 (``[cap, S*d]`` one-GEMM operands); rows past ``used_rows`` and removed
@@ -28,7 +28,17 @@ bf16 arena therefore takes twice the bf16 bytes on the card; its file
 (``save_arena``) holds the bf16 bit pattern as the JAX package's does, and
 snapshots cross between the two packages bit for bit.
 
-The sharded arena (a ``mesh``) is not ported yet and raises.
+With a ``mesh`` (``parallel/mesh.py``) the arena is row-sharded over its
+"corpus" axis: ``m_cat`` and ``msq_fused`` are lists of per-shard tensors,
+global row r on shard ``r // rows_per_shard``, and retrieval is the sharded
+top-k of ``parallel/sharding.py``.  The capacity is a multiple of the axis
+size with at least one video's rows a shard (``_mesh_capacity``).  Every
+operation is written once over the list of shards (one shard without a
+mesh): an append writes each shard's overlap with the new rows, a
+compaction gathers rows across shards into each destination shard, a grow
+lays the rows out again at the new ``rows_per_shard`` (rows move between
+shards).  A snapshot is the single-device file whatever the mesh, so it
+loads on any mesh or none.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -59,9 +69,13 @@ COMPACT_BLOCK = 65536
 
 @dataclass
 class LiveIndex:
-    """Capacity-padded one-GEMM index whose row region changes in place."""
-    m_cat: torch.Tensor      # [cap, S*d] f32 carrier of rounded values
-    msq_fused: torch.Tensor  # [cap] f32; 1e30 past used_rows / removed
+    """Capacity-padded one-GEMM index whose row region changes in place.
+    With ``mesh``, ``m_cat`` and ``msq_fused`` are lists of equal shards
+    over the mesh's "corpus" axis (see the module docstring)."""
+    # [cap, S*d] f32 carrier of rounded values and [cap] f32 norms (1e30
+    # past used_rows and on removed rows); lists of shards with a mesh
+    m_cat: Union[torch.Tensor, List[torch.Tensor]]
+    msq_fused: Union[torch.Tensor, List[torch.Tensor]]
     video_row: np.ndarray    # [cap] int32 (-1 on free rows)
     prop_idx: np.ndarray     # [cap] int32
     spans_sec: np.ndarray    # [cap, 2] f32
@@ -70,10 +84,11 @@ class LiveIndex:
     used_rows: int
     rows_per_video: int
     index_dtype: str         # quantization applied to stored rows
+    mesh: Optional[object] = None
 
     @property
     def capacity(self) -> int:
-        return int(self.m_cat.shape[0])
+        return sum(int(t.shape[0]) for t in _shards(self)[1])
 
     @property
     def num_videos(self) -> int:
@@ -83,12 +98,75 @@ class LiveIndex:
     def free_rows(self) -> int:
         return self.capacity - self.used_rows
 
+    @property
+    def rows_per_shard(self) -> int:
+        return int(_shards(self)[1][0].shape[0])
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the sharded live arena ({what} with a mesh) is not yet ported "
-            "to vfr_tpu_torch")
+
+def _shards(live: LiveIndex):
+    """(m_cat shards, msq shards): one of each without a mesh."""
+    if live.mesh is None:
+        return [live.m_cat], [live.msq_fused]
+    return live.m_cat, live.msq_fused
+
+
+def _fields(mesh, m_sh, sq_sh):
+    """``LiveIndex``'s (m_cat, msq_fused) of lists of shards: the tensors
+    themselves without a mesh."""
+    return (m_sh[0], sq_sh[0]) if mesh is None else (m_sh, sq_sh)
+
+
+def msq_host(live: LiveIndex) -> np.ndarray:
+    """The [cap] msq column on the host (a small fetch)."""
+    return np.concatenate([t.cpu().numpy() for t in _shards(live)[1]])
+
+
+def _mesh_capacity(cap: int, rows_per_video: int, mesh) -> int:
+    """A row capacity rounded up to the sharded arena's invariants:
+    divisible by the "corpus" axis size, and ``rows_per_shard >= rows_per_video``
+    (a small snapshot on a large mesh still takes whole videos).  Every
+    constructor and ``live_grow`` goes through it."""
+    if mesh is None:
+        return cap
+    ndev = mesh.shape["corpus"]
+    cap = max(cap, ndev * rows_per_video)
+    return cap + (-cap) % ndev
+
+
+def _alloc(cap: int, width: int, devices):
+    """Free shards of a ``cap``-row arena over ``devices``: zero rows,
+    msq 1e30."""
+    n = cap // len(devices)
+    return ([torch.zeros((n, width), dtype=torch.float32, device=d)
+             for d in devices],
+            [torch.full((n,), 1e30, dtype=torch.float32, device=d)
+             for d in devices])
+
+
+def _write_rows(shards, start: int, src: torch.Tensor) -> None:
+    """Global rows ``[start, start + len(src))`` of a sharded column <- src,
+    in place: each shard copies its overlap."""
+    rps = int(shards[0].shape[0])
+    n = int(src.shape[0])
+    for i, t in enumerate(shards):
+        lo, hi = max(start, i * rps), min(start + n, (i + 1) * rps)
+        if lo < hi:
+            t[lo - i * rps:hi - i * rps].copy_(src[lo - start:hi - start],
+                                               non_blocking=True)
+
+
+def _read_rows(shards, rows: np.ndarray, device) -> torch.Tensor:
+    """The global ``rows`` (increasing) of a sharded column, gathered from
+    the shards that hold them onto ``device``."""
+    rps = int(shards[0].shape[0])
+    owner = rows // rps
+    parts = []
+    for s in np.unique(owner):
+        a, b = np.searchsorted(owner, [s, s + 1])
+        local = torch.from_numpy(rows[a:b] - s * rps).to(shards[s].device)
+        parts.append(shards[s].index_select(0, local).to(device,
+                                                         non_blocking=True))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def _pad_host_metadata(cap: int, video_row, prop_idx, spans_sec):
@@ -125,8 +203,9 @@ def make_live_index(
     mesh=None,
 ) -> LiveIndex:
     """Build the initial corpus into a ``capacity_videos``-sized arena on
-    the params' device."""
-    _no_mesh(mesh, "make_live_index")
+    the params' device, or row-sharded over ``mesh``'s "corpus" axis (the
+    capacity rounded up by ``_mesh_capacity``; the extra rows are free
+    rows)."""
     index = build_moment_index(params, model, dataset,
                                num_videos=num_videos,
                                index_dtype=index_dtype,
@@ -138,20 +217,27 @@ def make_live_index(
         raise ValueError(
             f"capacity_videos={capacity_videos} < initial corpus ({V})")
     cap = capacity_videos * P
+    devices = [index.m.device]
+    if mesh is not None:
+        devices = mesh.axis_devices("corpus")
+        if capacity_videos < len(devices):
+            raise ValueError(
+                f"capacity_videos={capacity_videos} < mesh corpus axis "
+                f"({len(devices)}): each shard must hold at least one video")
+        cap = _mesh_capacity(cap, P, mesh)
     used = index.num_rows
     m_cat, msq_fused = _index_operands(index, model.compute_dtype)
     index.m = index.m_sq = None
-    arena = torch.zeros((cap, m_cat.shape[1]), dtype=torch.float32,
-                        device=m_cat.device)
-    arena[:used].copy_(m_cat)
-    msq = torch.full((cap,), 1e30, dtype=torch.float32, device=m_cat.device)
-    msq[:used].copy_(msq_fused)
+    m_sh, sq_sh = _alloc(cap, m_cat.shape[1], devices)
+    _write_rows(m_sh, 0, m_cat)
+    _write_rows(sq_sh, 0, msq_fused)
     del m_cat, msq_fused
     video_row, prop_idx, spans_sec = _pad_host_metadata(
         cap, index.video_row, index.prop_idx, index.spans_sec)
+    m_cat, msq_fused = _fields(mesh, m_sh, sq_sh)
     return LiveIndex(
-        m_cat=arena,
-        msq_fused=msq,
+        m_cat=m_cat,
+        msq_fused=msq_fused,
         video_row=video_row,
         prop_idx=prop_idx,
         spans_sec=spans_sec,
@@ -160,6 +246,7 @@ def make_live_index(
         used_rows=used,
         rows_per_video=P,
         index_dtype=index_dtype,
+        mesh=mesh,
     )
 
 
@@ -216,7 +303,9 @@ def live_append(
     video_ids, rgb, flow=None, durations=None,
 ) -> int:
     """Embed new videos and copy them into the arena's free region in
-    place; returns the rows appended.  O(delta) work and bytes.
+    place; returns the rows appended.  O(delta) work and bytes.  On a
+    sharded arena each shard copies its overlap with the new rows (a delta
+    may span several shards).
 
     ATOMIC: every failure (duplicate id, over capacity, a delta that
     embeds to the wrong row count, changed stream weights) raises before
@@ -246,8 +335,9 @@ def live_append(
         raise ValueError("stream weights changed between build and append")
     d_cat, d_sq = _index_operands(delta, model.compute_dtype)
     start = live.used_rows
-    live.m_cat[start:start + n].copy_(d_cat)
-    live.msq_fused[start:start + n].copy_(d_sq)
+    m_sh, sq_sh = _shards(live)
+    _write_rows(m_sh, start, d_cat)
+    _write_rows(sq_sh, start, d_sq)
     base_video = live.num_videos
     live.video_row[start:start + n] = delta.video_row + base_video
     live.prop_idx[start:start + n] = delta.prop_idx
@@ -271,8 +361,14 @@ def live_remove(live: LiveIndex, video_ids) -> int:
     mask = np.isin(live.video_row[:live.used_rows], vids)
     if not mask.any():
         return 0
-    rows = torch.from_numpy(np.nonzero(mask)[0]).to(live.msq_fused.device)
-    live.msq_fused.index_fill_(0, rows, 1e30)
+    rows = np.nonzero(mask)[0]
+    sq_sh = _shards(live)[1]
+    rps = live.rows_per_shard
+    owner = rows // rps
+    for s, t in enumerate(sq_sh):
+        local = rows[owner == s] - s * rps
+        if len(local):
+            t.index_fill_(0, torch.from_numpy(local).to(t.device), 1e30)
     return int(mask.sum())
 
 
@@ -285,13 +381,14 @@ def live_compact(live: LiveIndex) -> int:
 
     The kept rows are increasing and ``kept[i] >= i``, so a forward copy
     in blocks of ``COMPACT_BLOCK`` rows never overwrites a row a later
-    block still reads; the temporary is one block.  As in the JAX package
-    (a gather with index 0 past the survivors), every row past them then
-    holds the old row 0 and msq 1e30.  Tombstones are read from the arena
-    itself (msq >= 1e29), so a loaded snapshot compacts too."""
-    msq_host = live.msq_fused.cpu().numpy()      # [cap] f32: a small fetch
+    block still reads; the temporary is one block.  On a sharded arena a
+    block of one destination shard gathers its rows from whichever shards
+    hold them.  As in the JAX package (a gather with index 0 past the
+    survivors), every row past them then holds the old row 0 and msq 1e30.
+    Tombstones are read from the arena itself (msq >= 1e29), so a loaded
+    snapshot compacts too."""
     used = live.used_rows
-    keep = msq_host[:used] < _INVALID
+    keep = msq_host(live)[:used] < _INVALID
     n_keep = int(keep.sum())
     reclaimed = used - n_keep
     if reclaimed == 0:
@@ -302,15 +399,21 @@ def live_compact(live: LiveIndex) -> int:
     remap = np.full(live.num_videos, -1, np.int32)
     remap[surviving] = np.arange(len(surviving), dtype=np.int32)
 
-    dev = live.m_cat.device
-    row0 = live.m_cat[0].clone()
-    kept_d = torch.from_numpy(kept_rows.astype(np.int64)).to(dev)
-    for lo in range(0, n_keep, COMPACT_BLOCK):
-        hi = min(lo + COMPACT_BLOCK, n_keep)
-        live.m_cat[lo:hi].copy_(live.m_cat.index_select(0, kept_d[lo:hi]))
-    live.m_cat[n_keep:].copy_(row0.expand(live.capacity - n_keep, -1))
-    live.msq_fused[:n_keep].copy_(live.msq_fused.index_select(0, kept_d))
-    live.msq_fused[n_keep:].fill_(1e30)
+    m_sh, sq_sh = _shards(live)
+    rps = live.rows_per_shard
+    row0 = m_sh[0][0].clone()
+    for j, (m, sq) in enumerate(zip(m_sh, sq_sh)):
+        for lo in range(j * rps, min((j + 1) * rps, n_keep), COMPACT_BLOCK):
+            hi = min(lo + COMPACT_BLOCK, (j + 1) * rps, n_keep)
+            src = kept_rows[lo:hi]
+            blk_m = _read_rows(m_sh, src, m.device)
+            blk_sq = _read_rows(sq_sh, src, m.device)
+            m[lo - j * rps:hi - j * rps].copy_(blk_m)
+            sq[lo - j * rps:hi - j * rps].copy_(blk_sq)
+        past = max(n_keep - j * rps, 0)
+        if past < rps:
+            m[past:].copy_(row0.to(m.device).expand(rps - past, -1))
+            sq[past:].fill_(1e30)
     # host metadata permutes in place (the fancy-index right-hand side
     # copies first), so references to these arrays stay valid
     live.video_row[:n_keep] = remap[old_vids]
@@ -326,10 +429,14 @@ def live_compact(live: LiveIndex) -> int:
 
 @torch.no_grad()
 def live_grow(live: LiveIndex, capacity_videos: int) -> int:
-    """Grow the arena's capacity to ``capacity_videos``; returns the new
-    capacity in rows.  The one live operation that reallocates the arena
-    (and the host tables): an O(capacity) copy, operator-initiated."""
-    new_cap = capacity_videos * live.rows_per_video
+    """Grow the arena's capacity to ``capacity_videos`` (rounded up by
+    ``_mesh_capacity`` on a mesh); returns the new capacity in rows.  The
+    one live operation that reallocates the arena (and the host tables):
+    an O(capacity) copy, operator-initiated.  On a sharded arena
+    ``rows_per_shard`` changes, so rows move between shards: the new
+    shards are laid out from the global row order."""
+    new_cap = _mesh_capacity(capacity_videos * live.rows_per_video,
+                             live.rows_per_video, live.mesh)
     if new_cap < live.capacity:
         raise ValueError(
             f"cannot shrink: capacity_videos={capacity_videos} -> "
@@ -337,11 +444,14 @@ def live_grow(live: LiveIndex, capacity_videos: int) -> int:
             "with live_compact instead)")
     if new_cap == live.capacity:
         return live.capacity
-    pad = new_cap - live.capacity
-    m, sq = live.m_cat, live.msq_fused
-    live.m_cat = torch.cat([m, m.new_zeros((pad, m.shape[1]))])
-    live.msq_fused = torch.cat([sq, sq.new_full((pad,), 1e30)])
-    del m, sq
+    m_sh, sq_sh = _shards(live)
+    rps = live.rows_per_shard
+    new_m, new_sq = _alloc(new_cap, m_sh[0].shape[1],
+                           [t.device for t in m_sh])
+    for i, (m, sq) in enumerate(zip(m_sh, sq_sh)):
+        _write_rows(new_m, i * rps, m)
+        _write_rows(new_sq, i * rps, sq)
+    live.m_cat, live.msq_fused = _fields(live.mesh, new_m, new_sq)
     # the host tables are reallocated too: readers go through the
     # LiveIndex, never through references to the old arrays
     live.video_row, live.prop_idx, live.spans_sec = _pad_host_metadata(
@@ -357,22 +467,27 @@ def _arena_fingerprint(live: LiveIndex, params, model: Model) -> Dict:
 def save_arena(live: LiveIndex, path: str, params=None, model=None) -> str:
     """Snapshot the whole arena (operands, metadata, used region) to one
     .npz, atomically, in the JAX package's format: a bf16 arena as its
-    uint16 bit pattern.  With ``params``/``model`` a provenance
-    fingerprint is stored and checked at load."""
+    uint16 bit pattern.  A sharded arena writes the same single-device
+    file (its shards in row order), so snapshots move between meshes.
+    With ``params``/``model`` a provenance fingerprint is stored and
+    checked at load."""
+    m_sh = _shards(live)[0]
     if live.index_dtype == "bfloat16":
         # the carrier holds bf16 values: the cast back is exact
-        m = live.m_cat.to(torch.bfloat16)
-        m_store = m.view(torch.int16).cpu().numpy().view(np.uint16)
+        m_store = np.concatenate([
+            t.to(torch.bfloat16).view(torch.int16).cpu().numpy()
+            for t in m_sh]).view(np.uint16)
         m_dtype = "bfloat16"
     else:
-        m_store, m_dtype = live.m_cat.cpu().numpy(), "float32"
+        m_store = np.concatenate([t.cpu().numpy() for t in m_sh])
+        m_dtype = "float32"
     extra = {}
     if params is not None and model is not None:
         extra["fingerprint"] = np.asarray(json.dumps(
             _arena_fingerprint(live, params, model)))
     return atomic_savez(path, dict(
         m_cat=m_store, m_dtype=np.asarray(m_dtype),
-        msq_fused=live.msq_fused.cpu().numpy(),
+        msq_fused=msq_host(live),
         video_row=live.video_row, prop_idx=live.prop_idx,
         spans_sec=live.spans_sec,
         video_ids=np.asarray(live.video_ids),
@@ -386,14 +501,17 @@ def save_arena(live: LiveIndex, path: str, params=None, model=None) -> str:
 def load_arena(path: str, params=None, model=None, mesh=None,
                device=None) -> LiveIndex:
     """Inverse of ``save_arena``, onto ``device`` (CUDA unless asked
-    otherwise; raises without CUDA).  With ``params``/``model`` the stored
-    fingerprint (if any) is checked: a snapshot from another checkpoint or
-    corpus raises instead of serving wrong moments.  With ``model`` the
-    carrier is rounded to the score GEMM's product dtype, as the batch
-    path's operands are: a no-op but for an f32 arena served with bf16
-    compute, whose file then holds the rounded values."""
-    _no_mesh(mesh, "load_arena")
-    device = resolve_device(device)
+    otherwise; raises without CUDA), or row-sharded over ``mesh``'s
+    "corpus" axis (its devices; the capacity padded by ``_mesh_capacity`` with
+    free rows, so a snapshot from any mesh, or none, loads).  With
+    ``params``/``model`` the stored fingerprint (if any) is checked: a
+    snapshot from another checkpoint or corpus raises instead of serving
+    wrong moments.  With ``model`` the carrier is rounded to the score
+    GEMM's product dtype, as the batch path's operands are: a no-op but
+    for an f32 arena served with bf16 compute, whose file then holds the
+    rounded values."""
+    devices = ([resolve_device(device)] if mesh is None
+               else mesh.axis_devices("corpus"))
     with np.load(path, allow_pickle=False) as z:
         m_dtype = str(z["m_dtype"])
         if m_dtype == "bfloat16":
@@ -401,25 +519,40 @@ def load_arena(path: str, params=None, model=None, mesh=None,
                 torch.bfloat16).float()
         else:
             m = torch.from_numpy(np.asarray(z["m_cat"], np.float32))
+        msq = torch.from_numpy(np.asarray(z["msq_fused"], np.float32))
+        video_row = z["video_row"].copy()
+        prop_idx = z["prop_idx"].copy()
+        spans_sec = z["spans_sec"].copy()
+        rows_per_video = int(z["rows_per_video"])
+        cap = _mesh_capacity(m.shape[0], rows_per_video, mesh)
+        if cap > m.shape[0]:
+            video_row, prop_idx, spans_sec = _pad_host_metadata(
+                cap, video_row, prop_idx, spans_sec)
+        m_sh, sq_sh = _alloc(cap, m.shape[1], devices)
+        _write_rows(m_sh, 0, m)
+        _write_rows(sq_sh, 0, msq)
+        del m, msq
+        m_cat, msq_fused = _fields(mesh, m_sh, sq_sh)
         live = LiveIndex(
-            m_cat=m.to(device),
-            msq_fused=torch.from_numpy(
-                np.asarray(z["msq_fused"], np.float32)).to(device),
-            video_row=z["video_row"].copy(),
-            prop_idx=z["prop_idx"].copy(),
-            spans_sec=z["spans_sec"].copy(),
+            m_cat=m_cat,
+            msq_fused=msq_fused,
+            video_row=video_row,
+            prop_idx=prop_idx,
+            spans_sec=spans_sec,
             video_ids=[str(v) for v in z["video_ids"]],
             weights=z["weights"],
             used_rows=int(z["used_rows"]),
-            rows_per_video=int(z["rows_per_video"]),
+            rows_per_video=rows_per_video,
             index_dtype=str(z["index_dtype"]),
+            mesh=mesh,
         )
         fp = (json.loads(str(z["fingerprint"]))
               if "fingerprint" in z.files else None)
     if model is not None:
         in_dtype = arena_in_dtype(live, model)
         if in_dtype != torch.float32:
-            live.m_cat = live.m_cat.to(in_dtype).float()
+            for t in m_sh:
+                t.copy_(t.to(in_dtype).float())
     if fp is not None and params is not None and model is not None:
         want = _arena_fingerprint(live, params, model)
         for key in ("model", "params", "videos"):
@@ -442,8 +575,12 @@ def make_live_retriever(
     capacity (a ``live_grow`` lifts a boot-time clamp).  Rows past the
     used region surface only when k exceeds the valid rows: distance >=
     1e29, video_row -1.  ``topk_method="fused"`` raises at the first call,
-    as in the JAX package."""
+    as in the JAX package, and at once on a sharded arena (whose shards
+    ``eval.corpus.make_operand_retriever`` takes as they are)."""
     k_req = int(k)
+    if live.mesh is not None and topk_method == "fused":
+        raise ValueError("topk_method='fused' is single-device only; "
+                         "a sharded live arena uses exact/approx")
     built = {}          # the retriever of the current clamped k
 
     def retrieve(params, tokens, lengths):
@@ -451,10 +588,11 @@ def make_live_retriever(
         fn = built.get(k_eff)
         if fn is None:
             built.clear()
+            kw = dict(topk_method=topk_method, approx_recall=approx_recall,
+                      rnn_kernel=rnn_kernel,
+                      in_dtype=arena_in_dtype(live, model))
             fn = built[k_eff] = make_operand_retriever(
-                model, live.weights, k_eff, topk_method=topk_method,
-                approx_recall=approx_recall, rnn_kernel=rnn_kernel,
-                in_dtype=arena_in_dtype(live, model))
+                model, live.weights, k_eff, **kw)
         return fn(live.m_cat, live.msq_fused, params, tokens, lengths)
 
     return retrieve

@@ -10,7 +10,7 @@ the TPU's PartialReduce yet (a known difference, recorded in ROADMAP.md).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -41,18 +41,61 @@ def topk_lowest_index(x: torch.Tensor, k: int
     the sync."""
     N = x.shape[-1]
     k = min(k, N)
-    if N <= KEY_MAX:
+    if N <= KEY_MAX or k == 0:
         return _key_topk(x, k)
+    kth, vals, idx, flags = _topk_queued(x, k)
+    return _settle_ties(x, kth, vals, idx, *flags.tolist())
+
+
+def topk_lowest_index_many(xs: Sequence[torch.Tensor], k: int
+                           ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``topk_lowest_index`` of each of ``xs`` (which may lie on different
+    devices), with ONE host sync for all the rows longer than ``KEY_MAX``:
+    every ``torch.topk`` and tie flag is queued first, the flags are read
+    together, then each tied row is resolved.  The sharded retrievers
+    select their shards' rows so, so that shards on separate cards are
+    not run one after another by a sync each.  One row costs exactly what
+    ``topk_lowest_index`` costs."""
+    if len(xs) == 1:
+        return [topk_lowest_index(xs[0], k)]
+    out: List = [None] * len(xs)
+    long = []
+    for i, x in enumerate(xs):
+        kk = min(k, x.shape[-1])
+        if x.shape[-1] <= KEY_MAX or kk == 0:
+            out[i] = _key_topk(x, kk)
+        else:
+            long.append((i, x, *_topk_queued(x, kk)))
+    if long:
+        lead = long[0][1].device
+        flags = torch.stack([f.to(lead, non_blocking=True)
+                             for *_, f in long]).tolist()
+        for (i, x, kth, vals, idx, _), fl in zip(long, flags):
+            out[i] = _settle_ties(x, kth, vals, idx, *fl)
+    return out
+
+
+def _topk_queued(x: torch.Tensor, k: int):
+    """A long row's select up to its sync: ``torch.topk`` of k + 1, then
+    (kth [.., 1], vals [.., k], idx [.., k], flags [2]), the flags (the
+    k-th value recurs past the k-th place, a value recurs inside the k)
+    still on the device."""
+    N = x.shape[-1]
     vals, idx = torch.topk(x, min(k + 1, N), dim=-1, largest=True,
                            sorted=True)
-    if k == 0:
-        return vals[..., :0], idx[..., :0]
     kth = vals[..., k - 1 : k]
     left_out = ((vals[..., k:] == kth).any() if N > k
                 else torch.zeros((), dtype=torch.bool, device=x.device))
     vals, idx = vals[..., :k], idx[..., :k]
     inside = (vals[..., 1:] == vals[..., :-1]).any()
-    left_out, inside = torch.stack([left_out, inside]).tolist()
+    return kth, vals, idx, torch.stack([left_out, inside])
+
+
+def _settle_ties(x, kth, vals, idx, left_out: bool, inside: bool):
+    """A long row's select after its sync: the lowest-index rows of the
+    k-th value at the k-th place (``_lowest_tied``), then, on any tie, the
+    k put in (value descending, index ascending) order by a stable
+    sort."""
     if left_out:
         idx = _lowest_tied(x, kth, (vals == kth).sum(-1, keepdim=True), idx)
     if left_out or inside:
@@ -110,6 +153,12 @@ def top_k_select(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Largest-k along the last axis: (values, indices), largest first,
     ties by lowest index."""
+    check_topk_method(method)
+    return topk_lowest_index(x, k)
+
+
+def check_topk_method(method: str) -> None:
+    """Raise on a method ``top_k_select`` has not ("fused" is a retriever's
+    kernel path, not a selection)."""
     if method not in ("exact", "approx"):
         raise ValueError(f"unknown topk method {method!r}")
-    return topk_lowest_index(x, k)
