@@ -73,6 +73,26 @@ Phases, one JSON line each:
               split by CUDA events, the device's busy share of a step,
               mining refresh and eval seconds; a step that synchronises
               with the host fails it.
+  train_dp    data-parallel training of the train phase's recipe over a
+              "data" mesh of 4 (distinct cards when visible, else the first
+              card 4 times; a line names the devices): one flagship batch
+              (mined negatives, a per-step tau, a dropout mask) through the
+              DP step and the one-device step from the same params (loss
+              within 1e-5 relative, each gradient leaf within DP_GRAD_TOL of
+              its max |grad|), every replica equal to the lead after a
+              chunk, one host sync a chunk; the sharded mining refresh beside
+              the one-device one (pairs equal outside near-ties, seconds of
+              each); `train(cfg, mesh=)` beside the same run on one device
+              (first chunk's loss within 1e-4, every chunk within
+              DP_CHUNK_TOL, final metrics of both, every chunk through the
+              prefetcher's side streams); `cli corpus --checkpoint-dir` on
+              the DP checkpoint, exact (K1a) and fused (K1a + K2), held to
+              the plain versions; `cli train --data-parallel` for one epoch
+              (one card: its warning, one device; more: the mesh).  Reports
+              ms per step at n = 1, 2, 4 (CUDA events, median of chunks),
+              the DP step's split (shards' forward, gather + loss,
+              backward, reduction, update + EMA, broadcast) and its device
+              busy share.
   packed      the synthetic didemo_flagship fixture (2,000 videos) written
               in the real layout, `cli pack` of both streams, `cli corpus`
               on the npz and on the .vfrf-only directory (equal metric
@@ -154,6 +174,15 @@ LIVE_FOLLOW_ADD = 64      # !add of 64 videos, !remove of
 LIVE_FOLLOW_REMOVE = 64   # 64 (8 of them just added) and !compact
 PACKED_VIDEOS = 2_000    # packed: the fixture written in the real layout
 GRAD_TOL = 1e-3          # fused BPTT vs scan autograd, of max |grad| per leaf
+TRAIN_DP_SHARDS = 4      # train_dp: the "data" mesh of the step and refresh
+DP_LOSS_TOL = 1e-5       # DP vs one-device loss of one batch, relative
+DP_GRAD_TOL = 1e-5       # DP vs one-device gradients, of max |grad| per leaf:
+                         # only the order of the shards' partial sums
+                         # differs (1.5e-6 measured on an H100, PERF.md)
+DP_CHUNK_TOL = 5e-3      # DP vs one-device chunk losses over the cut run:
+                         # the trajectories part at f32 rounding and the
+                         # refresh may mine other near-ties (9.2e-4 measured)
+REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX: its one sync), and 26,250 (none)
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -816,9 +845,9 @@ def phase_select(results, seed: int):
 
 
 def _device_profile(what: str, work, iters: int = 5):
-    """One JSON line: device time by CUDA kernel name (torch.profiler) of
-    ``work`` per iteration, their sum, the host wall time per iteration
-    and the device's busy share of it."""
+    """One JSON line (also returned): device time by CUDA kernel name
+    (torch.profiler) of ``work`` per iteration, their sum, the host wall
+    time per iteration and the device's busy share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -840,9 +869,11 @@ def _device_profile(what: str, work, iters: int = 5):
                          "device_ms_per_iter": dev_us / iters / 1e3})
     rows.sort(key=lambda r: -r["device_ms_per_iter"])
     busy = sum(r["device_ms_per_iter"] for r in rows)
-    emit({"phase": "profile", "what": what, "wall_ms_per_iter": wall_ms,
-          "device_ms_per_iter": busy, "device_busy_share": busy / wall_ms,
-          "kernels": rows[:12]})
+    rec = {"phase": "profile", "what": what, "wall_ms_per_iter": wall_ms,
+           "device_ms_per_iter": busy, "device_busy_share": busy / wall_ms,
+           "kernels": rows[:12]}
+    emit(rec)
+    return rec
 
 
 def phase_profile(seed: int):
@@ -1390,8 +1421,8 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
 
 # --------------------------------------------------------------- sharded
 
-def corpus_mesh(n: int):
-    """A "corpus" mesh of ``n`` shards: ``n`` distinct cards when that
+def corpus_mesh(n: int, axis: str = "corpus", phase: str = "sharded_mesh"):
+    """A mesh of ``n`` devices on ``axis``: ``n`` distinct cards when that
     many are visible, else the first card ``n`` times; its devices and how
     many cards are distinct go out on a line of their own."""
     import torch
@@ -1401,10 +1432,10 @@ def corpus_mesh(n: int):
     devices = ([torch.device("cuda", i) for i in range(n)]
                if torch.cuda.device_count() >= n
                else [torch.device("cuda", 0)] * n)
-    emit({"phase": "sharded_mesh", "shards": n,
+    emit({"phase": phase, "shards": n,
           "devices": [str(d) for d in devices],
           "distinct_cards": len(set(devices))})
-    return make_mesh(("corpus",), devices=devices)
+    return make_mesh((axis,), devices=devices)
 
 
 def _sharded_record(results, part: str, counts, rec: dict):
@@ -2451,6 +2482,40 @@ def _step_split(model, tcfg, opt, params, opt_state, ema, batch, banks,
     return {k: float(np.median(v)) for k, v in split.items()}
 
 
+def _corpus_on_checkpoint(common, nodata: str, seed: int, load,
+                          n_queries: int, what: str):
+    """``cli corpus`` on a trained checkpoint (``common``: its flags),
+    exact (K1a) and fused (K1a + K2), each beside the same run through the
+    kernels' plain versions; fails unless each kernel launched (``mma`` /
+    ``persistent``) and the metrics agree.  (runs, max metric diffs)."""
+    from unittest import mock
+
+    from vfr_tpu_torch.eval import corpus as corpus_mod
+    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
+
+    runs = EvalRuns(n_queries)
+    diffs = {}
+    for method, kernels in (("exact", ("lstm_pooled",)),
+                            ("fused", ("lstm_pooled", "distance_select"))):
+        argv = ["corpus", *common, "--topk-method", method]
+        k_m, k_counts = runs(f"corpus_{method}_pallas", lambda: _cli(
+            argv, _train_preset(nodata, seed, "pallas"), load))
+        patches = ([mock.patch.object(corpus_mod, "distance_select",
+                                      distance_select_plain)]
+                   if method == "fused" else [])
+        p_m, _ = runs(f"corpus_{method}_plain", lambda: _cli(
+            argv, _train_preset(nodata, seed, "plain"), load),
+            patches=patches)
+        diffs[method] = metrics_close(k_m, p_m, f"{what}[corpus {method}]")
+        for name in kernels:
+            require(k_counts[name] > 0,
+                    f"{what}[corpus {method}]: {name} never launched")
+        require_persistent(k_counts, "lstm", f"{what}[corpus {method}]")
+        if method == "fused":
+            require_mma(k_counts, "select", f"{what}[corpus fused]")
+    return runs, diffs
+
+
 def phase_train(results, seed: int, workdir: str):
     """``cli train`` of didemo_flagship at full width on a synthetic
     2,000-video fixture (4 epochs of 20 steps, B=128; mining from the
@@ -2468,9 +2533,6 @@ def phase_train(results, seed: int, workdir: str):
 
     from vfr_tpu_torch.checkpoint import load_for_eval
     from vfr_tpu_torch.data.features import banks_to_device
-    from vfr_tpu_torch.eval import corpus as corpus_mod
-    from vfr_tpu_torch.models.build import build_model
-    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
     from vfr_tpu_torch.train.checkpoint import (
         latest_checkpoint,
         load_payload,
@@ -2502,7 +2564,7 @@ def phase_train(results, seed: int, workdir: str):
         def __iter__(self):
             for chunk in super().__iter__():
                 fed["chunks"] += 1
-                fed["on_side_stream"] += int(self._stream is not None)
+                fed["on_side_stream"] += int(bool(self._streams))
                 yield chunk
 
     with mock.patch.object(loop_mod, "Prefetcher", CountingPrefetcher):
@@ -2592,26 +2654,8 @@ def phase_train(results, seed: int, workdir: str):
 
     # cli corpus on the trained checkpoint: K1a (exact) and K1a + K2
     # (fused), each beside the same run through the plain versions
-    runs = EvalRuns(bundle.val.num_queries)
-    diffs = {}
-    for method, kernels in (("exact", ("lstm_pooled",)),
-                            ("fused", ("lstm_pooled", "distance_select"))):
-        argv = ["corpus", *common, "--topk-method", method]
-        k_m, k_counts = runs(f"corpus_{method}_pallas", lambda: _cli(
-            argv, _train_preset(nodata, seed, "pallas"), load))
-        patches = ([mock.patch.object(corpus_mod, "distance_select",
-                                      distance_select_plain)]
-                   if method == "fused" else [])
-        p_m, _ = runs(f"corpus_{method}_plain", lambda: _cli(
-            argv, _train_preset(nodata, seed, "plain"), load),
-            patches=patches)
-        diffs[method] = metrics_close(k_m, p_m, f"train[corpus {method}]")
-        for name in kernels:
-            require(k_counts[name] > 0,
-                    f"train[corpus {method}]: {name} never launched")
-        require_persistent(k_counts, "lstm", f"train[corpus {method}]")
-        if method == "fused":
-            require_mma(k_counts, "select", "train[corpus fused]")
+    runs, diffs = _corpus_on_checkpoint(common, nodata, seed, load,
+                                        bundle.val.num_queries, "train")
     chunk_ms = [r["step_ms"] for r in tr]
     rec = dict(phase="train", preset="didemo_flagship",
                videos=VIDEOS_TRAIN, train_queries=ds.num_queries,
@@ -2629,6 +2673,403 @@ def phase_train(results, seed: int, workdir: str):
                max_metric_diff_vs_plain=diffs, runs=runs.runs)
     emit(rec)
     results["train"] = rec
+
+
+# -------------------------------------------------------------- train_dp
+
+def _mined_gap(params, model, ds, banks, a, b):
+    """(queries whose mined pairs differ between refreshes ``a`` and ``b``,
+    the largest difference between their sorted mined distances relative
+    to the largest): pairs that differ only at near-ties keep the same
+    distance profile."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import (
+        _embed_query_streams,
+        build_moment_index,
+    )
+
+    diff = np.nonzero((a[0] != b[0]).any(1) | (a[1] != b[1]).any(1))[0]
+    if len(diff) == 0:
+        return 0, 0.0
+    index = build_moment_index(params, model, ds, with_fingerprint=False,
+                               feature_banks=banks)
+    inv = {(int(v), int(p)): r
+           for r, (v, p) in enumerate(zip(index.video_row, index.prop_idx))}
+    dev = index.m.device
+    q = _embed_query_streams(params, model,
+                             torch.from_numpy(ds.tokens[diff]).to(dev),
+                             torch.from_numpy(ds.lengths[diff]).to(dev),
+                             "scan")                          # [S, Q, d]
+    w = [float(x) for x in model.cfg.stream_weights]
+    worst = 0.0
+    for j, qi in enumerate(diff):
+        prof = []
+        for vids, props in ((a[0][qi], a[1][qi]), (b[0][qi], b[1][qi])):
+            rows = torch.tensor([inv[(int(v), int(p))] for v, p in
+                                 zip(vids, props) if v >= 0],
+                                dtype=torch.long, device=dev)
+            d = sum(w[s] * ((q[s, j][None] - index.m[s, rows].float()) ** 2
+                            ).sum(-1) for s in range(len(w)))
+            prof.append(torch.sort(d).values.cpu().numpy())
+        require(len(prof[0]) == len(prof[1]),
+                f"train_dp[refresh]: query {qi} mined {len(prof[0])} and "
+                f"{len(prof[1])} pairs")
+        scale = max(float(np.abs(prof[0]).max(initial=0.0)), 1e-30)
+        if len(prof[0]):
+            worst = max(worst, float(np.abs(prof[0] - prof[1]).max()) / scale)
+    return len(diff), worst
+
+
+def _dp_step_split(model, tcfg, opt, params, opt_state, ema, placed, banks,
+                   devices, iters: int = 10, warmup: int = 3):
+    """Median ms by CUDA events of one data-parallel step's parts, the
+    step's own functions between events: the shards' forward, the gather
+    to the lead + loss, backward, the ordered reduction, update + EMA and
+    the broadcast.  Events on the lead's stream: exact on a one-card mesh;
+    across cards they see the lead's share."""
+    import torch
+
+    from vfr_tpu_torch.train.optim import apply_updates
+    from vfr_tpu_torch.train.step import (
+        _device_model,
+        _ema_update,
+        _gather_loss,
+        _reduce,
+        _Replicas,
+        _shard_forward,
+    )
+
+    keys = ("forward", "gather_loss", "backward", "reduce", "update_ema",
+            "broadcast")
+    split = {k: [] for k in keys + ("step",)}
+    on = _device_model(model)
+    reps = _Replicas(model, devices)
+    for it in range(warmup + iters):
+        reps.sync(params)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        req = [[t.detach().requires_grad_(True) for t in leaves]
+               for leaves in reps.leaves]
+        ev[0].record()
+        with torch.enable_grad():
+            outs = _shard_forward(reps, on, placed, banks, req)
+            ev[1].record()
+            loss, _ = _gather_loss(reps, on, tcfg, placed, outs, req)
+            ev[2].record()
+            got = torch.autograd.grad(loss, [t for r in req for t in r],
+                                      allow_unused=True)
+        ev[3].record()
+        grads = _reduce(reps, got, req)
+        ev[4].record()
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        ema = _ema_update(ema, params, tcfg.ema_decay)
+        ev[5].record()
+        reps.broadcast(params)
+        ev[6].record()
+        torch.cuda.synchronize()
+        if it >= warmup:
+            for i, key in enumerate(keys):
+                split[key].append(ev[i].elapsed_time(ev[i + 1]))
+            split["step"].append(ev[0].elapsed_time(ev[6]))
+    return {k: float(np.median(v)) for k, v in split.items()}
+
+
+def _chunk_ms(fn, state, chunk, k: int, chunks: int = 5):
+    """Median over ``chunks`` calls of a K-step chunk, each ended by its
+    loss fetch (the loop's one sync): ms per step by CUDA events on the
+    lead and by the host clock."""
+    import torch
+
+    def call():
+        state["p"], state["s"], state["e"], aux = fn(
+            state["p"], state["s"], chunk, state["e"])
+        return float(aux["loss"])
+    call()
+    dev_ms, wall_ms = [], []
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3 / k)
+        dev_ms.append(start.elapsed_time(end) / k)
+    return float(np.median(dev_ms)), float(np.median(wall_ms))
+
+
+def phase_train_dp(results, seed: int, workdir: str):
+    """Data-parallel training of didemo_flagship at full width (B=128) on
+    the train phase's 2,000-video fixture over a "data" mesh of
+    ``TRAIN_DP_SHARDS`` positions (distinct cards when visible, else the
+    first card n times).  One flagship batch (mined negatives, a per-step
+    tau, a dropout mask) through the DP step and the one-device step from
+    the same params: loss within DP_LOSS_TOL relative, every gradient leaf
+    within DP_GRAD_TOL of its max |grad|, every replica equal to the lead
+    after a chunk, one host sync a chunk (the loss fetch).  The sharded
+    mining refresh beside the one-device refresh (pairs equal outside
+    near-ties).  ``train(cfg, mesh=)`` for the train phase's recipe beside
+    the same run on one device (first chunk's loss within 1e-4, every
+    chunk within DP_CHUNK_TOL, every chunk through the prefetcher's side
+    streams); ``cli corpus`` on the DP checkpoint, exact (K1a) and fused
+    (K1a + K2), held to the plain versions; ``cli train --data-parallel``
+    for one epoch (one card: the warning and one device; more: the mesh).
+    Times: ms per step at n = 1, 2, 4, the DP step's split and its
+    device busy share."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch
+
+    import vfr_tpu_torch.parallel.mesh as mesh_mod
+    import vfr_tpu_torch.train.loop as loop_mod
+    from vfr_tpu_torch.checkpoint import init_train_params
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.parallel.mesh import distinct
+    from vfr_tpu_torch.train.hard_negatives import mine_hard_negatives
+    from vfr_tpu_torch.train.loop import dropout_keep_mask
+    from vfr_tpu_torch.train.optim import make_optimizer
+    from vfr_tpu_torch.train.step import (
+        _device_model,
+        _dp_grads,
+        _grads,
+        _Replicas,
+        make_train_multi_step,
+        place_batch,
+    )
+    from vfr_tpu_torch.utils.tree import flatten, tree_map
+
+    n = TRAIN_DP_SHARDS
+    mesh = corpus_mesh(n, "data", "train_dp_mesh")
+    devices = mesh.axis_devices("data")
+    dev = devices[0]
+    n_distinct = len(distinct(devices))
+    nodata = os.path.join(workdir, "train_nodata")
+    load = _memo_datasets()
+    preset = _train_preset(nodata, seed)
+    bundle, setup_s = _timed(lambda: load(preset.data))
+    ds, tcfg = bundle.train, preset.train
+    model = build_model(preset, dataset=ds)
+    params = init_train_params(torch.Generator().manual_seed(seed), model,
+                               bundle.glove, bundle.feature_dim, tcfg, dev)
+    arrays = dict(ds.feature_banks())
+    banks = banks_to_device(arrays, preset.data.bank_dtype, mesh=mesh)
+    require(list(banks) == distinct(devices),
+            f"train_dp: banks placed on {list(banks)}")
+    lead_banks = banks[dev]
+
+    # the refresh: sharded over the mesh's "data" axis beside one device;
+    # seconds of warm calls in turns (one, dp, dp, one)
+    def mine(m_):
+        return mine_hard_negatives(params, model, ds,
+                                   tcfg.hard_negative_count,
+                                   feature_banks=lead_banks, mesh=m_)
+    single, sharded = mine(None), mine(mesh)
+    mine_s = {"one": [], "dp": []}
+    for tag in ("one", "dp", "dp", "one"):
+        mine_s[tag].append(_timed(lambda: mine(
+            mesh if tag == "dp" else None))[1])
+    n_diff, gap = _mined_gap(params, model, ds, lead_banks, single, sharded)
+    require(gap <= REFRESH_GAP_TOL,
+            f"train_dp[refresh]: {n_diff} queries mined other pairs, "
+            f"distance profiles {gap} apart (> {REFRESH_GAP_TOL})")
+
+    # one flagship batch: mined negatives, a per-step tau, a dropout mask
+    drop_model = model._replace(cfg=dataclasses.replace(
+        model.cfg, query_dropout=0.1))
+    K = TRAIN_STEPS_PER_CALL
+    host = []
+    for i, b in enumerate(ds.train_batches(tcfg.batch_size, K, seed=seed,
+                                           with_features=False)):
+        b["hard_neg_video"] = single[0][b["query_idx"]]
+        b["hard_neg_prop"] = single[1][b["query_idx"]]
+        b["tau_now"] = np.float32(tcfg.temperature * (1.0 + 0.1 * i))
+        b["dropout_keep"] = dropout_keep_mask(
+            seed, i, (tcfg.batch_size, preset.model.lstm_hidden), 0.1)
+        host.append(b)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in host[0].items()}
+    on = _device_model(drop_model)
+    aux_1, g_1 = _grads(params, on(dev), tcfg, batch, lead_banks)
+    reps = _Replicas(drop_model, devices)
+    reps.sync(params)
+    aux_n, g_n = _dp_grads(reps, on, tcfg, place_batch(host[0], devices),
+                           banks)
+    loss_rel = abs(float(aux_n["loss"]) - float(aux_1["loss"])) / abs(
+        float(aux_1["loss"]))
+    require(loss_rel <= DP_LOSS_TOL, f"train_dp: DP loss {aux_n['loss']} "
+            f"vs one device {aux_1['loss']} ({loss_rel} > {DP_LOSS_TOL})")
+    errs = _leaf_rel_errors(g_n, g_1)
+    worst = max(errs.values())
+    require(worst <= DP_GRAD_TOL, f"train_dp: DP gradients differ from one "
+            f"device's by {worst} of max |grad| (> {DP_GRAD_TOL})")
+
+    # a chunk of K steps: replicas equal the lead after it, one host sync
+    opt = make_optimizer(tcfg, TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS)
+    chunk_host = {k: np.stack([b[k] for b in host]) for k in host[0]}
+    multi = make_train_multi_step(drop_model, tcfg, opt, mesh=mesh,
+                                  feature_banks=banks)
+    placed = place_batch(chunk_host, devices, axis=1)
+    state = {"p": params, "s": opt.init(params),
+             "e": tree_map(torch.clone, params)}
+
+    def chunk_and_fetch():
+        state["p"], state["s"], state["e"], aux = multi(
+            state["p"], state["s"], placed, state["e"])
+        return float(aux["loss"])
+    syncs = _steady_syncs(chunk_and_fetch)
+    require(sum(syncs.values()) == 1, f"train_dp: a chunk of {K} steps "
+            f"synchronised {syncs}, wanted the loss fetch alone")
+    lead_leaves = flatten(state["p"])[1]
+    reps_ok = all(torch.equal(a, b.to(a.device)) for r in multi.replicas()
+                  for a, b in zip(flatten(r)[1], lead_leaves))
+    require(reps_ok and len(multi.replicas()) == n,
+            "train_dp: a replica differs from the lead after a chunk")
+
+    # ms per step at n = 1, 2, 4 (chunks placed beforehand, as the
+    # prefetcher places them), the split, the busy share
+    step_ms, wall_ms, fns = {}, {}, {}
+    for n_i in (1, 2, n):
+        if n_i == 1:
+            fn = make_train_multi_step(model, tcfg, opt,
+                                       feature_banks=lead_banks)
+            ch = {k: torch.from_numpy(v).to(dev)
+                  for k, v in chunk_host.items()}
+        else:
+            m_i = mesh if n_i == n else corpus_mesh(n_i, "data",
+                                                    "train_dp_mesh")
+            fn = make_train_multi_step(model, tcfg, opt, mesh=m_i,
+                                       feature_banks=lead_banks)
+            ch = place_batch(chunk_host, m_i.axis_devices("data"), axis=1)
+        st = {"p": params, "s": opt.init(params),
+              "e": tree_map(torch.clone, params)}
+        step_ms[n_i], wall_ms[n_i] = _chunk_ms(fn, st, ch, K)
+        fns[n_i] = fn
+    split = _dp_step_split(model, tcfg, opt, params, opt.init(params),
+                           tree_map(torch.clone, params),
+                           place_batch(host[0], devices), banks, devices)
+    one = fns[n]
+    prof_state = {"p": params, "s": opt.init(params),
+                  "e": tree_map(torch.clone, params)}
+    one_chunk = place_batch({k: v[:1] for k, v in chunk_host.items()},
+                            devices, axis=1)
+
+    def one_step():
+        prof_state["p"], prof_state["s"], prof_state["e"], _ = one(
+            prof_state["p"], prof_state["s"], one_chunk, prof_state["e"])
+    prof = _device_profile(f"train_dp_step_B128_n{n}", one_step)
+
+    # the loop: train(mesh=) beside one device, same recipe and seed
+    fed = {}
+
+    class CountingPrefetcher(loop_mod.Prefetcher):
+        def __iter__(self):
+            for chunk in super().__iter__():
+                rec = fed.setdefault(self._tag, [0, 0])
+                rec[0] += 1
+                rec[1] += int(len(self._streams) >= self._want)
+                yield chunk
+
+    loops = {}
+    for tag, m_ in (("dp", mesh), ("one", None)):
+        ck = os.path.join(workdir, f"train_dp_{tag}_ck")
+        cfg = dataclasses.replace(preset, train=dataclasses.replace(
+            tcfg, checkpoint_dir=ck, num_epochs=TRAIN_EPOCHS,
+            steps_per_call=TRAIN_STEPS_PER_CALL))
+        CountingPrefetcher._tag = tag
+        CountingPrefetcher._want = n_distinct if m_ is not None else 1
+        with mock.patch.object(loop_mod, "Prefetcher", CountingPrefetcher):
+            (_, metrics), secs = _timed(lambda: loop_mod.train(
+                cfg, bundle=bundle, mesh=m_, device=dev))
+        recs = [json.loads(line) for line in
+                open(os.path.join(ck, "metrics.jsonl"), encoding="utf-8")]
+        loops[tag] = dict(metrics=metrics, seconds=secs, ck=ck,
+                          losses=[r["loss"] for r in recs
+                                  if r["tag"] == "train"],
+                          step_ms=[r["step_ms"] for r in recs
+                                   if r["tag"] == "train"],
+                          refresh_s=[r["refresh_s"] for r in recs
+                                     if r["tag"] == "mine"],
+                          eval_s=[r["eval_s"] for r in recs
+                                  if r["tag"] == "eval"])
+    want = TRAIN_EPOCHS * -(-TRAIN_STEPS_PER_EPOCH // TRAIN_STEPS_PER_CALL)
+    require(all(fed.get(t) == [want, want] for t in loops),
+            f"train_dp: the prefetcher fed {fed} chunks, wanted {want} "
+            "each copied on its side streams")
+    la, lb = np.asarray(loops["dp"]["losses"]), np.asarray(
+        loops["one"]["losses"])
+    require(len(la) == len(lb) == want and np.isfinite(la).all(),
+            f"train_dp: chunk losses {la}")
+    chunk_rel = np.abs(la - lb) / np.abs(lb)
+    require(chunk_rel[0] <= 1e-4, f"train_dp: the first chunk's loss "
+            f"{la[0]} vs one device {lb[0]}")
+    require(chunk_rel.max() <= DP_CHUNK_TOL, f"train_dp: chunk losses "
+            f"{chunk_rel.max()} apart (> {DP_CHUNK_TOL})")
+
+    # cli corpus on the DP run's checkpoint: K1a, K1a + K2
+    common = ["--preset", "didemo_flagship", "--data-dir", nodata,
+              "--checkpoint-dir", loops["dp"]["ck"]]
+    runs, diffs = _corpus_on_checkpoint(common, nodata, seed, load,
+                                        bundle.val.num_queries, "train_dp")
+
+    # cli train --data-parallel, one epoch
+    built, err = [], io.StringIO()
+    real = mesh_mod.make_mesh
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+    with mock.patch.object(mesh_mod, "make_mesh", spy), \
+            contextlib.redirect_stderr(err):
+        cli_metrics, cli_s = _timed(lambda: _cli(
+            ["train", "--preset", "didemo_flagship", "--data-dir", nodata,
+             "--checkpoint-dir", os.path.join(workdir, "train_dp_cli"),
+             "--epochs", "1", "--data-parallel"], preset, load))
+    cards = torch.cuda.device_count()
+    warned = "--data-parallel requested but only 1 device" in err.getvalue()
+    if cards > 1:
+        require(not warned and [m.shape for m in built] == [{"data": cards}],
+                f"train_dp[cli]: {cards} cards, meshes {built}")
+    else:
+        require(warned and not built, "train_dp[cli]: one card, but no "
+                "warning or a mesh was built")
+    rec = dict(phase="train_dp", preset="didemo_flagship", shards=n,
+               devices=[str(d) for d in devices], distinct_cards=n_distinct,
+               videos=VIDEOS_TRAIN, batch=tcfg.batch_size,
+               fixture_s=setup_s,
+               one_step=dict(loss_rel=loss_rel, loss_tol=DP_LOSS_TOL,
+                             grad_worst=worst, grad_tol=DP_GRAD_TOL,
+                             per_leaf=errs),
+               chunk_syncs=syncs, replicas_equal=reps_ok,
+               refresh=dict(seconds_one=mine_s["one"],
+                            seconds_dp=mine_s["dp"],
+                            queries_differing=n_diff, profile_gap=gap,
+                            gap_tol=REFRESH_GAP_TOL),
+               step_ms={str(k): v for k, v in step_ms.items()},
+               wall_ms_per_step={str(k): v for k, v in wall_ms.items()},
+               step_split_ms=split,
+               device_busy_share=prof["device_busy_share"],
+               loop=dict(
+                   chunk_loss_rel_first=float(chunk_rel[0]),
+                   chunk_loss_rel_max=float(chunk_rel.max()),
+                   chunk_tol=DP_CHUNK_TOL,
+                   **{f"{t}_{key}": loops[t][key] for t in loops
+                      for key in ("metrics", "seconds", "refresh_s",
+                                  "eval_s")},
+                   dp_step_ms_median=float(np.median(loops["dp"]["step_ms"])),
+                   one_step_ms_median=float(np.median(
+                       loops["one"]["step_ms"]))),
+               prefetched_chunks=fed,
+               cli=dict(cards=cards, warned=warned, seconds=cli_s,
+                        metrics=cli_metrics),
+               max_metric_diff_vs_plain=diffs, runs=runs.runs)
+    emit(rec)
+    results["train_dp"] = rec
 
 
 # ---------------------------------------------------------- follow, live
@@ -3481,7 +3922,8 @@ def kernels_line(results):
     def new_paths(name):
         return dict(follow=follow_launches(name), live=live_launches(name),
                     sharded=results.get("sharded", {}).get(
-                        "launches", {}).get(name, 0))
+                        "launches", {}).get(name, 0),
+                    train_dp=eval_launches(name, ("train_dp",)))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3530,8 +3972,8 @@ def kernels_line(results):
 
 
 ALL_PHASES = ("kernels", "flagship", "coarse", "follow", "eval", "sharded",
-              "train", "packed", "eval_charades", "serving_10k", "live",
-              "gru", "coarse_2m")
+              "train", "train_dp", "packed", "eval_charades", "serving_10k",
+              "live", "gru", "coarse_2m")
 # the phases whose set-ups the sharded checks ride on
 SHARDED_HOSTS = ("flagship", "eval_charades", "live", "coarse_2m")
 
@@ -3621,6 +4063,9 @@ def main(argv=None) -> int:
             settle()
         if "train" in phases:
             phase_train(results, SEED, workdir)
+            settle()
+        if "train_dp" in phases:
+            phase_train_dp(results, SEED, workdir)
             settle()
         if "packed" in phases:
             phase_packed(results, SEED, workdir)

@@ -118,8 +118,9 @@ def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
     """--shards 2 follows the JAX package's rule: with one device visible
     it serves unsharded; with two visible it builds a two-device "corpus"
     mesh (here of CPU devices) and serves sharded, batch and --follow, the
-    unsharded records (moments equal, distances within 1e-5).  The one
-    option left that raises is --data-parallel (not ported)."""
+    unsharded records (moments equal, distances within 1e-5).  train
+    --data-parallel with two devices visible builds a two-device "data"
+    mesh and trains over it."""
     import torch
 
     import vfr_tpu_torch.cli as tcli
@@ -166,9 +167,16 @@ def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
     assert [m.shape for m in built] == [{"corpus": 2}] * 2
     assert all(m.axis_devices("corpus") == [torch.device("cpu")] * 2
                for m in built)
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        cli_main(["train", "--data-parallel", "--device", "cpu",
-                  "--data-dir", str(tmp_path / "none")])
+    import vfr_tpu_torch.train.loop as loop_mod
+
+    trained = []
+    monkeypatch.setattr(loop_mod, "train", lambda cfg, resume=False,
+                        mesh=None, device=None: (trained.append(mesh)
+                                                 or ({}, {"m": 1.0})))
+    assert cli_main(["train", "--data-parallel", "--device", "cpu",
+                     "--data-dir", str(tmp_path / "none")]) == 0
+    assert trained == [built[-1]] and built[-1].shape == {"data": 2}
+    assert built[-1].axis_devices("data") == [torch.device("cpu")] * 2
 
 
 def test_cli_index_and_serve_on_cpu(tmp_path, capsys):

@@ -17,7 +17,9 @@
 * ``cli train --device cpu`` writes what ``cli eval|corpus|serve
   --checkpoint-dir`` open (``--best``: ``best.npz``), serving the EMA
   tree; without ``--device cpu`` and no CUDA it raises; ``--data-parallel``
-  raises (not ported).
+  with one device visible warns and trains on it (the same records as
+  without the flag), and ``train(mesh=)`` runs on a two-device CPU mesh
+  (held to the JAX package's in ``test_torch_dp_train.py``).
 """
 
 import ast
@@ -317,17 +319,32 @@ def test_cli_train_then_eval_corpus_serve(monkeypatch, capsys, tmp_path):
 
 
 def test_cli_train_refuses_missing_cuda_and_data_parallel(monkeypatch,
-                                                          tmp_path):
+                                                          capsys, tmp_path):
+    from vfr_tpu_torch.parallel.mesh import make_mesh
+
     tcli = _narrow_cli(monkeypatch, tmp_path)
-    argv = ["train", "--checkpoint-dir", str(tmp_path / "ck"), "--epochs",
-            "1"]
+    argv = ["train", "--epochs", "1"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcli.main(argv)
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        tcli.main([*argv, "--device", "cpu", "--data-parallel"])
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tloop.train(get_preset("didemo_rgb"), mesh=object(), device="cpu")
+        tcli.main([*argv, "--checkpoint-dir", str(tmp_path / "ck")])
+    capsys.readouterr()
+    logs = {}
+    for name, extra in (("plain", []), ("dp", ["--data-parallel"])):
+        ck = tmp_path / name
+        assert tcli.main([*argv, "--checkpoint-dir", str(ck), "--device",
+                          "cpu", *extra]) == 0
+        err = capsys.readouterr().err
+        assert ("--data-parallel requested but only 1 device is visible"
+                in err) == bool(extra)
+        logs[name] = [{k: v for k, v in r.items() if k != "time"
+                       and not k.endswith(("_s", "_ms", "per_sec"))}
+                      for r in _records(ck / "metrics.jsonl", "train")
+                      + _records(ck / "metrics.jsonl", "eval")]
+    assert logs["dp"] == logs["plain"] and logs["dp"]
+    cfg = _cfg(get_preset, tmp_path / "mesh", epochs=1)
+    mesh = make_mesh(("data",), devices=[torch.device("cpu")] * 2)
+    _, metrics = tloop.train(cfg, mesh=mesh)
+    assert "R@1_tiou0.5" in metrics
 
 
 def test_cli_train_overrides_match_jax():

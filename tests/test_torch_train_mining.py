@@ -57,14 +57,20 @@ def test_mined_pairs_identical(name):
 
 
 def test_mining_from_device_banks_and_mesh_refused():
+    """Mining from device banks, and over a two-device "data" mesh (the
+    sharded refresh; ``test_torch_dp_mining.py`` holds it to the JAX
+    package's), equals the single-device refresh from host features."""
+    import torch
+
     from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.parallel.mesh import make_mesh
 
     world = tw.didemo_world()
     banks = banks_to_device(world.tds.feature_banks(), device="cpu")
     a = t_mine(world.tparams, world.tmodel, world.tds, 4)
-    b = t_mine(world.tparams, world.tmodel, world.tds, 4,
-               feature_banks=banks)
-    np.testing.assert_array_equal(a[0], b[0])
-    np.testing.assert_array_equal(a[1], b[1])
-    with pytest.raises(NotImplementedError, match="sharded mining"):
-        t_mine(world.tparams, world.tmodel, world.tds, 4, mesh=object())
+    mesh = make_mesh(("data",), devices=[torch.device("cpu")] * 2)
+    for kw in (dict(feature_banks=banks), dict(feature_banks=banks,
+                                                 mesh=mesh)):
+        b = t_mine(world.tparams, world.tmodel, world.tds, 4, **kw)
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])

@@ -12,7 +12,10 @@ gradients (small widths).
   streams) against the JAX package's: params, the Polyak average and
   every metric (``grad_norm`` is pre-clip) at rtol 1e-5.
 * ``ema_decay > 0`` without an ema tree raises; without EMA the steps keep
-  the three-value return; ``mesh=`` raises (data parallel not ported).
+  the three-value return; ``mesh=`` builds the data-parallel step (held to
+  the JAX package's in ``test_torch_dp_train.py``), which keeps the same
+  arity rules and refuses a batch size that is not a multiple of the
+  mesh's "data" axis.
 """
 
 import dataclasses
@@ -203,7 +206,20 @@ def test_ema_arg_and_arity():
     out = tstep.make_train_step(world.tmodel, off, opt,
                                 feature_banks=tbanks)(p, opt.init(p), b)
     assert len(out) == 3 and np.isfinite(float(out[2]["loss"]))
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tstep.make_train_step(world.tmodel, tt, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tstep.make_train_multi_step(world.tmodel, tt, opt, mesh=object())
+    from vfr_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = torch.device("cpu")
+    dp = tstep.make_train_step(world.tmodel, tt, opt,
+                               mesh=make_mesh(("data",), devices=[cpu] * 2),
+                               feature_banks=tbanks)
+    with pytest.raises(ValueError, match="ema"):
+        dp(p, opt.init(p), b)
+    out = dp(p, opt.init(p), b, world.tparams)
+    assert len(out) == 4 and np.isfinite(float(out[3]["loss"]))
+    odd = make_mesh(("data",), devices=[cpu] * 3)
+    for make, batch in ((tstep.make_train_step, b),
+                        (tstep.make_train_multi_step,
+                         {k: v[None] for k, v in b.items()})):
+        fn = make(world.tmodel, tt, opt, mesh=odd, feature_banks=tbanks)
+        with pytest.raises(ValueError, match="batch size 8 .* 3 devices"):
+            fn(p, opt.init(p), batch, world.tparams)

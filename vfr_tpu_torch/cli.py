@@ -47,7 +47,9 @@ real data under --data-dir the synthetic fixture is used.  ``corpus`` and
 JAX package's rule: a "corpus" mesh of the first N devices of ``--device``'s
 type when N > 1 and at least N are visible, the index row-sharded over it
 (``parallel/mesh.py``); otherwise unsharded on one device.  ``train
---data-parallel`` is not ported yet and raises.
+--data-parallel`` builds a "data" mesh of every visible device of
+``--device``'s type when there are two or more (each batch split over
+them, ``train.step``); with one it warns and trains on that device.
 """
 
 from __future__ import annotations
@@ -112,8 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "serving read the average")
     t.add_argument("--resume", action="store_true")
     t.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch over all local devices (not "
-                        "ported yet: raises)")
+                   help="shard the batch over all local devices")
     t.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of the train loop")
     t.add_argument("--debug-nans", action="store_true",
@@ -311,12 +312,19 @@ def _corpus_mesh(cfg, args):
     return None
 
 
-def _not_ported(args):
-    """The options this port does not have yet, by flag."""
-    bad = []
-    if getattr(args, "data_parallel", False):
-        bad.append("--data-parallel")
-    return bad
+def _data_mesh(args):
+    """The JAX package's rule for ``train --data-parallel``: a "data" mesh of
+    every visible device of ``--device``'s type when there are two or more;
+    else a warning and None (one device)."""
+    if not args.data_parallel:
+        return None
+    if _visible_devices(args.device) > 1:
+        from vfr_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(("data",), devices=_devices(args.device))
+    print("[warn] --data-parallel requested but only 1 device is visible; "
+          "running single-chip (no DP mesh)", file=sys.stderr)
+    return None
 
 
 def _pack(args) -> int:
@@ -341,10 +349,6 @@ def _pack(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    bad = _not_ported(args)
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: not yet ported to vfr_tpu_torch")
     if args.cmd == "pack":
         return _pack(args)
     cfg = apply_overrides(get_preset(args.preset), args)
@@ -491,6 +495,7 @@ def _train(cfg, args) -> int:
 
     from vfr_tpu_torch.train.loop import train
 
+    mesh = _data_mesh(args)
     with contextlib.ExitStack() as stack:
         if args.debug_nans:
             stack.enter_context(torch.autograd.set_detect_anomaly(True))
@@ -502,7 +507,8 @@ def _train(cfg, args) -> int:
             if torch.device(args.device).type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
             prof = stack.enter_context(profile(activities=acts))
-        _, metrics = train(cfg, resume=args.resume, device=args.device)
+        _, metrics = train(cfg, resume=args.resume, mesh=mesh,
+                           device=args.device)
     if prof is not None:
         import os
 

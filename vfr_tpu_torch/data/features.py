@@ -2,7 +2,8 @@
 float32 (DiDeMo) or ``[T, feature_dim]`` per-second rows (Charades-STA),
 from one ``.npz`` per stream, a directory of ``<video_id>.npy`` files or a
 packed ``.vfrf`` file (``data/packed.py``); and ``banks_to_device``, the
-one-time copy of full-corpus banks to the device."""
+one-time copy of full-corpus banks to the device (or to every device of a
+mesh)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from vfr_tpu_torch.device import resolve_device
+from vfr_tpu_torch.parallel.mesh import distinct
 
 
 class FeatureStore:
@@ -78,9 +80,12 @@ _STREAM_KEYS = ("rgb", "flow")
 
 
 def banks_to_device(banks: dict, bank_dtype: str = "float32",
-                    device=None) -> Dict[str, torch.Tensor]:
+                    device=None, mesh=None):
     """One-time copy of full-corpus feature banks to ``device`` (CUDA unless
-    asked otherwise; raises without CUDA).
+    asked otherwise; raises without CUDA), or with ``mesh`` to each
+    distinct device of the mesh (the JAX package's replicated sharding):
+    then a dict device -> banks, converted once on the host and copied once
+    per device.
 
     ``bank_dtype="bfloat16"`` converts the rgb/flow streams on the host
     before the copy (half the bytes moved and held); consumers upcast at
@@ -88,12 +93,26 @@ def banks_to_device(banks: dict, bank_dtype: str = "float32",
     their dtype."""
     if bank_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown bank_dtype {bank_dtype!r}")
-    device = resolve_device(device)
-    out = {}
+    host = {}
     for k, v in banks.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if k in _STREAM_KEYS:
             t = t.to(torch.bfloat16 if bank_dtype == "bfloat16"
                      else torch.float32)
-        out[k] = t.to(device)
-    return out
+        host[k] = t
+    if mesh is not None:
+        return {d: {k: t.to(d) for k, t in host.items()}
+                for d in distinct(list(mesh.devices.flat))}
+    device = resolve_device(device)
+    return {k: t.to(device) for k, t in host.items()}
+
+
+def banks_by_device(banks, devices) -> Dict:
+    """Device -> bank dict for each distinct device of ``devices``: banks as
+    ``banks_to_device(mesh=)`` returns them, or one bank dict (or None),
+    copied to each device it is not on."""
+    if banks is not None and all(isinstance(k, torch.device) for k in banks):
+        return banks
+    return {d: None if banks is None else {k: v.to(d)
+                                           for k, v in banks.items()}
+            for d in distinct(devices)}

@@ -4,10 +4,12 @@ off the consumer's stream (the train loop's chunk feed).
 ``Prefetcher(batch_fn, depth, device)`` runs ``batch_fn()`` (an iterator of
 dicts of numpy arrays) on a background thread; at most ``depth`` assembled
 batches wait in the queue.  On CUDA each array is pinned and copied
-``non_blocking`` on a side stream, and an event is recorded there; the
-consumer's stream waits on that event before the batch is handed out, and
-``record_stream`` tells the caching allocator that the consumer's stream
-uses the memory, so no copy ever blocks the host or a step.  On the CPU the
+``non_blocking`` on a side stream of its device, and an event is recorded
+there; each device's consumer stream waits on that event before the batch
+is handed out, and ``record_stream`` tells the caching allocator that the
+consumer's stream uses the memory, so no copy ever blocks the host or a
+step.  ``place`` spreads a batch over several devices (a data-parallel
+mesh), each copy landing on its own device directly.  On the CPU the
 arrays become tensors and the queue is all there is.
 
 The queue is the only shared state.  A put aborts when the consumer closes
@@ -38,19 +40,27 @@ def _tensor(v) -> torch.Tensor:
 
 class Prefetcher:
     """Background-thread batch assembly + asynchronous host -> device
-    copies, bounded queue; iterate it once."""
+    copies, bounded queue; iterate it once.
+
+    ``place(batch, copy)`` decides where a batch's arrays go: it returns
+    the batch as the consumer takes it, built from ``copy(array, device)``
+    calls (default: every array to ``device``; the data-parallel loop
+    passes ``train.step.place_batch``, which sends each shard's rows to its
+    device and the loss's keys to the lead).  Each device copied to gets
+    its own side stream and, per batch, its own event."""
 
     def __init__(
         self,
         batch_fn: Callable[[], Iterator[Dict[str, np.ndarray]]],
         depth: int = 2,
         device=None,
+        place: Optional[Callable] = None,
     ):
         self._stop = threading.Event()
         self._dev = resolve_device(device)
-        self._stream: Optional[torch.cuda.Stream] = (
-            torch.cuda.Stream(device=self._dev)
-            if self._dev.type == "cuda" else None)
+        self._place = place or (lambda batch, copy: {
+            k: copy(v, self._dev) for k, v in batch.items()})
+        self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(
@@ -59,16 +69,31 @@ class Prefetcher:
         self._thread.start()
 
     def _copy(self, batch):
-        """(batch of device tensors, event of its copies or None)."""
-        if self._stream is None:
-            return {k: _tensor(v).to(self._dev) for k, v in batch.items()}, \
-                None
-        with torch.cuda.device(self._dev), torch.cuda.stream(self._stream):
-            out = {k: _tensor(v).pin_memory().to(self._dev, non_blocking=True)
-                   for k, v in batch.items()}
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        return out, done
+        """(placed batch, [(device, event, its tensors)] of the CUDA
+        devices copied to)."""
+        pending: Dict[torch.device, list] = {}
+
+        def copy(v, dev):
+            dev = torch.device(dev)
+            if dev.type != "cuda":
+                return _tensor(v).to(dev)
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            stream = self._streams.get(dev)
+            if stream is None:
+                stream = self._streams[dev] = torch.cuda.Stream(device=dev)
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                out = _tensor(v).pin_memory().to(dev, non_blocking=True)
+            pending.setdefault(dev, []).append(out)
+            return out
+
+        placed = self._place(batch, copy)
+        done = []
+        for dev, tensors in pending.items():
+            ev = torch.cuda.Event()
+            ev.record(self._streams[dev])
+            done.append((dev, ev, tensors))
+        return placed, done
 
     def _put(self, item) -> bool:
         """Bounded put that aborts when the consumer closed us (a plain
@@ -125,10 +150,10 @@ class Prefetcher:
                         raise self._err
                     return
                 batch, done = item
-                if done is not None:
-                    cur = torch.cuda.current_stream(self._dev)
-                    cur.wait_event(done)
-                    for t in batch.values():
+                for dev, ev, tensors in done:
+                    cur = torch.cuda.current_stream(dev)
+                    cur.wait_event(ev)
+                    for t in tensors:
                         t.record_stream(cur)
                 yield batch
         finally:

@@ -27,7 +27,8 @@ layout choice) has no counterpart: the port always carries the score
 operand as f32, see ``prep_score_operands``.
 
 With a ``mesh`` (``parallel/mesh.py``) the index rows are split over its
-"corpus" axis (``shard_index_operands``) and every retriever, the GT ranker
+"corpus" axis (``shard_index_operands``; the mining refresh's stream
+retriever over the axis it names) and every retriever, the GT ranker
 and the live arena run the hierarchical top-k of ``parallel/sharding.py``:
 each shard scores and selects its own rows, the candidates are merged on
 the lead device.  The queries are encoded once, on the params' device.
@@ -387,12 +388,13 @@ def make_operand_retriever(model: Model, weights, k: int,
 
 
 def shard_index_operands(index: MomentIndex, mesh,
-                         compute_dtype: torch.dtype = torch.float32):
+                         compute_dtype: torch.dtype = torch.float32,
+                         axis: str = "corpus"):
     """(m_cat shards, msq_fused shards, in_dtype): ``prep_score_operands``
-    padded to the mesh's "corpus" axis and split over its devices
+    padded to the mesh's ``axis`` and split over its devices
     (``parallel.sharding.shard_rows``), once: the sharded operands of
     ``make_operand_retriever``."""
-    devices = mesh.axis_devices("corpus")
+    devices = mesh.axis_devices(axis)
     m_cat, msq_fused, in_dtype = prep_score_operands(index, compute_dtype,
                                                      len(devices))
     return (shard_rows(m_cat, devices), shard_rows(msq_fused, devices),
@@ -401,13 +403,14 @@ def shard_index_operands(index: MomentIndex, mesh,
 
 def make_score_topk(model: Model, index: MomentIndex, k: int,
                     topk_method: str = "exact", approx_recall: float = 0.95,
-                    rnn_kernel: Optional[str] = None, mesh=None):
+                    rnn_kernel: Optional[str] = None, mesh=None,
+                    axis: str = "corpus"):
     """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
     [Q, k], rows [Q, k])`` over operands prepared once, split over
-    ``mesh`` when given (``shard_index_operands``).  Hand it (and every
-    retriever of this module and of ``eval.coarse``) a tree that went
-    through ``prepare_query_params`` once, as ``serve_queries`` does, and no
-    batch casts the recurrence weights again."""
+    ``mesh``'s ``axis`` when given (``shard_index_operands``).  Hand it
+    (and every retriever of this module and of ``eval.coarse``) a tree that
+    went through ``prepare_query_params`` once, as ``serve_queries`` does,
+    and no batch casts the recurrence weights again."""
     in_dtype = score_in_dtype(index.m.dtype == torch.bfloat16,
                               model.compute_dtype)
     fn = make_operand_retriever(model, index.weights, k, topk_method,
@@ -416,7 +419,7 @@ def make_score_topk(model: Model, index: MomentIndex, k: int,
         m_cat, msq_fused, _ = prep_score_operands(index, model.compute_dtype)
     else:
         m_cat, msq_fused, _ = shard_index_operands(index, mesh,
-                                                   model.compute_dtype)
+                                                   model.compute_dtype, axis)
 
     def score_topk(params, toks, lens):
         return fn(m_cat, msq_fused, params, toks, lens)
@@ -427,13 +430,17 @@ def make_score_topk(model: Model, index: MomentIndex, k: int,
 def make_stream_retriever(model: Model, index: MomentIndex, k: int,
                           topk_method: str = "exact",
                           approx_recall: float = 0.95,
-                          rnn_kernel: Optional[str] = None):
+                          rnn_kernel: Optional[str] = None,
+                          mesh=None, axis: str = "corpus"):
     """Throughput serving: ``(params, tokens [M, Q, T], lengths [M, Q]) ->
     (dists [M, Q, k], rows [M, Q, k])``, the M batches in a Python loop
     over one set of operands prepared once (the JAX package scans them
-    inside one program)."""
+    inside one program).  With ``mesh`` the operands are split over its
+    ``axis`` once and every batch runs the sharded top-k: the JAX
+    package's ``make_sharded_stream_retriever``, the mining refresh's mesh
+    path ("fused" raises there)."""
     score_topk = make_score_topk(model, index, k, topk_method,
-                                 approx_recall, rnn_kernel)
+                                 approx_recall, rnn_kernel, mesh, axis)
 
     def retrieve_stream(params, tokens, lengths):
         outs = [score_topk(params, tokens[b], lengths[b])

@@ -10,6 +10,12 @@ gathered there by ``video_idx``.
 Query-dropout masks depend only on (seed, absolute step)
 (``dropout_keep_mask``), so a resumed run draws the masks the original
 run would have drawn.
+
+With a ``mesh`` (data parallel over its "data" axis; ``train.step``) the
+params, optimizer state, Polyak average, eval and checkpoints live on the
+axis's lead device; the train banks are placed on every mesh device, the
+prefetcher sends each chunk's shards to their devices, and the mining
+refresh splits the index over the same axis.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 from vfr_tpu_torch.checkpoint import init_train_params
 from vfr_tpu_torch.config import ExperimentConfig, infonce_tau_warning
-from vfr_tpu_torch.data.features import banks_to_device
+from vfr_tpu_torch.data.features import banks_by_device, banks_to_device
 from vfr_tpu_torch.data.loaders import DataBundle, load_datasets
 from vfr_tpu_torch.data.prefetch import Prefetcher
 from vfr_tpu_torch.device import resolve_device
@@ -41,7 +47,11 @@ from vfr_tpu_torch.train.checkpoint import (
 )
 from vfr_tpu_torch.train.hard_negatives import mine_hard_negatives
 from vfr_tpu_torch.train.optim import make_optimizer
-from vfr_tpu_torch.train.step import make_train_multi_step
+from vfr_tpu_torch.train.step import (
+    chunk_steps,
+    make_train_multi_step,
+    place_batch,
+)
 from vfr_tpu_torch.utils.logging import MetricsLogger
 from vfr_tpu_torch.utils.tree import tree_map
 
@@ -64,15 +74,15 @@ def train(
     device_banks: Optional[Dict[str, Dict]] = None,
     device=None,
 ) -> Tuple[Dict, Dict[str, float]]:
-    """Run the training loop on ``device`` (CUDA unless asked otherwise);
-    returns (serving params: the EMA tree when kept, final eval metrics).
+    """Run the training loop on ``device`` (CUDA unless asked otherwise),
+    or data parallel over ``mesh``'s "data" axis (``device`` is then its
+    lead); returns (serving params: the EMA tree when kept, final eval
+    metrics), on that device.
 
     ``device_banks``: optional {"train": banks, "val": banks} already on
-    the device (``banks_to_device``), to share them with later evals."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training is not yet ported to vfr_tpu_torch")
-    dev = resolve_device(device)
+    the device (``banks_to_device``; the train banks may be its ``mesh=``
+    form), to share them with later evals."""
+    dev = resolve_device(device) if mesh is None else mesh.lead("data")
     tcfg = cfg.train
     if tcfg.best_metric and (
             tcfg.best_metric not in expected_eval_metrics(cfg.eval)):
@@ -146,13 +156,19 @@ def train(
                 "(Charades needs the video_tef bank)")
     else:
         train_banks = banks_to_device(bank_arrays, cfg.data.bank_dtype,
-                                      device=dev)
+                                      device=dev, mesh=mesh)
         val_banks = banks_to_device(dict(val_ds.feature_banks()),
                                     cfg.data.bank_dtype, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if mesh is not None:
+        # one bank dict per distinct mesh device, the lead's first
+        train_banks = banks_by_device(train_banks, mesh.axis_devices("data"))
+    placed = [train_banks] if mesh is None else list(train_banks.values())
+    mine_banks = placed[0]
+    for d in {dev, *(v.device for b in placed for v in b.values())}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     bank_mb = sum(v.element_size() * v.numel()
-                  for d in (train_banks, val_banks) for v in d.values()) / 1e6
+                  for d in (*placed, val_banks) for v in d.values()) / 1e6
     logger.log("setup", start_step, {
         "init_s": round(t_banks - t_setup, 3),
         "bank_upload_s": round(time.perf_counter() - t_banks, 3),
@@ -160,8 +176,13 @@ def train(
     })
     K = tcfg.steps_per_call or max(1, min(tcfg.log_every_steps,
                                           steps_per_epoch))
-    multi_step_fn = make_train_multi_step(model, tcfg, opt,
+    multi_step_fn = make_train_multi_step(model, tcfg, opt, mesh=mesh,
                                           feature_banks=train_banks)
+    placement = {}
+    if mesh is not None:
+        devices = mesh.axis_devices("data")
+        placement["place"] = lambda chunk, copy: place_batch(
+            chunk, devices, 1, copy)
     step = start_step
     final_metrics: Dict[str, float] = {}
     epoch0 = start_step // steps_per_epoch
@@ -194,7 +215,7 @@ def train(
         ):
             t_mine = time.perf_counter()
             mined = mine_hard_negatives(params, model, ds, hn,
-                                        feature_banks=train_banks)
+                                        feature_banks=mine_banks, mesh=mesh)
             logger.log("mine", step, {
                 "epoch": epoch, "count": hn,
                 "mined_valid_frac": float((mined[0] >= 0).mean()),
@@ -228,8 +249,8 @@ def train(
 
         t_last = time.perf_counter()
         for chunk in Prefetcher(epoch_chunks, depth=tcfg.prefetch_depth,
-                                device=dev):
-            k = chunk["tokens"].shape[0]
+                                device=dev, **placement):
+            k = chunk_steps(chunk)
             if ema is None:
                 params, opt_state, aux = multi_step_fn(params, opt_state,
                                                        chunk)
