@@ -10,7 +10,12 @@ Phases, one JSON line each:
               card at the main path's shapes (max |diff|, kernel / plain /
               library ms by CUDA events), both variants of each (LSTM / GRU:
               persistent, stepwise; distance-select / coarse block-max: mma,
-              simt), timed in turns, and at ragged shapes.
+              simt), timed in turns, and at ragged shapes.  K1 / K3 also
+              at B=512 and a ragged B=300 through cuda_lstm / cuda_gru:
+              batch chunks (the reference's rule; 256 and 152 rows), one
+              persistent launch a chunk and none stepwise, the first
+              chunk bit-equal to a run alone; B=512 chunked against
+              stepwise in turns.
   flagship    didemo_flagship at full width (E=300, H=1024, F=2048, joint
               128, two streams, cosine, mean pool), seeded weights, a
               synthetic 10,000-video corpus (210,000 index rows): build,
@@ -24,6 +29,12 @@ Phases, one JSON line each:
               blockmax (K4) and centroid at C=2048, blockmax held against
               the same retriever with K4's plain version; recall@10 vs
               exact.
+  devices     with two cards or more: one flagship batch served with the
+              params and index on cuda:1 while cuda:0 stays current, exact
+              (K1a), fused (K1a + K2) and coarse blockmax (K1a + K4), each
+              held to the same batch on cuda:0, every kernel launched on
+              cuda:1 only; `cli serve --device cuda:1` as a subprocess.
+              With one card a line says it did not run and why.
   follow      daemon serving (`serve_follow`) on the same index: 50
               isolated requests (one in flight) and a backlog of 200 at
               micro-batch 8 (pipeline depth 1 and 2) and 64 (depth 1), exact
@@ -73,6 +84,14 @@ Phases, one JSON line each:
               split by CUDA events, the device's busy share of a step,
               mining refresh and eval seconds; a step that synchronises
               with the host fails it.
+  train_charades `cli train --preset charades_flagship` at full width (B=64,
+              InfoNCE tau 0.02, EMA 0.999, 8 mined negatives from epoch
+              3) on eval_charades' 2,000-video fixture (one val query per
+              video), 4 epochs of 20 steps, the loop's per-video eval at
+              batch 512 through K1b in chunks; then `cli eval` (K1b,
+              persistent only) and `cli corpus` exact (K1b) and fused
+              (K1b + K2 at S=1), each held against the plain versions.
+              Fails as train does; reports step ms, refresh and eval s.
   train_dp    data-parallel training of the train phase's recipe over a
               "data" mesh of 4 (distinct cards when visible, else the first
               card 4 times; a line names the devices): one flagship batch
@@ -125,8 +144,10 @@ Phases, one JSON line each:
               arena; K1b), coarse_2m at n = 4 (full scan held to the
               unsharded one; blockmax K4).
 Every serving and eval run zeroes the kernels' launch counts just before
-it runs and fails unless each kernel of its path launched.  Then one
-{"kernels": [...]} line, the nvidia-smi line, and as the last line
+it runs and fails unless each kernel of its path launched; a per-video
+eval at batch 512 fails if K1 ran stepwise.  The sharded coarse runs
+(flagship, coarse_2m) fail unless K4 launched on every shard's device.
+Then one {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no ok line.
 Without a CUDA device it exits 2 and prints no result.
 
@@ -183,6 +204,7 @@ DP_CHUNK_TOL = 5e-3      # DP vs one-device chunk losses over the cut run:
                          # the trajectories part at f32 rounding and the
                          # refresh may mine other near-ties (9.2e-4 measured)
 REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
+CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX: its one sync), and 26,250 (none)
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -461,6 +483,72 @@ def phase_rnn(results, seed: int, cell: str):
                 f"{name}: max |diff| vs plain {errs}, f32 weights {err32}, "
                 f"ragged {ragged} > 2e-3")
         results[name] = rec
+
+
+def phase_rnn_chunks(results, seed: int, cell: str):
+    """K1 (cell="lstm") or K3 (cell="gru") at batches one persistent grid
+    cannot hold (``CHUNK_BATCHES``: 512, and a ragged 300) through
+    ``cuda_lstm`` / ``cuda_gru`` under variant="auto": the reference's
+    batch chunks (``rnn_plan.device_chunk``), one ``persistent`` launch a
+    chunk and no ``stepwise`` one, held against the plain version over the
+    whole batch (2e-3, as ``phase_rnn``), the first chunk's rows equal bit
+    for bit to that chunk run alone.  B=512 is timed chunked against
+    ``stepwise`` in turns (stepwise, chunked, chunked, stepwise)."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel
+    from vfr_tpu_torch.ops.kernels.rnn_plan import device_chunk
+
+    if cell == "gru":
+        chain, gates, bias_keys = gru_kernel.cuda_gru, 3, ("b_ih", "b_hh")
+    else:
+        chain, gates, bias_keys = lstm_kernel.cuda_lstm, 4, ("b",)
+    T, E, H = 24, 300, 1024
+    for pool, name in (("mean", f"{cell}_pooled"), ("none", f"{cell}_hs")):
+        out = {}
+        for B in CHUNK_BATCHES:
+            layer, plain, _, args16, _, _ = _rnn_case(cell, seed + B, B, T,
+                                                      E, H)
+            x, lengths = args16[:2]
+            params = {"layer0": dict(zip(("w_ih", "w_hh", *bias_keys),
+                                         args16[2:]))}
+            chunk = device_chunk(x.device, B, [(E, H)], gates, True)
+            require(chunk is not None and chunk < B,
+                    f"{name}: B={B} plans chunk {chunk}")
+            n_chunks = -(-B // chunk)
+            reset_counts()
+            got = chain(params, x, lengths, pool=pool)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            variants = counts["variants"][cell]
+            require(variants == {"persistent": n_chunks, "stepwise": 0}
+                    and counts[name] == n_chunks,
+                    f"{name}: B={B} in chunks of {chunk} launched "
+                    f"{counts[name]} ({variants}), wanted {n_chunks} "
+                    "persistent")
+            err = _max_diff(got, plain(*args16, pool=pool))
+            alone = layer(x[:chunk], lengths[:chunk], *args16[2:],
+                          pool=pool, variant="persistent")
+            torch.cuda.synchronize()
+            bit_equal = all(torch.equal(g[:chunk], a)
+                            for g, a in zip(got, alone))
+            rec = dict(B=B, chunk=chunk, chunks=n_chunks,
+                       variants=variants, max_abs_err=err, tol=2e-3,
+                       first_chunk_bit_equal=bit_equal)
+            if B == CHUNK_BATCHES[0]:
+                turns = [cuda_ms(lambda: chain(params, x, lengths,
+                                               pool=pool, variant=v))
+                         for v in ("stepwise", "auto", "auto", "stepwise")]
+                rec.update(ms=(turns[1] + turns[2]) / 2,
+                           stepwise_ms=(turns[0] + turns[3]) / 2,
+                           turns_ms=turns)
+            out[f"B{B}"] = rec
+            require(err <= 2e-3 and bit_equal,
+                    f"{name}: B={B} chunked vs plain {err} (> 2e-3) or "
+                    f"first chunk not bit-equal to a run alone "
+                    f"({bit_equal})")
+        emit({"phase": f"kernel_{name}_chunks", **out})
+        results[name]["chunks"] = out
 
 
 def phase_steps(seed: int):
@@ -974,10 +1062,31 @@ def _variant_dicts():
             "coarse": coarse_kernel.VARIANT_LAUNCHES}
 
 
+def _device_dicts():
+    from vfr_tpu_torch.ops.kernels import (
+        coarse_kernel,
+        gru_kernel,
+        lstm_kernel,
+        select_kernel,
+    )
+
+    return {"lstm": lstm_kernel.DEVICE_LAUNCHES,
+            "gru": gru_kernel.DEVICE_LAUNCHES,
+            "select": select_kernel.DEVICE_LAUNCHES,
+            "coarse": coarse_kernel.DEVICE_LAUNCHES}
+
+
 def reset_counts():
     for counts in (*_count_dicts(), *_variant_dicts().values()):
         for k in counts:
             counts[k] = 0
+    for counts in _device_dicts().values():
+        counts.clear()
+
+
+def read_device_counts():
+    """Launches of each kernel family by device since ``reset_counts``."""
+    return {fam: dict(v) for fam, v in _device_dicts().items()}
 
 
 def read_counts():
@@ -1419,6 +1528,124 @@ def phase_coarse(results, ctx, workdir: str, d_coarse: int = 32,
     results["coarse"] = rec
 
 
+# --------------------------------------------------------------- devices
+
+def _time_on(fn, dev, repeats: int = 5) -> float:
+    """Median host ms of ``fn`` ended by a sync of ``dev`` (not of the
+    current device, which stays cuda:0)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(dev)
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out)) * 1e3
+
+
+def phase_devices(results, ctx, workdir: str, d_coarse: int = 32,
+                  C: int = 2048):
+    """The kernels on a card other than the current one.  With two or
+    more cards: one flagship batch (256 queries, top-10) served with the
+    params and the index on cuda:1 while cuda:0 stays current, exact
+    (K1a), fused (K1a + K2) and coarse blockmax (K1a + K4), each held to
+    the same batch on cuda:0 (rows equal outside near-ties, distances
+    within 1e-3); each kernel must have launched on cuda:1 and on no other
+    card; then ``cli serve --device cuda:1`` as a subprocess.  With one
+    card it prints one line saying it did not run and why."""
+    import torch
+
+    from vfr_tpu_torch.eval import coarse as coarse_mod
+    from vfr_tpu_torch.eval.corpus import load_index, make_retriever
+    from vfr_tpu_torch.models.mcn import prepare_query_params
+    from vfr_tpu_torch.utils.tree import tree_map
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        rec = dict(phase="devices", ran=False, cards=n,
+                   reason=f"{n} CUDA device visible: serving on a second "
+                          "card needs two")
+        emit(rec)
+        results["devices"] = rec
+        return
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    require(torch.cuda.current_device() == 0,
+            f"devices: the current device is {torch.cuda.current_device()}")
+    model, k = ctx["model"], ctx["k"]
+    index0 = ctx["index"]
+    index1 = load_index(os.path.join(workdir, "flagship_index.npz"),
+                        device=d1)
+    coarse0 = ctx.get("coarse") or coarse_mod.build_coarse_index(
+        index0, d_coarse=d_coarse)
+    coarse1 = coarse_mod.load_coarse(coarse_mod.save_coarse(
+        coarse0, os.path.join(workdir, "devices.coarse.npz")), index1)
+    q0 = ctx["q_params"]
+    q1 = prepare_query_params(tree_map(lambda t: t.to(d1), ctx["params"]),
+                              model)
+    toks0, lens0 = ctx["toks"][0], ctx["lens"][0]
+    toks1, lens1 = toks0.to(d1), lens0.to(d1)
+    cells = (
+        ("exact", ("lstm",), lambda idx, crs: make_retriever(
+            model, idx, k, "exact")),
+        ("fused", ("lstm", "select"), lambda idx, crs: make_retriever(
+            model, idx, k, "fused")),
+        ("coarse_blockmax", ("lstm", "coarse"),
+         lambda idx, crs: coarse_mod.make_coarse_retriever(
+             model, crs, k, num_candidates=C, mode="blockmax")))
+    rec = dict(phase="devices", ran=True, cards=n, batch=toks0.shape[0],
+               k=k, rows=index0.num_rows)
+    launches = {}
+    for tag, families, make in cells:
+        r0, r1 = make(index0, coarse0), make(index1, coarse1)
+        d_ref, rows_ref = (t.cpu().numpy() for t in r0(q0, toks0, lens0))
+        reset_counts()
+        out = r1(q1, toks1, lens1)
+        torch.cuda.synchronize(d1)
+        counts, by_dev = read_counts(), read_device_counts()
+        require(all(t.device == d1 for t in out),
+                f"devices[{tag}]: results on {[t.device for t in out]}")
+        d_1, rows_1 = (t.cpu().numpy() for t in out)
+        mism, ddiff = compare_to_plain(d_1, rows_1, d_ref, rows_ref)
+        _add_counts(launches, counts)
+        rec[tag] = dict(
+            launches_by_device={f: by_dev[f] for f in families},
+            rows_differing_from_cuda0=mism,
+            max_distance_diff_vs_cuda0=ddiff,
+            bit_equal_to_cuda0=bool(np.array_equal(d_1, d_ref)
+                                    and np.array_equal(rows_1, rows_ref)),
+            ms_per_batch_cuda1=_time_on(lambda: r1(q1, toks1, lens1), d1),
+            ms_per_batch_cuda0=_time_on(lambda: r0(q0, toks0, lens0), d0))
+        for fam in families:
+            require(by_dev[fam].get(str(d1), 0) > 0
+                    and set(by_dev[fam]) == {str(d1)},
+                    f"devices[{tag}]: {fam} launched {by_dev[fam]}, wanted "
+                    "cuda:1 only")
+        require(mism == 0 and ddiff <= 1e-3,
+                f"devices[{tag}]: cuda:1 vs cuda:0: {mism} rows differ, "
+                f"max |d diff| {ddiff}")
+    # the CLI on the second card, in a process of its own
+    queries = make_queries(ctx["vocab"], 8, ctx["T"], SEED + 29)
+    out, cli_s = _cli_subprocess(
+        ["serve", "--preset", "didemo_flagship", "--data-dir",
+         os.path.join(workdir, "devices_nodata"), "--queries", "-",
+         "--topk", "5", "--device", "cuda:1"], "\n".join(queries) + "\n")
+    lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    require(len(lines) == len(queries) and all(
+        len(x["results"]) == 5
+        and all(np.isfinite(r["distance"]) for r in x["results"])
+        and all(a["distance"] <= b["distance"]
+                for a, b in zip(x["results"], x["results"][1:]))
+        for x in lines), f"devices: cli serve --device cuda:1 answered "
+        f"{out[-2000:]}")
+    rec.update(cli_serve_cuda1=dict(queries=len(queries), seconds=cli_s),
+               launches=launches)
+    emit(rec)
+    results["devices"] = rec
+
+
 # --------------------------------------------------------------- sharded
 
 def corpus_mesh(n: int, axis: str = "corpus", phase: str = "sharded_mesh"):
@@ -1552,6 +1779,7 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         reset_counts()
         d_m, r_m = host(batches(r))
         counts[mode] = read_counts()
+        by_dev = read_device_counts()
         require(bool(np.isfinite(d_m).all())
                 and d_m.shape == (M, toks.shape[1], k)
                 and 0 <= r_m.min() and r_m.max() < index.num_rows,
@@ -1575,9 +1803,14 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
                 d_p, r_p = host(batches(r))
             mism, ddiff = compare_to_plain(d_m, r_m, d_p, r_p)
             rec[mode].update(variant="mma", rows_differing_from_plain=mism,
-                             max_distance_diff_vs_plain=ddiff)
+                             max_distance_diff_vs_plain=ddiff,
+                             k4_launches_by_device=by_dev["coarse"])
             require(counts[mode]["coarse_blockmax"] > 0,
                     "sharded[coarse]: K4 never launched under blockmax")
+            shard_devs = {str(d) for d in mesh.axis_devices("corpus")}
+            require(set(by_dev["coarse"]) == shard_devs,
+                    f"sharded[coarse]: K4 launched on {by_dev['coarse']}, "
+                    f"the shards live on {sorted(shard_devs)}")
             require_mma(counts[mode], "coarse", "sharded[coarse]")
             require(mism == 0 and ddiff <= 1e-3,
                     f"sharded[coarse] vs plain K4: {mism} rows differ, "
@@ -1777,6 +2010,8 @@ def phase_eval(results, ctx, d_coarse: int = 32, C: int = 2048):
     diffs = {"per_video": metrics_close(k_m, p_m, "eval[per-video]")}
     require(k_counts["lstm_pooled"] > 0,
             "eval[per-video]: K1a (lstm_pooled) never launched")
+    require_persistent(k_counts, "lstm", "eval[per-video, batch "
+                       f"{base.eval_batch_size}]")
     variants = {"per_video_K1": k_counts["variants"]["lstm"]}
 
     ex, _ = runs("corpus_exact_scan", corpus())
@@ -1846,28 +2081,45 @@ def _profile_eval_batches(what, params, model, ds, index, banks, ecfg):
                         lambda: retrieve(q_params, toks, lens))
 
 
-def make_charades_corpus(num_videos: int, seed: int):
-    """(cfg, dataset, vocab, glove): charades_flagship over a synthetic
-    Charades-STA corpus of ``num_videos`` videos with 2 planted moments and
-    one query per moment."""
+_CHARADES_FIXTURES = {}
+
+
+def _charades_fixture(num_videos: int, seed: int):
+    """(cfg, fixture): charades_flagship over a synthetic Charades-STA
+    corpus of ``num_videos`` videos with 2 planted moments and one query
+    per moment; built once per (size, seed) for the phases that share it
+    (eval_charades, train_charades)."""
     from vfr_tpu_torch.config import get_preset
-    from vfr_tpu_torch.data.charades import CharadesSTADataset
     from vfr_tpu_torch.data.synthetic import make_charades_fixture
 
-    cfg = get_preset("charades_flagship")
-    data = dataclasses.replace(cfg.data, synthetic_num_videos=num_videos,
-                               synthetic_num_queries=2 * num_videos,
-                               synthetic_moments_per_video=2,
-                               synthetic_seed=seed)
-    cfg = dataclasses.replace(cfg, data=data)
-    fix = make_charades_fixture(
-        num_videos=num_videos, num_queries=2 * num_videos,
-        feature_dim=data.feature_dim, glove_dim=data.glove_dim,
-        max_duration=data.max_duration, feature_seconds=data.feature_seconds,
-        noise=data.synthetic_noise, with_flow=False,
-        vocab_words=data.synthetic_vocab_words, moments_per_video=2,
-        seed=seed)
-    ds = CharadesSTADataset(fix.annotations, fix.rgb, None, fix.vocab, data)
+    key = (num_videos, seed)
+    if key not in _CHARADES_FIXTURES:
+        cfg = get_preset("charades_flagship")
+        data = dataclasses.replace(cfg.data, synthetic_num_videos=num_videos,
+                                   synthetic_num_queries=2 * num_videos,
+                                   synthetic_moments_per_video=2,
+                                   synthetic_seed=seed)
+        cfg = dataclasses.replace(cfg, data=data)
+        fix = make_charades_fixture(
+            num_videos=num_videos, num_queries=2 * num_videos,
+            feature_dim=data.feature_dim, glove_dim=data.glove_dim,
+            max_duration=data.max_duration,
+            feature_seconds=data.feature_seconds,
+            noise=data.synthetic_noise, with_flow=False,
+            vocab_words=data.synthetic_vocab_words, moments_per_video=2,
+            seed=seed)
+        _CHARADES_FIXTURES[key] = (cfg, fix)
+    return _CHARADES_FIXTURES[key]
+
+
+def make_charades_corpus(num_videos: int, seed: int):
+    """(cfg, dataset, vocab, glove): charades_flagship over the synthetic
+    corpus of ``_charades_fixture``, every query in one dataset."""
+    from vfr_tpu_torch.data.charades import CharadesSTADataset
+
+    cfg, fix = _charades_fixture(num_videos, seed)
+    ds = CharadesSTADataset(fix.annotations, fix.rgb, None, fix.vocab,
+                            cfg.data)
     require(len(ds.video_ids) == num_videos,
             f"charades corpus has {len(ds.video_ids)} videos, wanted "
             f"{num_videos}")
@@ -1930,6 +2182,8 @@ def phase_eval_charades(results, seed: int, num_videos: int,
     diffs = {"per_video": metrics_close(k_m, p_m, "eval_charades[per-video]")}
     require(k_counts["lstm_hs"] > 0,
             "eval_charades[per-video]: K1b (lstm_hs) never launched")
+    require_persistent(k_counts, "lstm", "eval_charades[per-video, batch "
+                       f"{base.eval_batch_size}]")
     variants = {"per_video_K1": k_counts["variants"]["lstm"]}
 
     ex, _ = runs("corpus_exact_scan", corpus())
@@ -2198,6 +2452,7 @@ def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
     reset_counts()
     d_c, rows_c = fn(*args)
     c_counts = read_counts()
+    by_dev = read_device_counts()
     _add_counts(counts, c_counts)
     Q, N = w["toks"].shape[0], index.num_rows
     require(bool(torch.isfinite(d_c).all()) and tuple(d_c.shape) == (Q, k)
@@ -2219,9 +2474,14 @@ def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
         rows_differing_from_plain=p_mism,
         max_distance_diff_vs_plain=p_ddiff,
         max_query_diff_vs_plain_k1b=q_err,
-        max_rel_distance_diff_vs_recomputed=rel)
+        max_rel_distance_diff_vs_recomputed=rel,
+        k4_launches_by_device=by_dev["coarse"])
     require(c_counts["coarse_blockmax"] > 0,
             "sharded[coarse_2m]: K4 never launched")
+    shard_devs = {str(d) for d in mesh.axis_devices("corpus")}
+    require(set(by_dev["coarse"]) == shard_devs,
+            f"sharded[coarse_2m]: K4 launched on {by_dev['coarse']}, the "
+            f"shards live on {sorted(shard_devs)}")
     require(p_mism == 0 and p_ddiff <= 1e-3,
             f"sharded[coarse_2m] blockmax vs plain K4: {p_mism} rows "
             f"differ, max |d diff| {p_ddiff}")
@@ -2482,10 +2742,11 @@ def _step_split(model, tcfg, opt, params, opt_state, ema, batch, banks,
     return {k: float(np.median(v)) for k, v in split.items()}
 
 
-def _corpus_on_checkpoint(common, nodata: str, seed: int, load,
-                          n_queries: int, what: str):
-    """``cli corpus`` on a trained checkpoint (``common``: its flags),
-    exact (K1a) and fused (K1a + K2), each beside the same run through the
+def _corpus_on_checkpoint(common, preset_for, load, n_queries: int,
+                          what: str, k1: str = "lstm_pooled"):
+    """``cli corpus`` on a trained checkpoint (``common``: its flags;
+    ``preset_for(rnn_kernel)``: the preset each run sees), exact (K1:
+    ``k1``) and fused (K1 + K2), each beside the same run through the
     kernels' plain versions; fails unless each kernel launched (``mma`` /
     ``persistent``) and the metrics agree.  (runs, max metric diffs)."""
     from unittest import mock
@@ -2495,17 +2756,16 @@ def _corpus_on_checkpoint(common, nodata: str, seed: int, load,
 
     runs = EvalRuns(n_queries)
     diffs = {}
-    for method, kernels in (("exact", ("lstm_pooled",)),
-                            ("fused", ("lstm_pooled", "distance_select"))):
+    for method, kernels in (("exact", (k1,)),
+                            ("fused", (k1, "distance_select"))):
         argv = ["corpus", *common, "--topk-method", method]
         k_m, k_counts = runs(f"corpus_{method}_pallas", lambda: _cli(
-            argv, _train_preset(nodata, seed, "pallas"), load))
+            argv, preset_for("pallas"), load))
         patches = ([mock.patch.object(corpus_mod, "distance_select",
                                       distance_select_plain)]
                    if method == "fused" else [])
         p_m, _ = runs(f"corpus_{method}_plain", lambda: _cli(
-            argv, _train_preset(nodata, seed, "plain"), load),
-            patches=patches)
+            argv, preset_for("plain"), load), patches=patches)
         diffs[method] = metrics_close(k_m, p_m, f"{what}[corpus {method}]")
         for name in kernels:
             require(k_counts[name] > 0,
@@ -2516,44 +2776,13 @@ def _corpus_on_checkpoint(common, nodata: str, seed: int, load,
     return runs, diffs
 
 
-def phase_train(results, seed: int, workdir: str):
-    """``cli train`` of didemo_flagship at full width on a synthetic
-    2,000-video fixture (4 epochs of 20 steps, B=128; mining from the
-    preset's epoch 3, EMA 0.999), then ``cli corpus --checkpoint-dir`` on
-    what it wrote, exact (K1a) and fused (K1a + K2), each held against the
-    kernels' plain versions.  Checks: finite loss, an EMA tree that moved
-    away from the raw params, a checkpoint that reloads bit for bit, and
-    the fused layers' BPTT against autograd through the scan twin on one
-    flagship batch (per leaf, relative to max |grad|).  Reports step ms
-    (median of the chunks), the step split by CUDA events, the device's
-    busy share of a step, mining refresh and eval seconds."""
+def _cli_train(common, preset, load, epochs: int, what: str):
+    """``cli train`` through the loop's prefetcher, counting the chunks it
+    hands out: (final metrics, seconds, kernel launches during the run,
+    the metrics log's records).  Fails unless every chunk came through the
+    prefetcher's side stream, a loss is non-finite or mining never ran."""
     from unittest import mock
 
-    import torch
-
-    from vfr_tpu_torch.checkpoint import load_for_eval
-    from vfr_tpu_torch.data.features import banks_to_device
-    from vfr_tpu_torch.train.checkpoint import (
-        latest_checkpoint,
-        load_payload,
-        restore_checkpoint,
-        restore_ema,
-        save_checkpoint,
-    )
-    from vfr_tpu_torch.train.hard_negatives import mine_hard_negatives
-    from vfr_tpu_torch.train.optim import make_optimizer
-    from vfr_tpu_torch.train.step import _grads, make_train_multi_step
-    from vfr_tpu_torch.utils.tree import flatten, tree_map
-
-    dev = torch.device("cuda")
-    nodata = os.path.join(workdir, "train_nodata")
-    ck = os.path.join(workdir, "train_ck")
-    load = _memo_datasets()
-    preset = _train_preset(nodata, seed)
-    bundle, setup_s = _timed(lambda: load(preset.data))
-    common = ["--preset", "didemo_flagship", "--data-dir", nodata,
-              "--checkpoint-dir", ck]
-    epochs = TRAIN_EPOCHS
     import vfr_tpu_torch.train.loop as loop_mod
 
     fed = {"chunks": 0, "on_side_stream": 0}
@@ -2567,61 +2796,96 @@ def phase_train(results, seed: int, workdir: str):
                 fed["on_side_stream"] += int(bool(self._streams))
                 yield chunk
 
+    reset_counts()
     with mock.patch.object(loop_mod, "Prefetcher", CountingPrefetcher):
         final, train_s = _timed(lambda: _cli(
             ["train", *common, "--epochs", str(epochs), "--steps-per-call",
              str(TRAIN_STEPS_PER_CALL)], preset, load))
-    want_chunks = epochs * -(-TRAIN_STEPS_PER_EPOCH // TRAIN_STEPS_PER_CALL)
+    counts = read_counts()
+    steps = preset.train.steps_per_epoch
+    want_chunks = epochs * -(-steps // TRAIN_STEPS_PER_CALL)
     require(fed["chunks"] == fed["on_side_stream"] == want_chunks,
-            f"train: the prefetcher fed {fed} chunks, wanted {want_chunks} "
+            f"{what}: the prefetcher fed {fed} chunks, wanted {want_chunks} "
             "copied on its side stream")
+    ck = common[common.index("--checkpoint-dir") + 1]
     recs = [json.loads(line) for line in
             open(os.path.join(ck, "metrics.jsonl"), encoding="utf-8")]
     tr = [r for r in recs if r["tag"] == "train"]
     require(tr and all(np.isfinite(r["loss"]) for r in tr),
-            "train: non-finite loss")
-    mine = [r["refresh_s"] for r in recs if r["tag"] == "mine"]
-    require(mine, "train: mining never ran")
-    eval_s = [r["eval_s"] for r in recs if r["tag"] == "eval"]
+            f"{what}: non-finite loss")
+    require(any(r["tag"] == "mine" for r in recs),
+            f"{what}: mining never ran")
+    return final, train_s, counts, recs, fed["chunks"]
 
-    # the checkpoint: bit-exact reload, an EMA that is not the raw params
+
+def _checkpoint_checks(ck: str, workdir: str, preset, bundle, what: str):
+    """The newest checkpoint under ``ck``: it reloads bit for bit,
+    ``load_for_eval`` serves its EMA tree, and that tree moved away from
+    the raw params.  Returns (step, params, opt_state, ema, model)."""
+    import torch
+
+    from vfr_tpu_torch.checkpoint import load_for_eval
+    from vfr_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_payload,
+        peek_config,
+        restore_checkpoint,
+        restore_ema,
+        save_checkpoint,
+    )
+    from vfr_tpu_torch.utils.tree import flatten
+
+    dev = torch.device("cuda")
     ckpt = latest_checkpoint(ck)
     payload = load_payload(ckpt)
     step, params, opt_state, cfg_ck = restore_checkpoint(
         ckpt, payload=payload, device=dev)
+    require(peek_config(ckpt) == cfg_ck,
+            f"{what}: peek_config differs from the restored config")
     ema = restore_ema(ckpt, payload=payload, device=dev)
-    again = save_checkpoint(os.path.join(workdir, "train_ck2"), step,
+    again = save_checkpoint(os.path.join(workdir, f"{what}_ck2"), step,
                             params, opt_state, cfg_ck, ema=ema)
     require(_bitwise_equal(payload, load_payload(again)),
-            "train: the checkpoint does not reload bit for bit")
+            f"{what}: the checkpoint does not reload bit for bit")
     served, model, _ = load_for_eval(dataclasses.replace(
         preset, train=dataclasses.replace(preset.train, checkpoint_dir=ck)),
         bundle=bundle, device=dev)
     _, e_leaves = flatten(ema)
     require(all(torch.equal(a, b) for a, b in
                 zip(flatten(served)[1], e_leaves)),
-            "train: load_for_eval does not serve the EMA tree")
+            f"{what}: load_for_eval does not serve the EMA tree")
     moved = [not torch.equal(a, b) for (p, a), b in
              zip(zip(*flatten(params)), e_leaves) if p != ("embeddings",)]
-    require(all(moved), "train: the EMA tree equals the raw params")
+    require(all(moved), f"{what}: the EMA tree equals the raw params")
+    return step, params, opt_state, ema, model
 
-    # one flagship batch (B=128, mined negatives): step split, busy share,
-    # the fused BPTT against autograd through the scan twin
-    tcfg = preset.train
-    ds = bundle.train
-    banks = banks_to_device(dict(ds.feature_banks()), preset.data.bank_dtype,
-                            device=dev)
+
+def _mined_batch(params, model, ds, tcfg, banks, seed: int):
+    """One train batch (B = the recipe's) with its mined negatives, on
+    the card, and the refresh's seconds."""
+    import torch
+
+    from vfr_tpu_torch.train.hard_negatives import mine_hard_negatives
+
     mined, mine_s = _timed(lambda: mine_hard_negatives(
         params, model, ds, tcfg.hard_negative_count, feature_banks=banks))
     b = next(ds.train_batches(tcfg.batch_size, 1, seed=seed,
                               with_features=False))
     b["hard_neg_video"] = mined[0][b["query_idx"]]
     b["hard_neg_prop"] = mined[1][b["query_idx"]]
-    batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
-             b.items()}
-    opt = make_optimizer(tcfg, TRAIN_STEPS_PER_EPOCH * epochs)
-    split = _step_split(model, tcfg, opt, params, opt_state,
-                        tree_map(torch.clone, ema), batch, banks)
+    return ({k: torch.from_numpy(np.asarray(v)).to(torch.device("cuda"))
+             for k, v in b.items()}, mine_s)
+
+
+def _one_step_checks(model, tcfg, opt, params, opt_state, ema, batch,
+                     banks, what: str, profile: str):
+    """One K-step of one chunk: its device profile, then the same step
+    under torch's sync debug mode, where any host sync raises.  Returns
+    True or fails."""
+    import torch
+
+    from vfr_tpu_torch.train.step import make_train_multi_step
+
     multi = make_train_multi_step(model, tcfg, opt, feature_banks=banks)
     chunk = {k: v[None] for k, v in batch.items()}
     state = {"p": params, "s": opt_state, "e": ema}
@@ -2629,8 +2893,7 @@ def phase_train(results, seed: int, workdir: str):
     def one_step():
         state["p"], state["s"], state["e"], _ = multi(
             state["p"], state["s"], chunk, state["e"])
-    _device_profile("train_step_B128", one_step)
-    # no host sync inside a chunk: any synchronising call raises here
+    _device_profile(profile, one_step)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2640,8 +2903,58 @@ def phase_train(results, seed: int, workdir: str):
         sync_free = str(e).splitlines()[0]
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    require(sync_free is True, f"train: a step synchronised with the host: "
+    require(sync_free is True, f"{what}: a step synchronised with the host: "
             f"{sync_free}")
+    return sync_free
+
+
+def phase_train(results, seed: int, workdir: str):
+    """``cli train`` of didemo_flagship at full width on a synthetic
+    2,000-video fixture (4 epochs of 20 steps, B=128; mining from the
+    preset's epoch 3, EMA 0.999), then ``cli corpus --checkpoint-dir`` on
+    what it wrote, exact (K1a) and fused (K1a + K2), each held against the
+    kernels' plain versions.  Checks: finite loss, an EMA tree that moved
+    away from the raw params, a checkpoint that reloads bit for bit, and
+    the fused layers' BPTT against autograd through the scan twin on one
+    flagship batch (per leaf, relative to max |grad|).  Reports step ms
+    (median of the chunks), the step split by CUDA events, the device's
+    busy share of a step, mining refresh and eval seconds."""
+    import torch
+
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.train.optim import make_optimizer
+    from vfr_tpu_torch.train.step import _grads
+    from vfr_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda")
+    nodata = os.path.join(workdir, "train_nodata")
+    ck = os.path.join(workdir, "train_ck")
+    load = _memo_datasets()
+    preset = _train_preset(nodata, seed)
+    bundle, setup_s = _timed(lambda: load(preset.data))
+    common = ["--preset", "didemo_flagship", "--data-dir", nodata,
+              "--checkpoint-dir", ck]
+    epochs = TRAIN_EPOCHS
+    final, train_s, _, recs, fed = _cli_train(common, preset, load, epochs,
+                                              "train")
+    tr = [r for r in recs if r["tag"] == "train"]
+    mine = [r["refresh_s"] for r in recs if r["tag"] == "mine"]
+    eval_s = [r["eval_s"] for r in recs if r["tag"] == "eval"]
+    step, params, opt_state, ema, model = _checkpoint_checks(
+        ck, workdir, preset, bundle, "train")
+
+    # one flagship batch (B=128, mined negatives): step split, busy share,
+    # no host sync, the fused BPTT against autograd through the scan twin
+    tcfg = preset.train
+    ds = bundle.train
+    banks = banks_to_device(dict(ds.feature_banks()), preset.data.bank_dtype,
+                            device=dev)
+    batch, mine_s = _mined_batch(params, model, ds, tcfg, banks, seed)
+    opt = make_optimizer(tcfg, TRAIN_STEPS_PER_EPOCH * epochs)
+    split = _step_split(model, tcfg, opt, params, opt_state,
+                        tree_map(torch.clone, ema), batch, banks)
+    sync_free = _one_step_checks(model, tcfg, opt, params, opt_state, ema,
+                                 batch, banks, "train", "train_step_B128")
     scan_model = model._replace(cfg=dataclasses.replace(
         model.cfg, train_rnn_impl="scan"))
     _, g_fused = _grads(params, model, tcfg, batch, banks)
@@ -2654,8 +2967,9 @@ def phase_train(results, seed: int, workdir: str):
 
     # cli corpus on the trained checkpoint: K1a (exact) and K1a + K2
     # (fused), each beside the same run through the plain versions
-    runs, diffs = _corpus_on_checkpoint(common, nodata, seed, load,
-                                        bundle.val.num_queries, "train")
+    runs, diffs = _corpus_on_checkpoint(
+        common, lambda kern: _train_preset(nodata, seed, kern), load,
+        bundle.val.num_queries, "train")
     chunk_ms = [r["step_ms"] for r in tr]
     rec = dict(phase="train", preset="didemo_flagship",
                videos=VIDEOS_TRAIN, train_queries=ds.num_queries,
@@ -2665,7 +2979,7 @@ def phase_train(results, seed: int, workdir: str):
                fixture_s=setup_s, train_cli_s=train_s,
                step_ms_median=float(np.median(chunk_ms)),
                step_ms_chunks=chunk_ms, step_split_ms=split,
-               step_sync_free=sync_free, prefetched_chunks=fed["chunks"],
+               step_sync_free=sync_free, prefetched_chunks=fed,
                mining_refresh_s=mine, mining_refresh_s_again=mine_s,
                eval_s=eval_s, final_metrics=final,
                final_loss=tr[-1]["loss"],
@@ -2673,6 +2987,118 @@ def phase_train(results, seed: int, workdir: str):
                max_metric_diff_vs_plain=diffs, runs=runs.runs)
     emit(rec)
     results["train"] = rec
+
+
+def phase_train_charades(results, seed: int, workdir: str,
+                         num_videos: int):
+    """``cli train --preset charades_flagship`` at full width (F=2048,
+    H=1024, joint 128, one stream, cosine, last pool, B=64, InfoNCE tau
+    0.02, EMA 0.999, 8 mined negatives from epoch 3) on the synthetic
+    ``num_videos``-video Charades-STA fixture of eval_charades (one val
+    query per video, so the val index holds every video's 64 windows),
+    cut to 4 epochs of 20 steps (one mining refresh; the loop's eval every
+    epoch at batch 512 through K1b in chunks).  Then ``cli eval`` on what
+    it wrote (per-video, batch 512: K1b chunked, ``persistent`` only) and
+    ``cli corpus``, exact (K1b) and fused (K1b + K2 at S=1), each held
+    against the same run through the kernels' plain versions (within 0.1%
+    of the queries).  Fails on a non-finite loss, an EMA tree equal to the
+    raw params, a checkpoint that does not reload bit for bit, or a host
+    sync inside a step.  Reports step ms at B=64, refresh and eval
+    seconds."""
+    from collections import defaultdict
+
+    import torch
+
+    from vfr_tpu_torch.data.charades import CharadesSTADataset
+    from vfr_tpu_torch.data.features import banks_to_device
+    from vfr_tpu_torch.data.loaders import DataBundle
+    from vfr_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    (cfg, fix), setup_s = _timed(lambda: _charades_fixture(num_videos,
+                                                           seed))
+    by_video = defaultdict(list)
+    for a in fix.annotations:
+        by_video[a["video"]].append(a)
+    train_anns = [a for v in sorted(by_video) for a in by_video[v][:-1]]
+    val_anns = [by_video[v][-1] for v in sorted(by_video)]
+    bundle = DataBundle(
+        CharadesSTADataset(train_anns, fix.rgb, None, fix.vocab, cfg.data),
+        CharadesSTADataset(val_anns, fix.rgb, None, fix.vocab, cfg.data),
+        fix.vocab, fix.glove, cfg.data.feature_dim, "synthetic")
+
+    def load(dcfg):
+        return bundle
+
+    def preset_for(rnn_kernel):
+        return dataclasses.replace(
+            cfg,
+            train=dataclasses.replace(cfg.train,
+                                      steps_per_epoch=TRAIN_STEPS_PER_EPOCH),
+            eval=dataclasses.replace(cfg.eval, rnn_kernel=rnn_kernel))
+
+    what = "train_charades"
+    ck = os.path.join(workdir, "train_charades_ck")
+    common = ["--preset", "charades_flagship", "--data-dir",
+              os.path.join(workdir, "charades_nodata"),
+              "--checkpoint-dir", ck]
+    epochs = TRAIN_EPOCHS
+    preset = preset_for("pallas")
+    final, train_s, loop_counts, recs, fed = _cli_train(
+        common, preset, load, epochs, what)
+    require(loop_counts["lstm_hs"] > 0,
+            f"{what}: the loop's eval never launched K1b")
+    require_persistent(loop_counts, "lstm", f"{what}[loop eval, batch "
+                       f"{preset.eval.eval_batch_size}]")
+    tr = [r for r in recs if r["tag"] == "train"]
+    mine = [r["refresh_s"] for r in recs if r["tag"] == "mine"]
+    eval_s = [r["eval_s"] for r in recs if r["tag"] == "eval"]
+    step, params, opt_state, ema, model = _checkpoint_checks(
+        ck, workdir, preset, bundle, what)
+
+    # one Charades batch (B=64, mined negatives re-embedded with their
+    # video's TEF): no host sync inside a step
+    tcfg, ds = preset.train, bundle.train
+    banks = banks_to_device({**ds.feature_banks(), "video_tef": ds.video_tef},
+                            preset.data.bank_dtype, device=dev)
+    batch, mine_s = _mined_batch(params, model, ds, tcfg, banks, seed)
+    opt = make_optimizer(tcfg, TRAIN_STEPS_PER_EPOCH * epochs)
+    sync_free = _one_step_checks(model, tcfg, opt, params, opt_state, ema,
+                                 batch, banks, what, "train_step_charades_B64")
+
+    # cli eval (per-video, batch 512: K1b in chunks) and cli corpus (K1b;
+    # K1b + K2 at S=1), each beside its plain-version run
+    n_val = bundle.val.num_queries
+    runs = EvalRuns(n_val)
+    k_m, k_counts = runs("per_video_pallas", lambda: _cli(
+        ["eval", *common], preset, load))
+    p_m, _ = runs("per_video_plain", lambda: _cli(
+        ["eval", *common], preset_for("plain"), load))
+    diffs = {"per_video": metrics_close(k_m, p_m, f"{what}[eval]")}
+    require(list(k_m) == eval_keys(preset.eval),
+            f"{what}: eval keys {list(k_m)}")
+    require(k_counts["lstm_hs"] > 0, f"{what}[eval]: K1b never launched")
+    require_persistent(k_counts, "lstm", f"{what}[eval, batch "
+                       f"{preset.eval.eval_batch_size}]")
+    c_runs, c_diffs = _corpus_on_checkpoint(common, preset_for, load, n_val,
+                                            what, k1="lstm_hs")
+    diffs.update({f"corpus_{k}": v for k, v in c_diffs.items()})
+    chunk_ms = [r["step_ms"] for r in tr]
+    rec = dict(phase=what, preset="charades_flagship", videos=num_videos,
+               rows=num_videos * cfg.data.max_windows,
+               train_queries=ds.num_queries, val_queries=n_val,
+               batch=tcfg.batch_size, epochs=epochs, steps=step,
+               steps_per_call=TRAIN_STEPS_PER_CALL, fixture_s=setup_s,
+               train_cli_s=train_s,
+               step_ms_median=float(np.median(chunk_ms)),
+               step_ms_chunks=chunk_ms, step_sync_free=sync_free,
+               prefetched_chunks=fed, loop_launches=loop_counts,
+               mining_refresh_s=mine, mining_refresh_s_again=mine_s,
+               eval_s=eval_s, final_metrics=final,
+               final_loss=tr[-1]["loss"], max_metric_diff_vs_plain=diffs,
+               runs={**runs.runs, **c_runs.runs})
+    emit(rec)
+    results[what] = rec
 
 
 # -------------------------------------------------------------- train_dp
@@ -3014,8 +3440,9 @@ def phase_train_dp(results, seed: int, workdir: str):
     # cli corpus on the DP run's checkpoint: K1a, K1a + K2
     common = ["--preset", "didemo_flagship", "--data-dir", nodata,
               "--checkpoint-dir", loops["dp"]["ck"]]
-    runs, diffs = _corpus_on_checkpoint(common, nodata, seed, load,
-                                        bundle.val.num_queries, "train_dp")
+    runs, diffs = _corpus_on_checkpoint(
+        common, lambda kern: _train_preset(nodata, seed, kern), load,
+        bundle.val.num_queries, "train_dp")
 
     # cli train --data-parallel, one epoch
     built, err = [], io.StringIO()
@@ -3920,10 +4347,16 @@ def kernels_line(results):
         return results.get("live", {}).get("launches", {}).get(name, 0)
 
     def new_paths(name):
+        tc = results.get("train_charades", {})
         return dict(follow=follow_launches(name), live=live_launches(name),
                     sharded=results.get("sharded", {}).get(
                         "launches", {}).get(name, 0),
-                    train_dp=eval_launches(name, ("train_dp",)))
+                    train_dp=eval_launches(name, ("train_dp",)),
+                    train_charades=(eval_launches(name, ("train_charades",))
+                                    + tc.get("loop_launches", {}).get(name,
+                                                                      0)),
+                    devices=results.get("devices", {}).get(
+                        "launches", {}).get(name, 0))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3937,7 +4370,8 @@ def kernels_line(results):
                         train_launches=train_launches(name),
                         **new_paths(name),
                         **{key: r[key] for key in keys},
-                        variant=r["variant"], stepwise_ms=r["stepwise_ms"]))
+                        variant=r["variant"], stepwise_ms=r["stepwise_ms"],
+                        chunked_B512=r["chunks"]["B512"]))
     # the fused cell's index is f32 (the flagship preset); the bf16-index
     # build of the same kernel is reported beside it
     src, rep = KERNEL_SOURCES["distance_select"]
@@ -3971,9 +4405,9 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-ALL_PHASES = ("kernels", "flagship", "coarse", "follow", "eval", "sharded",
-              "train", "train_dp", "packed", "eval_charades", "serving_10k",
-              "live", "gru", "coarse_2m")
+ALL_PHASES = ("kernels", "flagship", "coarse", "devices", "follow", "eval",
+              "sharded", "train", "train_charades", "train_dp", "packed",
+              "eval_charades", "serving_10k", "live", "gru", "coarse_2m")
 # the phases whose set-ups the sharded checks ride on
 SHARDED_HOSTS = ("flagship", "eval_charades", "live", "coarse_2m")
 
@@ -3982,8 +4416,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of " + ", ".join(ALL_PHASES)
-                         + " and profile (coarse, follow and eval need "
-                           "flagship; sharded adds its mesh checks to "
+                         + " and profile (coarse, devices, follow and eval "
+                           "need flagship; sharded adds its mesh checks to "
                          + ", ".join(SHARDED_HOSTS) + " and runs them); the "
                            "default runs all but profile and is the only "
                            "one that ends with the ok line; rnn runs the "
@@ -4010,6 +4444,8 @@ def main(argv=None) -> int:
     shards = 4 if "sharded" in phases else 0
     if shards:
         phases |= set(SHARDED_HOSTS)
+    if "devices" in phases:
+        phases.add("flagship")
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -4037,8 +4473,9 @@ def main(argv=None) -> int:
     if "wgmma_rate" in phases:
         phase_wgmma_rate()
     if phases & {"kernels", "rnn"}:
-        phase_rnn(results, SEED, "lstm")
-        phase_rnn(results, SEED, "gru")
+        for cell in ("lstm", "gru"):
+            phase_rnn(results, SEED, cell)
+            phase_rnn_chunks(results, SEED, cell)
     if phases & {"kernels", "select"}:
         phase_select(results, SEED)
         settle()
@@ -4050,6 +4487,9 @@ def main(argv=None) -> int:
             ctx = phase_serving(results, SEED, VIDEOS, workdir)
             if "coarse" in phases:
                 phase_coarse(results, ctx, workdir)
+                settle()
+            if "devices" in phases:
+                phase_devices(results, ctx, workdir)
                 settle()
             if "follow" in phases:
                 phase_follow(results, ctx, workdir)
@@ -4063,6 +4503,10 @@ def main(argv=None) -> int:
             settle()
         if "train" in phases:
             phase_train(results, SEED, workdir)
+            settle()
+        if "train_charades" in phases:
+            phase_train_charades(results, SEED + 17, workdir,
+                                 VIDEOS_CHARADES)
             settle()
         if "train_dp" in phases:
             phase_train_dp(results, SEED, workdir)

@@ -1,5 +1,7 @@
 """Background batch assembly with a bounded queue and host -> device copies
-off the consumer's stream (the train loop's chunk feed).
+off the consumer's stream (the train loop's chunk feed), and
+``device_put_prefetch``, the JAX package's generator that keeps a few
+batches' copies queued ahead of the consumer.
 
 ``Prefetcher(batch_fn, depth, device)`` runs ``batch_fn()`` (an iterator of
 dicts of numpy arrays) on a background thread; at most ``depth`` assembled
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from vfr_tpu_torch.device import resolve_device
+from vfr_tpu_torch.parallel.mesh import split_batch
 
 _SENTINEL = object()
 
@@ -36,6 +39,46 @@ def _tensor(v) -> torch.Tensor:
     if not a.flags.c_contiguous:
         a = a.copy()
     return torch.from_numpy(a)
+
+
+def device_put_prefetch(
+    it: Iterator[Dict[str, np.ndarray]],
+    depth: int = 2,
+    device=None,
+    mesh=None,
+) -> Iterator:
+    """Keep ``depth`` batches' copies queued ahead of the consumer: each
+    batch of ``it`` is placed when it arrives and handed out ``depth``
+    batches later (the JAX package's ``device_put_prefetch``).  On
+    ``device`` (CUDA unless asked otherwise) each array is a pinned
+    ``non_blocking`` copy on the current stream, so the consumer's work
+    is ordered after it and the host does not wait.  With ``mesh`` a
+    batch is split by rows over the mesh's first axis instead
+    (``parallel.mesh.split_batch``): one dict per position."""
+    if mesh is not None:
+        devices = mesh.axis_devices(mesh.axis_names[0])
+
+        def put(batch):
+            return split_batch(batch, devices, copy=_place)
+    else:
+        dev = resolve_device(device)
+
+        def put(batch):
+            return {k: _place(v, dev) for k, v in batch.items()}
+    buf = []
+    for batch in it:
+        buf.append(put(batch))
+        if len(buf) > depth:
+            yield buf.pop(0)
+    yield from buf
+
+
+def _place(v, dev) -> torch.Tensor:
+    dev = torch.device(dev)
+    t = _tensor(v)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 class Prefetcher:

@@ -16,13 +16,13 @@ one from shapes, dtype and device properties, and ``variant=`` holds a call
 to one.  Nothing falls back: a variant that cannot run raises.
 
 ``LAUNCHES`` counts kernel launches under "coarse_blockmax",
-``VARIANT_LAUNCHES`` the same launches by variant, and ``LAST_PLAN`` is the
-plan of the last one.
+``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` the same launches by variant
+and by device, and ``LAST_PLAN`` is the plan of the last one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,7 @@ KERNEL_BLOCK_N = 16384
 
 LAUNCHES = {"coarse_blockmax": 0}
 VARIANT_LAUNCHES = {"mma": 0, "simt": 0}
+DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
 LAST_PLAN: Optional[CoarsePlan] = None
 
 _QT = 64                        # queries per CTA (csrc/coarse_blockmax.cu)
@@ -76,7 +77,8 @@ def coarse_blockmax(
 ) -> torch.Tensor:
     """Per-block maxima of the coarse scores: sb [Q, G].  ``variant``
     ("auto", "mma", "simt") holds the call to one kernel variant ("mma"
-    raises where the plan refuses it)."""
+    raises where the plan refuses it).  The kernel launches on the CUDA
+    device of ``q_low``, which ``m_low`` and ``msq_low`` must share."""
     global LAST_PLAN
     Q, d = q_low.shape
     N = m_low.shape[0]
@@ -111,25 +113,28 @@ def coarse_blockmax(
                          "shared-memory tiles")
     from vfr_tpu_torch.kernels.build import check, load
 
-    q_low = aligned16(q_low.float().contiguous())
-    m_low = aligned16(m_low.contiguous())
-    msq_low = aligned16(msq_low.float().contiguous())
-    out = torch.empty(Q, -(-N // block_rows), dtype=torch.float32,
-                      device=q_low.device)
-    stream = torch.cuda.current_stream(q_low.device).cuda_stream
-    lib = load("coarse_blockmax")
-    if plan.variant == "mma":
-        err = lib.vfr_coarse_blockmax_mma(
-            q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
-            out.data_ptr(), Q, N, d, block_rows, plan.stages_per_cta,
-            plan.grid[1], plan.smem_bytes, stream)
-    else:
-        err = lib.vfr_coarse_blockmax(
-            q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
-            out.data_ptr(), Q, N, d, block_rows,
-            int(m_low.dtype == torch.bfloat16), stream)
+    dev = q_low.device
+    with torch.cuda.device(dev):
+        q_low = aligned16(q_low.float().contiguous())
+        m_low = aligned16(m_low.contiguous())
+        msq_low = aligned16(msq_low.float().contiguous())
+        out = torch.empty(Q, -(-N // block_rows), dtype=torch.float32,
+                          device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = load("coarse_blockmax")
+        if plan.variant == "mma":
+            err = lib.vfr_coarse_blockmax_mma(
+                q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
+                out.data_ptr(), Q, N, d, block_rows, plan.stages_per_cta,
+                plan.grid[1], plan.smem_bytes, stream)
+        else:
+            err = lib.vfr_coarse_blockmax(
+                q_low.data_ptr(), m_low.data_ptr(), msq_low.data_ptr(),
+                out.data_ptr(), Q, N, d, block_rows,
+                int(m_low.dtype == torch.bfloat16), stream)
     check(err, f"coarse_blockmax[{plan.variant}]")
     LAUNCHES["coarse_blockmax"] += 1
     VARIANT_LAUNCHES[plan.variant] += 1
+    DEVICE_LAUNCHES[str(dev)] = DEVICE_LAUNCHES.get(str(dev), 0) + 1
     LAST_PLAN = plan
     return out

@@ -11,9 +11,11 @@ arithmetic step by step in PyTorch.  ``cuda_gru`` chains layers like
 from shapes and device properties or held by ``variant=``; nothing falls
 back.
 
-``LAUNCHES`` counts kernel launches (one per layer call on CUDA), keyed
-"gru_pooled" (K3a) and "gru_hs" (K3b); ``VARIANT_LAUNCHES`` counts the
-same launches by variant, and ``LAST_PLAN`` is the plan of the last one.
+``LAUNCHES`` counts kernel launches (one per layer call on CUDA, so one
+per chunk and layer of a chunked batch), keyed "gru_pooled" (K3a) and
+"gru_hs" (K3b); ``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` count the
+same launches by variant and by device, and ``LAST_PLAN`` is the plan of
+the last one.
 """
 
 from __future__ import annotations
@@ -25,12 +27,17 @@ import torch
 from vfr_tpu_torch.ops.kernels.rnn_plan import (
     CHUNK,
     RecurrencePlan,
+    Workspace,
+    chain_layers,
+    check_out,
     device_plan,
+    into,
 )
 from vfr_tpu_torch.ops.lstm import gru_cell_update
 
 LAUNCHES = {"gru_pooled": 0, "gru_hs": 0}
 VARIANT_LAUNCHES = {"persistent": 0, "stepwise": 0}
+DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
 LAST_PLAN: Optional[RecurrencePlan] = None
 
 
@@ -73,17 +80,23 @@ def gru_layer(
     w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
     pool: str = "none", weights_dtype: torch.dtype = torch.bfloat16,
     variant: str = "auto", fuse_input: Optional[bool] = None,
-    timeline: Optional[torch.Tensor] = None,
+    timeline: Optional[torch.Tensor] = None, *,
+    out: Optional[torch.Tensor] = None,
+    h_last_out: Optional[torch.Tensor] = None,
+    workspace: Optional[Workspace] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  Same results as ``gru_recurrence_plain``; ``variant``,
-    ``fuse_input`` and ``timeline`` as for ``lstm_layer``."""
+    ``fuse_input``, ``timeline``, ``out``, ``h_last_out`` and
+    ``workspace`` as for ``lstm_layer``.  The kernel launches on the CUDA
+    device of ``x``, which every operand must share."""
     global LAST_PLAN
     if pool not in ("none", "mean"):
         raise ValueError(f"unknown pool {pool!r}")
     if x.device.type == "cpu":
-        return gru_recurrence_plain(x, lengths, w_ih, w_hh, b_ih, b_hh, pool,
-                                    weights_dtype)
+        h_last, second = gru_recurrence_plain(x, lengths, w_ih, w_hh, b_ih,
+                                              b_hh, pool, weights_dtype)
+        return into(h_last, second, h_last_out, out)
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {x.device}")
     if weights_dtype not in (torch.bfloat16, torch.float32):
@@ -105,76 +118,88 @@ def gru_layer(
                     ("b_hh", b_hh), ("lengths", lengths)):
         if t.device != dev:
             raise ValueError(f"gru_layer: {name} on {t.device}, x on {dev}")
-    x = x.float().contiguous()
-    w_ih = w_ih.to(weights_dtype).contiguous()
-    w_hh = w_hh.to(weights_dtype).contiguous()
-    b_ih = b_ih.float().contiguous()
-    b_hh = b_hh.float().contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    bf16 = weights_dtype == torch.bfloat16
-    if bf16 and H % 8:
-        raise ValueError(f"bf16 GRU kernel needs hidden % 8 == 0, got {H}")
-    plan = device_plan(dev, B, E, H, 3, bf16, variant, fuse_input)
-    f32 = dict(dtype=torch.float32, device=dev)
-    b16 = dict(dtype=torch.bfloat16, device=dev)
-    h_last = torch.empty(B, H, **f32)
     pooled = pool == "mean"
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = load("gru_recurrence")
-    if plan.variant == "persistent":
-        timeline_ptr = 0
-        if timeline is not None:
-            if (timeline.device != dev or timeline.dtype != torch.int64
-                    or tuple(timeline.shape) != (T, 5)
-                    or not timeline.is_contiguous()):
-                raise ValueError("timeline must be a contiguous CUDA int64 "
-                                 f"tensor [{T}, 5]")
-            timeline_ptr = timeline.data_ptr()
-        out = torch.empty((B, H) if pooled else (B, T, H), **f32)
-        if plan.fuse_input:
-            xb = torch.empty(B * T, -(-E // CHUNK) * CHUNK, **b16)
-            gx_ptr = 0
+    check_out("h_last_out", h_last_out, (B, H), dev)
+    check_out("out", out, (B, H) if pooled else (B, T, H), dev)
+    with torch.cuda.device(dev):
+        x = x.float().contiguous()
+        w_ih = w_ih.to(weights_dtype).contiguous()
+        w_hh = w_hh.to(weights_dtype).contiguous()
+        b_ih = b_ih.float().contiguous()
+        b_hh = b_hh.float().contiguous()
+        lengths = lengths.to(torch.int32).contiguous()
+        bf16 = weights_dtype == torch.bfloat16
+        if bf16 and H % 8:
+            raise ValueError(f"bf16 GRU kernel needs hidden % 8 == 0, got "
+                             f"{H}")
+        plan = device_plan(dev, B, E, H, 3, bf16, variant, fuse_input)
+        f32 = dict(dtype=torch.float32, device=dev)
+        b16 = dict(dtype=torch.bfloat16, device=dev)
+        h_last = (h_last_out if h_last_out is not None
+                  else torch.empty(B, H, **f32))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = load("gru_recurrence")
+        if plan.variant == "persistent":
+            timeline_ptr = 0
+            if timeline is not None:
+                if (timeline.device != dev or timeline.dtype != torch.int64
+                        or tuple(timeline.shape) != (T, 5)
+                        or not timeline.is_contiguous()):
+                    raise ValueError("timeline must be a contiguous CUDA "
+                                     f"int64 tensor [{T}, 5] on {dev}")
+                timeline_ptr = timeline.data_ptr()
+            if out is None:
+                out = torch.empty((B, H) if pooled else (B, T, H), **f32)
+            ws = workspace if workspace is not None else Workspace(dev)
+            if plan.fuse_input:
+                xb = ws.take("xb", (B * T, -(-E // CHUNK) * CHUNK),
+                             torch.bfloat16)
+                gx_ptr = 0
+            else:
+                xb = ws.take("xb", (B * T, -(-E // 8) * 8), torch.bfloat16)
+                gx_ptr = ws.take("gx", (B, T, 3 * H), torch.float32
+                                 ).data_ptr()
+            hb = ws.take("hb", (2, B, H), torch.bfloat16)
+            # the grid barrier's counter, zeroed for each launch
+            counter = ws.take("counter", (1,), torch.int32).zero_()
+            err = lib.vfr_gru_layer_persistent(
+                x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                b_ih.data_ptr(), b_hh.data_ptr(), lengths.data_ptr(),
+                xb.data_ptr(), gx_ptr, hb.data_ptr(), counter.data_ptr(),
+                0 if pooled else out.data_ptr(), h_last.data_ptr(),
+                out.data_ptr() if pooled else 0, B, T, E, H, int(pooled),
+                plan.warpgroups,
+                int(plan.fuse_input), plan.grid[0], plan.grid[1],
+                plan.smem_bytes, stream, timeline_ptr)
         else:
-            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
             gx = torch.empty(B, T, 3 * H, **f32)
-            gx_ptr = gx.data_ptr()
-        hb = torch.empty(2, B, H, **b16)
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = lib.vfr_gru_layer_persistent(
-            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), lengths.data_ptr(), xb.data_ptr(), gx_ptr,
-            hb.data_ptr(), counter.data_ptr(),
-            0 if pooled else out.data_ptr(), h_last.data_ptr(),
-            out.data_ptr() if pooled else 0, B, T, E, H, int(pooled),
-            plan.warpgroups,
-            int(plan.fuse_input), plan.grid[0], plan.grid[1],
-            plan.smem_bytes, stream, timeline_ptr)
-    else:
-        gx = torch.empty(B, T, 3 * H, **f32)
-        h_a = torch.zeros(B, H, **f32)
-        h_b = torch.empty(B, H, **f32)
-        if pooled:
-            seq = torch.zeros(B, H, **f32)          # live-step sum
-            out = torch.empty(B, H, **f32)
-        else:
-            seq = torch.empty(B, T, H, **f32)
-            out = seq
-        if bf16:   # the tensor-core path's bf16 operand copies of x and h
-            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
-            hb_a = torch.zeros(B, H, **b16)
-            hb_b = torch.empty(B, H, **b16)
-            bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
-        else:
-            bf16_ptrs = (0, 0, 0)
-        err = lib.vfr_gru_layer(
-            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(),
-            h_a.data_ptr(), h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2],
-            seq.data_ptr(), h_last.data_ptr(), out.data_ptr() if pooled else 0,
-            B, T, E, H, int(bf16), int(pooled), stream)
+            h_a = torch.zeros(B, H, **f32)
+            h_b = torch.empty(B, H, **f32)
+            if pooled:
+                seq = torch.zeros(B, H, **f32)          # live-step sum
+                if out is None:
+                    out = torch.empty(B, H, **f32)
+            else:
+                seq = out if out is not None else torch.empty(B, T, H, **f32)
+                out = seq
+            if bf16:   # the tensor-core path's bf16 operand copies of x, h
+                xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
+                hb_a = torch.zeros(B, H, **b16)
+                hb_b = torch.empty(B, H, **b16)
+                bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
+            else:
+                bf16_ptrs = (0, 0, 0)
+            err = lib.vfr_gru_layer(
+                x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                b_ih.data_ptr(), b_hh.data_ptr(), lengths.data_ptr(),
+                bf16_ptrs[0], gx.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
+                bf16_ptrs[1], bf16_ptrs[2], seq.data_ptr(),
+                h_last.data_ptr(), out.data_ptr() if pooled else 0,
+                B, T, E, H, int(bf16), int(pooled), stream)
     check(err, f"gru_recurrence[{plan.variant}]")
     LAUNCHES["gru_pooled" if pooled else "gru_hs"] += 1
     VARIANT_LAUNCHES[plan.variant] += 1
+    DEVICE_LAUNCHES[str(dev)] = DEVICE_LAUNCHES.get(str(dev), 0) + 1
     LAST_PLAN = plan
     return h_last, out
 
@@ -186,18 +211,14 @@ def cuda_gru(
     weights_dtype: torch.dtype = torch.bfloat16,
     pool: str = "none",
     layer_fn: Callable = gru_layer,
+    variant: str = "auto",
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-layer twin of ``pallas_gru``: returns (h_last, hs [B, T, H])
     or, with ``pool="mean"``, (h_last, pooled [B, H]) from the last layer.
     ``layer_fn=gru_recurrence_plain`` runs the plain version on any device
-    (how checks hold the kernel against it on the card)."""
-    hs = x
-    h_last = None
-    n = len(params)
-    for layer in range(n):
-        p = params[f"layer{layer}"]
-        h_last, hs = layer_fn(
-            hs, lengths, p["w_ih"], p["w_hh"], p["b_ih"], p["b_hh"],
-            pool=pool if layer == n - 1 else "none",
-            weights_dtype=weights_dtype)
-    return h_last, hs
+    (how checks hold the kernel against it on the card).  Batch chunks,
+    ``variant`` and ``chunk`` as for ``cuda_lstm``."""
+    return chain_layers(params, x, lengths, weights_dtype, pool, layer_fn,
+                        variant, chunk, gates=3, kernel=gru_layer,
+                        bias_keys=("b_ih", "b_hh"))

@@ -12,9 +12,11 @@ resident in shared memory, one cooperative launch per layer) and
 from shapes and device properties, and ``variant=`` holds a call to one.
 Nothing falls back: a variant that cannot run raises.
 
-``LAUNCHES`` counts kernel launches (one per layer call on CUDA), keyed
-"lstm_pooled" (K1a) and "lstm_hs" (K1b); ``VARIANT_LAUNCHES`` counts the
-same launches by variant, and ``LAST_PLAN`` is the plan of the last one.
+``LAUNCHES`` counts kernel launches (one per layer call on CUDA, so one
+per chunk and layer of a chunked batch), keyed "lstm_pooled" (K1a) and
+"lstm_hs" (K1b); ``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` count the
+same launches by variant and by device, and ``LAST_PLAN`` is the plan of
+the last one.
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ import torch
 from vfr_tpu_torch.ops.kernels.rnn_plan import (
     CHUNK,
     RecurrencePlan,
+    Workspace,
+    chain_layers,
+    check_out,
     device_plan,
+    into,
 )
 from vfr_tpu_torch.ops.lstm import cell_update
 
 LAUNCHES = {"lstm_pooled": 0, "lstm_hs": 0}
 VARIANT_LAUNCHES = {"persistent": 0, "stepwise": 0}
+DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
 LAST_PLAN: Optional[RecurrencePlan] = None
 
 
@@ -77,7 +84,10 @@ def lstm_layer(
     w_hh: torch.Tensor, b: torch.Tensor, pool: str = "none",
     weights_dtype: torch.dtype = torch.bfloat16,
     variant: str = "auto", fuse_input: Optional[bool] = None,
-    timeline: Optional[torch.Tensor] = None,
+    timeline: Optional[torch.Tensor] = None, *,
+    out: Optional[torch.Tensor] = None,
+    h_last_out: Optional[torch.Tensor] = None,
+    workspace: Optional[Workspace] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  Same results as ``lstm_recurrence_plain``.  ``variant``
@@ -85,13 +95,18 @@ def lstm_layer(
     ("persistent" raises where the plan refuses it); ``fuse_input`` forces
     the persistent variant's resident W_ih on or off; ``timeline``, a CUDA
     int64 tensor [T, 5], receives the persistent kernel's per-step time
-    stamps (``csrc/rnn_common.cuh::stamp``)."""
+    stamps (``csrc/rnn_common.cuh::stamp``).  ``out`` / ``h_last_out``
+    receive the results in place (a batch chunk's rows of the chain's
+    output); ``workspace`` lends the persistent variant its work buffers.
+    The kernel launches on the CUDA device of ``x``, which every operand
+    must share."""
     global LAST_PLAN
     if pool not in ("none", "mean"):
         raise ValueError(f"unknown pool {pool!r}")
     if x.device.type == "cpu":
-        return lstm_recurrence_plain(x, lengths, w_ih, w_hh, b, pool,
-                                     weights_dtype)
+        h_last, second = lstm_recurrence_plain(x, lengths, w_ih, w_hh, b,
+                                               pool, weights_dtype)
+        return into(h_last, second, h_last_out, out)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_layer: unsupported device {x.device}")
     if weights_dtype not in (torch.bfloat16, torch.float32):
@@ -112,75 +127,87 @@ def lstm_layer(
                     ("lengths", lengths)):
         if t.device != dev:
             raise ValueError(f"lstm_layer: {name} on {t.device}, x on {dev}")
-    x = x.float().contiguous()
-    w_ih = w_ih.to(weights_dtype).contiguous()
-    w_hh = w_hh.to(weights_dtype).contiguous()
-    b = b.float().contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    bf16 = weights_dtype == torch.bfloat16
-    if bf16 and H % 8:
-        raise ValueError(f"bf16 LSTM kernel needs hidden % 8 == 0, got {H}")
-    plan = device_plan(dev, B, E, H, 4, bf16, variant, fuse_input)
-    f32 = dict(dtype=torch.float32, device=dev)
-    b16 = dict(dtype=torch.bfloat16, device=dev)
-    h_last = torch.empty(B, H, **f32)
     pooled = pool == "mean"
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = load("lstm_recurrence")
-    if plan.variant == "persistent":
-        timeline_ptr = 0
-        if timeline is not None:
-            if (timeline.device != dev or timeline.dtype != torch.int64
-                    or tuple(timeline.shape) != (T, 5)
-                    or not timeline.is_contiguous()):
-                raise ValueError("timeline must be a contiguous CUDA int64 "
-                                 f"tensor [{T}, 5]")
-            timeline_ptr = timeline.data_ptr()
-        out = torch.empty((B, H) if pooled else (B, T, H), **f32)
-        if plan.fuse_input:
-            xb = torch.empty(B * T, -(-E // CHUNK) * CHUNK, **b16)
-            gx_ptr = 0
+    check_out("h_last_out", h_last_out, (B, H), dev)
+    check_out("out", out, (B, H) if pooled else (B, T, H), dev)
+    with torch.cuda.device(dev):
+        x = x.float().contiguous()
+        w_ih = w_ih.to(weights_dtype).contiguous()
+        w_hh = w_hh.to(weights_dtype).contiguous()
+        b = b.float().contiguous()
+        lengths = lengths.to(torch.int32).contiguous()
+        bf16 = weights_dtype == torch.bfloat16
+        if bf16 and H % 8:
+            raise ValueError(f"bf16 LSTM kernel needs hidden % 8 == 0, got "
+                             f"{H}")
+        plan = device_plan(dev, B, E, H, 4, bf16, variant, fuse_input)
+        f32 = dict(dtype=torch.float32, device=dev)
+        b16 = dict(dtype=torch.bfloat16, device=dev)
+        h_last = (h_last_out if h_last_out is not None
+                  else torch.empty(B, H, **f32))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = load("lstm_recurrence")
+        if plan.variant == "persistent":
+            timeline_ptr = 0
+            if timeline is not None:
+                if (timeline.device != dev or timeline.dtype != torch.int64
+                        or tuple(timeline.shape) != (T, 5)
+                        or not timeline.is_contiguous()):
+                    raise ValueError("timeline must be a contiguous CUDA "
+                                     f"int64 tensor [{T}, 5] on {dev}")
+                timeline_ptr = timeline.data_ptr()
+            if out is None:
+                out = torch.empty((B, H) if pooled else (B, T, H), **f32)
+            ws = workspace if workspace is not None else Workspace(dev)
+            if plan.fuse_input:
+                xb = ws.take("xb", (B * T, -(-E // CHUNK) * CHUNK),
+                             torch.bfloat16)
+                gx_ptr = 0
+            else:
+                xb = ws.take("xb", (B * T, -(-E // 8) * 8), torch.bfloat16)
+                gx_ptr = ws.take("gx", (B, T, 4 * H), torch.float32
+                                 ).data_ptr()
+            hb = ws.take("hb", (2, B, H), torch.bfloat16)
+            # the grid barrier's counter, zeroed for each launch
+            counter = ws.take("counter", (1,), torch.int32).zero_()
+            err = lib.vfr_lstm_layer_persistent(
+                x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+                lengths.data_ptr(), xb.data_ptr(), gx_ptr, hb.data_ptr(),
+                counter.data_ptr(), 0 if pooled else out.data_ptr(),
+                h_last.data_ptr(), out.data_ptr() if pooled else 0, B, T, E,
+                H, int(pooled), plan.warpgroups,
+                int(plan.fuse_input), plan.grid[0], plan.grid[1],
+                plan.smem_bytes, stream, timeline_ptr)
         else:
-            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
             gx = torch.empty(B, T, 4 * H, **f32)
-            gx_ptr = gx.data_ptr()
-        hb = torch.empty(2, B, H, **b16)
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = lib.vfr_lstm_layer_persistent(
-            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
-            lengths.data_ptr(), xb.data_ptr(), gx_ptr, hb.data_ptr(),
-            counter.data_ptr(), 0 if pooled else out.data_ptr(),
-            h_last.data_ptr(), out.data_ptr() if pooled else 0, B, T, E, H,
-            int(pooled), plan.warpgroups,
-            int(plan.fuse_input), plan.grid[0], plan.grid[1],
-            plan.smem_bytes, stream, timeline_ptr)
-    else:
-        gx = torch.empty(B, T, 4 * H, **f32)
-        h_a = torch.zeros(B, H, **f32)
-        h_b = torch.empty(B, H, **f32)
-        c = torch.zeros(B, H, **f32)
-        if pooled:
-            seq = torch.zeros(B, H, **f32)          # live-step sum
-            out = torch.empty(B, H, **f32)
-        else:
-            seq = torch.empty(B, T, H, **f32)
-            out = seq
-        if bf16:   # the tensor-core path's bf16 operand copies of x and h
-            xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
-            hb_a = torch.zeros(B, H, **b16)
-            hb_b = torch.empty(B, H, **b16)
-            bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
-        else:
-            bf16_ptrs = (0, 0, 0)
-        err = lib.vfr_lstm_layer(
-            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
-            lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(), h_a.data_ptr(),
-            h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2], c.data_ptr(),
-            seq.data_ptr(), h_last.data_ptr(), out.data_ptr() if pooled else 0,
-            B, T, E, H, int(bf16), int(pooled), stream)
+            h_a = torch.zeros(B, H, **f32)
+            h_b = torch.empty(B, H, **f32)
+            c = torch.zeros(B, H, **f32)
+            if pooled:
+                seq = torch.zeros(B, H, **f32)          # live-step sum
+                if out is None:
+                    out = torch.empty(B, H, **f32)
+            else:
+                seq = out if out is not None else torch.empty(B, T, H, **f32)
+                out = seq
+            if bf16:   # the tensor-core path's bf16 operand copies of x, h
+                xb = torch.empty(B * T, -(-E // 8) * 8, **b16)
+                hb_a = torch.zeros(B, H, **b16)
+                hb_b = torch.empty(B, H, **b16)
+                bf16_ptrs = (xb.data_ptr(), hb_a.data_ptr(), hb_b.data_ptr())
+            else:
+                bf16_ptrs = (0, 0, 0)
+            err = lib.vfr_lstm_layer(
+                x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+                lengths.data_ptr(), bf16_ptrs[0], gx.data_ptr(),
+                h_a.data_ptr(), h_b.data_ptr(), bf16_ptrs[1], bf16_ptrs[2],
+                c.data_ptr(), seq.data_ptr(), h_last.data_ptr(),
+                out.data_ptr() if pooled else 0, B, T, E, H, int(bf16),
+                int(pooled), stream)
     check(err, f"lstm_recurrence[{plan.variant}]")
     LAUNCHES["lstm_pooled" if pooled else "lstm_hs"] += 1
     VARIANT_LAUNCHES[plan.variant] += 1
+    DEVICE_LAUNCHES[str(dev)] = DEVICE_LAUNCHES.get(str(dev), 0) + 1
     LAST_PLAN = plan
     return h_last, out
 
@@ -192,18 +219,20 @@ def cuda_lstm(
     weights_dtype: torch.dtype = torch.bfloat16,
     pool: str = "none",
     layer_fn: Callable = lstm_layer,
+    variant: str = "auto",
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-layer twin of ``pallas_lstm``: returns (h_last, hs [B, T, H])
     or, with ``pool="mean"``, (h_last, pooled [B, H]) from the last layer.
     ``layer_fn=lstm_recurrence_plain`` runs the plain version on any
-    device (how checks hold the kernel against it on the card)."""
-    hs = x
-    h_last = None
-    n = len(params)
-    for layer in range(n):
-        p = params[f"layer{layer}"]
-        h_last, hs = layer_fn(
-            hs, lengths, p["w_ih"], p["w_hh"], p["b"],
-            pool=pool if layer == n - 1 else "none",
-            weights_dtype=weights_dtype)
-    return h_last, hs
+    device (how checks hold the kernel against it on the card).
+
+    A batch the ``persistent`` plan cannot hold in one grid runs in batch
+    chunks (``rnn_plan.device_chunk``: the reference's ``batch_chunk`` over
+    the device's plan), the layer chain once per chunk, as ``pallas_lstm``
+    does; ``variant`` is handed to every layer ("stepwise" runs
+    unchunked).  ``chunk`` forces chunks of that many rows on any device
+    and layer function."""
+    return chain_layers(params, x, lengths, weights_dtype, pool, layer_fn,
+                        variant, chunk, gates=4, kernel=lstm_layer,
+                        bias_keys=("b",))

@@ -15,12 +15,20 @@ Variants of ``csrc/lstm_recurrence.cu`` / ``csrc/gru_recurrence.cu``:
 
 The choice is a function of (B, E, H, gates, dtype, SM count, shared
 memory bytes) only; nothing is decided by trying a launch.
+
+A batch whose grid exceeds the SMs runs ``persistent`` in batch chunks, as
+the JAX package's ``pallas_lstm`` / ``pallas_gru`` run a batch too large
+for VMEM (``batch_chunk``, ``run_batch_chunks``): the kernel is
+batch-independent, so every row comes out as it would alone in its chunk.
+The tail chunk runs at its own size (no padding on the card), every chunk
+writes its rows into slices of one output, and the chunks share one set of
+work buffers (``Workspace``) on the launching stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -120,6 +128,160 @@ def device_plan(device: torch.device, B: int, E: int, H: int, gates: int,
     if variant == "persistent" and plan.variant != "persistent":
         raise ValueError(f"persistent recurrence refused: {plan.reason}")
     return plan
+
+
+def batch_chunk(B: int, fits: Callable[[int], bool]) -> Optional[int]:
+    """Largest 8-aligned batch chunk satisfying ``fits`` (None if none):
+    the JAX package's rule, halving and rounding up to 8 from ``B``."""
+    chunk = B
+    while chunk > 8 and not fits(chunk):
+        chunk = ((chunk + 1) // 2 + 7) // 8 * 8
+    return chunk if fits(chunk) else None
+
+
+def device_chunk(device: torch.device, B: int,
+                 layer_shapes: Sequence[Tuple[int, int]], gates: int,
+                 weights_bf16: bool, variant: str = "auto") -> Optional[int]:
+    """The batch chunk a chain of layers (``layer_shapes``: (E, H) each)
+    runs in on ``device``: the largest ``batch_chunk`` at which every layer
+    plans ``persistent`` on that device's properties; B when the whole
+    batch does, and None when no chunk does or ``variant`` is "stepwise"
+    (the chain then runs unchunked)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    if variant == "stepwise" or B < 1:
+        return None
+    props = torch.cuda.get_device_properties(device)
+
+    def fits(b):
+        return all(plan_recurrence(
+            b, H, gates, props.multi_processor_count,
+            props.shared_memory_per_block_optin, E=E,
+            weights_bf16=weights_bf16).variant == "persistent"
+            for E, H in layer_shapes)
+    return batch_chunk(B, fits)
+
+
+class Workspace:
+    """Work buffers one launch after another reuses on the same stream:
+    ``take(name, shape, dtype)`` is a view of the first elements of one
+    flat buffer per name (grown when too small), so the chunks of a batch
+    and the layers of a chain allocate each buffer once."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: Dict[str, torch.Tensor] = {}
+
+    def take(self, name: str, shape: Tuple[int, ...],
+             dtype: torch.dtype) -> torch.Tensor:
+        n = 1
+        for s in shape:
+            n *= s
+        buf = self._bufs.get(name)
+        if buf is None or buf.dtype != dtype or buf.numel() < n:
+            buf = self._bufs[name] = torch.empty(n, dtype=dtype,
+                                                 device=self.device)
+        return buf[:n].view(shape)
+
+
+def run_batch_chunks(run: Callable, x: torch.Tensor, lengths: torch.Tensor,
+                     chunk: int, out_shape: Tuple[int, ...]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply ``run(xc, lc, h_last_rows, out_rows)`` over batch chunks of
+    ``chunk`` rows, the tail at its own size; ``run`` writes each chunk's
+    results into its rows of one (h_last [B, H], out ``out_shape``) pair,
+    which is returned.  Rows of both are contiguous by batch, so a chunk's
+    rows are a contiguous slice and nothing is concatenated."""
+    B = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h_last = torch.empty(B, out_shape[-1], **f32)
+    out = torch.empty(out_shape, **f32)
+    for lo in range(0, B, chunk):
+        hi = min(lo + chunk, B)
+        run(x[lo:hi], lengths[lo:hi], h_last[lo:hi], out[lo:hi])
+    return h_last, out
+
+
+def check_out(name: str, t: Optional[torch.Tensor], shape, dev) -> None:
+    """Refuse an in-place result tensor the kernels cannot write into."""
+    if t is not None and (tuple(t.shape) != tuple(shape)
+                          or t.dtype != torch.float32 or t.device != dev
+                          or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 tensor "
+                         f"{tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def into(h_last: torch.Tensor, second: torch.Tensor,
+         h_last_out: Optional[torch.Tensor] = None,
+         out: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's results, copied into ``h_last_out`` / ``out`` where those
+    are given and are not already the results themselves."""
+    if h_last_out is not None and h_last_out is not h_last:
+        h_last = h_last_out.copy_(h_last)
+    if out is not None and out is not second:
+        second = out.copy_(second)
+    return h_last, second
+
+
+def chain_layers(params: Dict[str, Dict[str, torch.Tensor]],
+                 x: torch.Tensor, lengths: torch.Tensor,
+                 weights_dtype: torch.dtype, pool: str, layer_fn: Callable,
+                 variant: str, chunk: Optional[int], gates: int,
+                 kernel: Callable, bias_keys: Sequence[str]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cuda_lstm`` / ``cuda_gru``: the layers of ``params`` chained
+    (inner layers emit hs, the last one pools when ``pool="mean"``) by
+    ``layer_fn``, over batch chunks where one grid cannot hold the batch.
+
+    With the kernel wrapper (``layer_fn is kernel``) on a CUDA tensor the
+    chunk is planned on that device (``device_chunk``), ``variant`` goes to
+    every layer, each chunk's last layer writes straight into its rows of
+    the output and every launch borrows its buffers from one ``Workspace``
+    (inner layers' hs ping-pong between two).  Any other layer function
+    (the plain version) runs unchunked unless ``chunk`` forces chunks, and
+    its results are copied into the rows."""
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"batch chunk must be >= 1, got {chunk}")
+    layers = [params[f"layer{i}"] for i in range(len(params))]
+    is_kernel = layer_fn is kernel
+    B, T = x.shape[:2]
+    if chunk is None and is_kernel and x.device.type == "cuda":
+        chunk = device_chunk(
+            x.device, B, [(p["w_ih"].shape[0], p["w_hh"].shape[0])
+                          for p in layers],
+            gates, weights_dtype == torch.bfloat16, variant)
+
+    def run(xc, lc, h_dst=None, o_dst=None, ws=None):
+        hs, h_last = xc, None
+        for i, p in enumerate(layers):
+            last = i == len(layers) - 1
+            kw = {}
+            if is_kernel:
+                kw["variant"] = variant
+                if ws is not None:
+                    b, H = xc.shape[0], p["w_hh"].shape[0]
+                    kw.update(
+                        workspace=ws,
+                        h_last_out=(h_dst if last else ws.take(
+                            "h_inner", (b, H), torch.float32)),
+                        out=(o_dst if last else ws.take(
+                            f"hs{i % 2}", (b, T, H), torch.float32)))
+            h_last, hs = layer_fn(
+                hs, lc, p["w_ih"], p["w_hh"], *(p[k] for k in bias_keys),
+                pool=pool if last else "none", weights_dtype=weights_dtype,
+                **kw)
+        return into(h_last, hs, h_dst, o_dst)
+
+    if chunk is None or chunk >= B:
+        return run(x, lengths)
+    ws = Workspace(x.device) if is_kernel else None
+    H = layers[-1]["w_hh"].shape[0]
+    return run_batch_chunks(
+        lambda xc, lc, h, o: run(xc, lc, h, o, ws), x, lengths, chunk,
+        (B, H) if pool == "mean" else (B, T, H))
 
 
 RNN_WEIGHT_KEYS = ("w_ih", "w_hh")

@@ -18,14 +18,14 @@ properties, and ``variant=`` holds a call to one.  Nothing falls back: a
 variant that cannot run raises.
 
 ``LAUNCHES`` counts kernel launches under "distance_select",
-``VARIANT_LAUNCHES`` the same launches by variant, and ``LAST_PLAN`` is the
-plan of the last one.  ``distance_select_split_tf32`` is the plain-PyTorch
+``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` the same launches by variant
+and by device, and ``LAST_PLAN`` is the plan of the last one.  ``distance_select_split_tf32`` is the plain-PyTorch
 emulation of the arithmetic the ``mma`` variant uses on an f32 index.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +41,7 @@ from vfr_tpu_torch.ops.kernels.select_plan import (
 
 LAUNCHES = {"distance_select": 0}
 VARIANT_LAUNCHES = {"mma": 0, "simt": 0}
+DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
 LAST_PLAN: Optional[SelectPlan] = None
 
 
@@ -155,7 +156,9 @@ def distance_select(
     """Fused distances + binned min-candidates: (cand_d [Q, C], cand_rows
     [Q, C]).  ``variant`` ("auto", "mma", "simt") holds the call to one
     kernel variant ("mma" raises where the plan refuses it); ``a_splits``
-    forces the mma variant's number of a ranges per bin."""
+    forces the mma variant's number of a ranges per bin.  The kernel
+    launches on the CUDA device of ``q``, which ``m`` and ``m_sq`` must
+    share."""
     global LAST_PLAN
     S, Q, d = q.shape
     N = m.shape[1]
@@ -196,47 +199,50 @@ def distance_select(
     from vfr_tpu_torch.kernels.build import check, load
 
     dev = q.device
-    q = aligned16(q.float().contiguous())
-    m = aligned16(m.contiguous())
-    m_sq = aligned16(m_sq.float().contiguous())
-    bins = block_n // bin_size
-    tiles = -(-N // block_n)
-    C = tiles * bins
-    vals = torch.empty(Q, C, dtype=torch.float32, device=dev)
-    rows = torch.empty(Q, C, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    w1 = weights[1] if S == 2 else 0.0
-    bf16 = int(m.dtype == torch.bfloat16)
-    lib = load("distance_select")
-    if plan.variant == "mma":
-        cr = torch.empty(tiles * block_n, dtype=torch.float32, device=dev)
-        cq = torch.empty(Q, dtype=torch.float32, device=dev)
-        # the kernel's bf16 copy of q, zero padded to whole ring chunks
-        qb_ptr = 0
-        if bf16:
-            qb = torch.empty(S, Q, -(-d // plan.chunk) * plan.chunk,
-                             dtype=torch.bfloat16, device=dev)
-            qb_ptr = qb.data_ptr()
-        if plan.a_splits > 1:
-            pv = torch.empty(plan.a_splits, Q, C, dtype=torch.float32,
-                             device=dev)
-            pr = torch.empty(plan.a_splits, Q, C, dtype=torch.int32,
-                             device=dev)
-            pv_ptr, pr_ptr = pv.data_ptr(), pr.data_ptr()
+    with torch.cuda.device(dev):
+        q = aligned16(q.float().contiguous())
+        m = aligned16(m.contiguous())
+        m_sq = aligned16(m_sq.float().contiguous())
+        bins = block_n // bin_size
+        tiles = -(-N // block_n)
+        C = tiles * bins
+        vals = torch.empty(Q, C, dtype=torch.float32, device=dev)
+        rows = torch.empty(Q, C, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        w1 = weights[1] if S == 2 else 0.0
+        bf16 = int(m.dtype == torch.bfloat16)
+        lib = load("distance_select")
+        if plan.variant == "mma":
+            cr = torch.empty(tiles * block_n, dtype=torch.float32, device=dev)
+            cq = torch.empty(Q, dtype=torch.float32, device=dev)
+            # the kernel's bf16 copy of q, zero padded to whole ring chunks
+            qb_ptr = 0
+            if bf16:
+                qb = torch.empty(S, Q, -(-d // plan.chunk) * plan.chunk,
+                                 dtype=torch.bfloat16, device=dev)
+                qb_ptr = qb.data_ptr()
+            if plan.a_splits > 1:
+                pv = torch.empty(plan.a_splits, Q, C, dtype=torch.float32,
+                                 device=dev)
+                pr = torch.empty(plan.a_splits, Q, C, dtype=torch.int32,
+                                 device=dev)
+                pv_ptr, pr_ptr = pv.data_ptr(), pr.data_ptr()
+            else:
+                pv_ptr = pr_ptr = 0
+            err = lib.vfr_distance_select_mma(
+                q.data_ptr(), m.data_ptr(), m_sq.data_ptr(), weights[0], w1,
+                S, Q, N, d, bin_size, block_n, bf16, plan.a_splits,
+                plan.a_per_split, plan.smem_bytes, cr.data_ptr(),
+                cq.data_ptr(), qb_ptr, pv_ptr, pr_ptr, vals.data_ptr(),
+                rows.data_ptr(), stream)
         else:
-            pv_ptr = pr_ptr = 0
-        err = lib.vfr_distance_select_mma(
-            q.data_ptr(), m.data_ptr(), m_sq.data_ptr(), weights[0], w1, S,
-            Q, N, d, bin_size, block_n, bf16, plan.a_splits,
-            plan.a_per_split, plan.smem_bytes, cr.data_ptr(), cq.data_ptr(),
-            qb_ptr, pv_ptr, pr_ptr, vals.data_ptr(), rows.data_ptr(), stream)
-    else:
-        err = lib.vfr_distance_select(
-            q.data_ptr(), m.data_ptr(), m_sq.data_ptr(), weights[0], w1, S,
-            Q, N, d, bin_size, block_n, bf16, vals.data_ptr(),
-            rows.data_ptr(), stream)
+            err = lib.vfr_distance_select(
+                q.data_ptr(), m.data_ptr(), m_sq.data_ptr(), weights[0], w1,
+                S, Q, N, d, bin_size, block_n, bf16, vals.data_ptr(),
+                rows.data_ptr(), stream)
     check(err, f"distance_select[{plan.variant}]")
     LAUNCHES["distance_select"] += 1
     VARIANT_LAUNCHES[plan.variant] += 1
+    DEVICE_LAUNCHES[str(dev)] = DEVICE_LAUNCHES.get(str(dev), 0) + 1
     LAST_PLAN = plan
     return vals, rows

@@ -157,6 +157,35 @@ def top_k_select(
     return topk_lowest_index(x, k)
 
 
+def hierarchical_top_k(x: torch.Tensor, k: int, chunk: int = 2048
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis of ``x [..., N]`` (largest first, equal
+    values lowest index first): the JAX package's ``hierarchical_top_k``,
+    a top-k of each ``chunk``-column piece (the last padded with -inf)
+    then a top-k of their candidates.  Exact for any chunk size; a flat
+    top-k when chunking cannot help.  Candidates are kept chunk by chunk,
+    each chunk's in (value, index) order, so the final select's lowest
+    position among equal values is their lowest index."""
+    n = x.shape[-1]
+    if k >= n:
+        return topk_lowest_index(x, min(k, n))
+    if n <= 2 * chunk or chunk <= k:
+        return topk_lowest_index(x, k)
+    lead = x.shape[:-1]
+    num_chunks = -(-n // chunk)
+    pad = num_chunks * chunk - n
+    if pad:
+        x = torch.cat([x, x.new_full((*lead, pad), float("-inf"))], dim=-1)
+    kc = min(k, chunk)
+    vals_c, idx_c = topk_lowest_index(x.reshape(*lead, num_chunks, chunk),
+                                      kc)                 # [..., C, kc]
+    base = torch.arange(num_chunks, device=x.device)[:, None] * chunk
+    cand_v = vals_c.reshape(*lead, num_chunks * kc)
+    cand_i = (idx_c + base).reshape(*lead, num_chunks * kc)
+    vals, pos = topk_lowest_index(cand_v, k)
+    return vals, torch.gather(cand_i, -1, pos)
+
+
 def check_topk_method(method: str) -> None:
     """Raise on a method ``top_k_select`` has not ("fused" is a retriever's
     kernel path, not a selection)."""

@@ -82,6 +82,15 @@ def config_of(payload: Dict[str, np.ndarray]) -> Optional[ExperimentConfig]:
     return ExperimentConfig.from_json(cj) if cj else None
 
 
+def peek_config(path: str) -> Optional[ExperimentConfig]:
+    """The config stored in a checkpoint, or None: only ``config_json`` is
+    read (an npz member is read when asked for), not the trees."""
+    with np.load(path) as z:
+        if "config_json" not in z.files:
+            return None
+        return config_of({"config_json": z["config_json"]})
+
+
 def _opt_state(tree: Dict, device) -> Dict:
     out = {k: params_from_numpy(v, device) for k, v in tree.items()
            if k != "count"}
