@@ -155,7 +155,10 @@ Not in the default run (``--phases``): ``rnn`` (the K1 / K3 checks alone),
 ``select`` (K2's), ``coarse_kernel`` (K4's),
 ``profile`` (device time by kernel name), ``steps`` (the persistent
 kernels' per-step time split), ``wgmma_rate`` (the tensor cores' own time
-for a step's products).
+for a step's products), ``trace`` (with ``coarse_2m`` and ``train_dp``,
+whose mesh runs it turns on: a host and device trace of one sharded
+``coarse_2m`` blockmax batch beside the unsharded one, and of one
+data-parallel step beside a one-card step).
 """
 
 from __future__ import annotations
@@ -932,34 +935,63 @@ def phase_select(results, seed: int):
     results["distance_select"] = recs
 
 
-def _device_profile(what: str, work, iters: int = 5):
+def _device_profile(what: str, work, iters: int = 5, host: bool = False):
     """One JSON line (also returned): device time by CUDA kernel name
     (torch.profiler) of ``work`` per iteration, their sum, the host wall
-    time per iteration and the device's busy share of it."""
+    time per iteration and the device's busy share of it.  With ``host``
+    the host is traced too: its busiest operations and CUDA runtime calls
+    by self time, every copy and fill by kind, and the device time by
+    card (the wall then includes the host trace's own cost)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     work()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             work()
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    rows = []
+    rows, copies, host_rows = [], [], []
     for ev in prof.key_averages():
+        # with the host traced, its operations carry their kernels' time
+        # too: only the card's own events count as device time
+        on_card = getattr(ev, "device_type", None) == DeviceType.CUDA
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us:
-            rows.append({"name": ev.key[:80], "calls": ev.count // iters,
-                         "device_ms_per_iter": dev_us / iters / 1e3})
+        if dev_us and (on_card or not host):
+            row = {"name": ev.key[:80], "calls": ev.count // iters,
+                   "device_ms_per_iter": dev_us / iters / 1e3}
+            rows.append(row)
+            if ev.key.startswith(("Memcpy", "Memset")):
+                copies.append(row)
+        elif host and not on_card and ev.self_cpu_time_total:
+            host_rows.append({
+                "name": ev.key[:80], "calls": ev.count / iters,
+                "self_host_ms_per_iter": ev.self_cpu_time_total / iters
+                / 1e3})
     rows.sort(key=lambda r: -r["device_ms_per_iter"])
     busy = sum(r["device_ms_per_iter"] for r in rows)
     rec = {"phase": "profile", "what": what, "wall_ms_per_iter": wall_ms,
            "device_ms_per_iter": busy, "device_busy_share": busy / wall_ms,
            "kernels": rows[:12]}
+    if host:
+        by_card = {}
+        for ev in prof.events():
+            if getattr(ev, "device_type", None) == DeviceType.CUDA:
+                key = f"cuda:{ev.device_index}"
+                by_card[key] = (by_card.get(key, 0.0)
+                                + ev.time_range.elapsed_us() / iters / 1e3)
+        host_rows.sort(key=lambda r: -r["self_host_ms_per_iter"])
+        rec.update(copies=copies, device_ms_per_iter_by_card=by_card,
+                   host_self_ms_per_iter=sum(
+                       r["self_host_ms_per_iter"] for r in host_rows),
+                   host_ops=host_rows[:16])
     emit(rec)
     return rec
 
@@ -2353,7 +2385,8 @@ def _coarse_2m_setup(seed: int, num_videos: int, d_coarse: int = 32):
                 setup_s=setup_s, build_s=build_s)
 
 
-def phase_coarse_2m(results, seed: int, num_videos: int, shards: int = 0):
+def phase_coarse_2m(results, seed: int, num_videos: int, shards: int = 0,
+                    trace: bool = False):
     """2.1M-row serving: exact full scan vs the coarse retriever; with
     ``shards``, both again over a "corpus" mesh (the full scan held to the
     unsharded one, blockmax C=2048 with K4 on every shard)."""
@@ -2406,11 +2439,12 @@ def phase_coarse_2m(results, seed: int, num_videos: int, shards: int = 0):
     emit(rec)
     results["coarse_2m"] = rec
     if shards:
-        _coarse_2m_sharded(results, w, shards, d_full, rows_full)
+        _coarse_2m_sharded(results, w, shards, d_full, rows_full,
+                           trace=trace)
 
 
 def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
-                       C: int = 2048):
+                       C: int = 2048, trace: bool = False):
     """The 2.1M-row index over ``n`` shards: the exact full scan (held to
     the unsharded one) and blockmax at C (K4 on every shard, ``mma``; its
     results checked for shape, finiteness and row range, held to the same
@@ -2422,7 +2456,10 @@ def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
     import torch
 
     from vfr_tpu_torch.eval import coarse as coarse_mod
-    from vfr_tpu_torch.eval.coarse import make_sharded_coarse_retriever
+    from vfr_tpu_torch.eval.coarse import (
+        make_coarse_score_topk,
+        make_sharded_coarse_retriever,
+    )
     from vfr_tpu_torch.eval.corpus import make_retriever
     from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
 
@@ -2490,6 +2527,14 @@ def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
             f"distances vs recomputed (relative) {rel}")
     require_mma(c_counts, "coarse", "sharded[coarse_2m]")
     require(counts["lstm_hs"] > 0, "sharded[coarse_2m]: K1b never launched")
+    if trace:
+        # where a sharded batch's time goes, beside the unsharded one
+        _device_profile(f"coarse_2m_blockmax_C{C}_n{n}_host",
+                        lambda: fn(*args), host=True)
+        one = make_coarse_score_topk(model, coarse, k, num_candidates=C,
+                                     mode="blockmax")
+        _device_profile(f"coarse_2m_blockmax_C{C}_host",
+                        lambda: one(*args), host=True)
     _sharded_record(results, "coarse_2m", counts, rec)
 
 
@@ -3227,7 +3272,7 @@ def _chunk_ms(fn, state, chunk, k: int, chunks: int = 5):
     return float(np.median(dev_ms)), float(np.median(wall_ms))
 
 
-def phase_train_dp(results, seed: int, workdir: str):
+def phase_train_dp(results, seed: int, workdir: str, trace: bool = False):
     """Data-parallel training of didemo_flagship at full width (B=128) on
     the train phase's 2,000-video fixture over a "data" mesh of
     ``TRAIN_DP_SHARDS`` positions (distinct cards when visible, else the
@@ -3389,6 +3434,19 @@ def phase_train_dp(results, seed: int, workdir: str):
         prof_state["p"], prof_state["s"], prof_state["e"], _ = one(
             prof_state["p"], prof_state["s"], one_chunk, prof_state["e"])
     prof = _device_profile(f"train_dp_step_B128_n{n}", one_step)
+    if trace:
+        # where the host's time goes: one step on the mesh, one on a card
+        _device_profile(f"train_dp_step_B128_n{n}_host", one_step,
+                        host=True)
+        one_dev_chunk = {k: torch.from_numpy(v[:1]).to(dev)
+                         for k, v in chunk_host.items()}
+
+        def one_dev_step():
+            prof_state["p"], prof_state["s"], prof_state["e"], _ = fns[1](
+                prof_state["p"], prof_state["s"], one_dev_chunk,
+                prof_state["e"])
+        _device_profile("train_dp_step_B128_n1_host", one_dev_step,
+                        host=True)
 
     # the loop: train(mesh=) beside one device, same recipe and seed
     fed = {}
@@ -4424,7 +4482,10 @@ def main(argv=None) -> int:
                            "K1 / K3 kernel checks alone, select the K2 and "
                            "coarse_kernel the K4 checks, steps prints the "
                            "persistent kernels' per-step time split, "
-                           "wgmma_rate the tensor cores' own time for it")
+                           "wgmma_rate the tensor cores' own time for it, "
+                           "trace runs the mesh part of the phases "
+                           "given and adds host traces to coarse_2m and "
+                           "train_dp")
     ap.add_argument("--resource-usage", action="store_true",
                     help="print ptxas's registers, shared memory and spills "
                          "of every kernel after the build")
@@ -4441,8 +4502,8 @@ def main(argv=None) -> int:
     from vfr_tpu_torch.kernels.build import build_all
 
     phases = set(args.phases.split(","))
-    shards = 4 if "sharded" in phases else 0
-    if shards:
+    shards = 4 if phases & {"sharded", "trace"} else 0
+    if "sharded" in phases:
         phases |= set(SHARDED_HOSTS)
     if "devices" in phases:
         phases.add("flagship")
@@ -4509,7 +4570,7 @@ def main(argv=None) -> int:
                                  VIDEOS_CHARADES)
             settle()
         if "train_dp" in phases:
-            phase_train_dp(results, SEED, workdir)
+            phase_train_dp(results, SEED, workdir, trace="trace" in phases)
             settle()
         if "packed" in phases:
             phase_packed(results, SEED, workdir)
@@ -4528,7 +4589,8 @@ def main(argv=None) -> int:
         phase_gru(results, SEED, VIDEOS_10K)
         settle()
     if "coarse_2m" in phases:
-        phase_coarse_2m(results, SEED, VIDEOS_2M, shards=shards)
+        phase_coarse_2m(results, SEED, VIDEOS_2M, shards=shards,
+                        trace="trace" in phases)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if not set(ALL_PHASES) <= phases:
         emit({"partial": sorted(phases)})

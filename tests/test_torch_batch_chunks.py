@@ -13,9 +13,12 @@ chunk's rows bit for bit there).  Here, on the CPU:
   numbers (132 SMs, 232,448 bytes of shared memory, H=1024): 256 at
   B=512, 152 at B=300, 136 at B=257, 256 at B=1,024; ``device_chunk``
   reads a device's properties into the same rule;
-* ``cuda_lstm`` / ``cuda_gru`` with a forced chunk (8 at B=20: two chunks
-  and a tail of 4) equal the unchunked chain bit for bit, through the
-  plain layer and through the wrapper on CPU tensors;
+* ``cuda_lstm`` / ``cuda_gru`` with a forced chunk (``device_chunk``
+  monkeypatched, as the JAX tests patch the VMEM fit: 8 at B=20 gives two
+  chunks and a tail of 4) equal the unchunked chain bit for bit, with bf16
+  and f32 weights; a CPU device plans no chunk and the plain layer
+  function is never chunked; the wrapper's in-place results are refused
+  on CPU tensors;
 * the same chunked chain matches ``pallas_lstm`` / ``pallas_gru`` in
   interpret mode with the JAX package's VMEM fit monkeypatched so that it
   chunks too (rtol 1e-5, f32 weights);
@@ -148,19 +151,30 @@ def _jax(tree):
             for k, v in tree.items()}
 
 
+def _force_chunk(monkeypatch, chunk):
+    """Make ``rnn_plan.device_chunk`` plan ``chunk`` on any device, as the
+    JAX tests patch the VMEM fit; returns the list of its calls."""
+    calls = []
+    monkeypatch.setattr(rnn_plan, "device_chunk",
+                        lambda *a, **k: calls.append(a) or chunk)
+    return calls
+
+
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("layers", [1, 2])
 @pytest.mark.parametrize("pool", ["none", "mean"])
-@pytest.mark.parametrize("plain_layer", [False, True])
+@pytest.mark.parametrize("weights", ["bf16", "f32"])
 @pytest.mark.parametrize("chunk", [8, 16, 20, 64])
-def test_forced_chunks_equal_unchunked(cell, layers, pool, plain_layer,
-                                       chunk):
-    chain, plain = CELLS[cell][:2]
+def test_forced_chunks_equal_unchunked(cell, layers, pool, weights, chunk,
+                                       monkeypatch):
+    chain = CELLS[cell][0]
     p, x, lengths = (_torch(_np_params(cell, layers)),
                      torch.from_numpy(_x()), torch.from_numpy(LENGTHS))
-    kw = {"layer_fn": plain} if plain_layer else {}
-    ref = chain(p, x, lengths, pool=pool, **kw)
-    got = chain(p, x, lengths, pool=pool, chunk=chunk, **kw)
+    wd = torch.bfloat16 if weights == "bf16" else torch.float32
+    ref = chain(p, x, lengths, pool=pool, weights_dtype=wd)
+    calls = _force_chunk(monkeypatch, chunk)
+    got = chain(p, x, lengths, pool=pool, weights_dtype=wd)
+    assert len(calls) == 1 and calls[0][1] == B
     want_shape = (B, H) if pool == "mean" else (B, T, H)
     assert tuple(got[1].shape) == want_shape
     assert tuple(got[0].shape) == (B, H)
@@ -168,11 +182,34 @@ def test_forced_chunks_equal_unchunked(cell, layers, pool, plain_layer,
         assert torch.equal(g, r)
 
 
-def test_bad_chunk_raises():
-    p = _torch(_np_params("lstm", 1))
-    with pytest.raises(ValueError, match="chunk"):
-        lstm_kernel.cuda_lstm(p, torch.from_numpy(_x()),
-                              torch.from_numpy(LENGTHS), chunk=0)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cpu_and_plain_layer_run_whole(cell, monkeypatch):
+    """A CPU device plans no chunk, and the plain layer function is never
+    chunked, whatever the plan would say."""
+    chain, plain = CELLS[cell][:2]
+    gates = CELLS[cell][5]
+    assert device_chunk(torch.device("cpu"), 512, [(300, 1024)], gates,
+                        True) is None
+    p, x, lengths = (_torch(_np_params(cell, 2)), torch.from_numpy(_x()),
+                     torch.from_numpy(LENGTHS))
+    ref = chain(p, x, lengths, layer_fn=plain)
+    calls = _force_chunk(monkeypatch, 8)
+    got = chain(p, x, lengths, layer_fn=plain)
+    assert calls == []
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cpu_layer_refuses_in_place_results(cell):
+    layer = lstm_kernel.lstm_layer if cell == "lstm" else gru_kernel.gru_layer
+    p = _torch(_np_params(cell, 1))["layer0"]
+    x, lengths = torch.from_numpy(_x()), torch.from_numpy(LENGTHS)
+    args = (p["w_ih"], p["w_hh"], *(p[k] for k in CELLS[cell][6]))
+    with pytest.raises(ValueError, match="CUDA"):
+        layer(x, lengths, *args, out=torch.empty(B, T, H))
+    with pytest.raises(ValueError, match="CUDA"):
+        layer(x, lengths, *args, h_last_out=torch.empty(B, H))
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -191,9 +228,10 @@ def test_chunked_chain_matches_pallas_chunks(cell, layers, pool,
         _jax(p), jnp.asarray(x), jnp.asarray(LENGTHS), interpret=True,
         weights_dtype=jnp.float32, pool=pool)
     assert 8 in calls and B in calls        # the reference chunked
+    _force_chunk(monkeypatch, 8)
     got_last, got_second = chain(
         _torch(p), torch.from_numpy(x), torch.from_numpy(LENGTHS),
-        weights_dtype=torch.float32, pool=pool, chunk=8)
+        weights_dtype=torch.float32, pool=pool)
     np.testing.assert_allclose(got_last.numpy(), np.asarray(ref_last),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got_second.numpy(), np.asarray(ref_second),

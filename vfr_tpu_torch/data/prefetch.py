@@ -74,6 +74,8 @@ def device_put_prefetch(
 
 
 def _place(v, dev) -> torch.Tensor:
+    """``v`` as a tensor on ``dev``: on CUDA a pinned ``non_blocking``
+    copy on the current stream."""
     dev = torch.device(dev)
     t = _tensor(v)
     if dev.type != "cuda":
@@ -119,14 +121,14 @@ class Prefetcher:
         def copy(v, dev):
             dev = torch.device(dev)
             if dev.type != "cuda":
-                return _tensor(v).to(dev)
+                return _place(v, dev)
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
             stream = self._streams.get(dev)
             if stream is None:
                 stream = self._streams[dev] = torch.cuda.Stream(device=dev)
             with torch.cuda.device(dev), torch.cuda.stream(stream):
-                out = _tensor(v).pin_memory().to(dev, non_blocking=True)
+                out = _place(v, dev)
             pending.setdefault(dev, []).append(out)
             return out
 

@@ -31,7 +31,6 @@ from vfr_tpu_torch.ops.kernels.rnn_plan import (
     chain_layers,
     check_out,
     device_plan,
-    into,
 )
 from vfr_tpu_torch.ops.lstm import gru_cell_update
 
@@ -94,9 +93,11 @@ def gru_layer(
     if pool not in ("none", "mean"):
         raise ValueError(f"unknown pool {pool!r}")
     if x.device.type == "cpu":
-        h_last, second = gru_recurrence_plain(x, lengths, w_ih, w_hh, b_ih,
-                                              b_hh, pool, weights_dtype)
-        return into(h_last, second, h_last_out, out)
+        if out is not None or h_last_out is not None:
+            raise ValueError("gru_layer: out= / h_last_out= are for CUDA "
+                             "tensors")
+        return gru_recurrence_plain(x, lengths, w_ih, w_hh, b_ih, b_hh,
+                                    pool, weights_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {x.device}")
     if weights_dtype not in (torch.bfloat16, torch.float32):
@@ -212,13 +213,12 @@ def cuda_gru(
     pool: str = "none",
     layer_fn: Callable = gru_layer,
     variant: str = "auto",
-    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-layer twin of ``pallas_gru``: returns (h_last, hs [B, T, H])
     or, with ``pool="mean"``, (h_last, pooled [B, H]) from the last layer.
     ``layer_fn=gru_recurrence_plain`` runs the plain version on any device
-    (how checks hold the kernel against it on the card).  Batch chunks,
-    ``variant`` and ``chunk`` as for ``cuda_lstm``."""
+    (how checks hold the kernel against it on the card).  Batch chunks
+    and ``variant`` as for ``cuda_lstm``."""
     return chain_layers(params, x, lengths, weights_dtype, pool, layer_fn,
-                        variant, chunk, gates=3, kernel=gru_layer,
+                        variant, gates=3, kernel=gru_layer,
                         bias_keys=("b_ih", "b_hh"))

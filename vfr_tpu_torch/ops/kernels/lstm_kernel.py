@@ -32,7 +32,6 @@ from vfr_tpu_torch.ops.kernels.rnn_plan import (
     chain_layers,
     check_out,
     device_plan,
-    into,
 )
 from vfr_tpu_torch.ops.lstm import cell_update
 
@@ -96,17 +95,19 @@ def lstm_layer(
     the persistent variant's resident W_ih on or off; ``timeline``, a CUDA
     int64 tensor [T, 5], receives the persistent kernel's per-step time
     stamps (``csrc/rnn_common.cuh::stamp``).  ``out`` / ``h_last_out``
-    receive the results in place (a batch chunk's rows of the chain's
-    output); ``workspace`` lends the persistent variant its work buffers.
+    (CUDA tensors only) receive the results in place (a batch chunk's rows
+    of the chain's output); ``workspace`` lends the persistent variant its work buffers.
     The kernel launches on the CUDA device of ``x``, which every operand
     must share."""
     global LAST_PLAN
     if pool not in ("none", "mean"):
         raise ValueError(f"unknown pool {pool!r}")
     if x.device.type == "cpu":
-        h_last, second = lstm_recurrence_plain(x, lengths, w_ih, w_hh, b,
-                                               pool, weights_dtype)
-        return into(h_last, second, h_last_out, out)
+        if out is not None or h_last_out is not None:
+            raise ValueError("lstm_layer: out= / h_last_out= are for CUDA "
+                             "tensors")
+        return lstm_recurrence_plain(x, lengths, w_ih, w_hh, b, pool,
+                                     weights_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_layer: unsupported device {x.device}")
     if weights_dtype not in (torch.bfloat16, torch.float32):
@@ -220,7 +221,6 @@ def cuda_lstm(
     pool: str = "none",
     layer_fn: Callable = lstm_layer,
     variant: str = "auto",
-    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-layer twin of ``pallas_lstm``: returns (h_last, hs [B, T, H])
     or, with ``pool="mean"``, (h_last, pooled [B, H]) from the last layer.
@@ -231,8 +231,7 @@ def cuda_lstm(
     chunks (``rnn_plan.device_chunk``: the reference's ``batch_chunk`` over
     the device's plan), the layer chain once per chunk, as ``pallas_lstm``
     does; ``variant`` is handed to every layer ("stepwise" runs
-    unchunked).  ``chunk`` forces chunks of that many rows on any device
-    and layer function."""
+    unchunked)."""
     return chain_layers(params, x, lengths, weights_dtype, pool, layer_fn,
-                        variant, chunk, gates=4, kernel=lstm_layer,
+                        variant, gates=4, kernel=lstm_layer,
                         bias_keys=("b",))

@@ -145,12 +145,12 @@ def device_chunk(device: torch.device, B: int,
     """The batch chunk a chain of layers (``layer_shapes``: (E, H) each)
     runs in on ``device``: the largest ``batch_chunk`` at which every layer
     plans ``persistent`` on that device's properties; B when the whole
-    batch does, and None when no chunk does or ``variant`` is "stepwise"
-    (the chain then runs unchunked)."""
+    batch does, and None when no chunk does, ``variant`` is "stepwise" or
+    the device is not CUDA (the chain then runs unchunked)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    if variant == "stepwise" or B < 1:
+    if variant == "stepwise" or B < 1 or device.type != "cuda":
         return None
     props = torch.cuda.get_device_properties(device)
 
@@ -217,8 +217,8 @@ def into(h_last: torch.Tensor, second: torch.Tensor,
          h_last_out: Optional[torch.Tensor] = None,
          out: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A layer's results, copied into ``h_last_out`` / ``out`` where those
-    are given and are not already the results themselves."""
+    """A chunk's results, copied into its rows ``h_last_out`` / ``out``
+    where those are given and are not already the results themselves."""
     if h_last_out is not None and h_last_out is not h_last:
         h_last = h_last_out.copy_(h_last)
     if out is not None and out is not second:
@@ -229,26 +229,24 @@ def into(h_last: torch.Tensor, second: torch.Tensor,
 def chain_layers(params: Dict[str, Dict[str, torch.Tensor]],
                  x: torch.Tensor, lengths: torch.Tensor,
                  weights_dtype: torch.dtype, pool: str, layer_fn: Callable,
-                 variant: str, chunk: Optional[int], gates: int,
-                 kernel: Callable, bias_keys: Sequence[str]
+                 variant: str, gates: int, kernel: Callable,
+                 bias_keys: Sequence[str]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cuda_lstm`` / ``cuda_gru``: the layers of ``params`` chained
     (inner layers emit hs, the last one pools when ``pool="mean"``) by
     ``layer_fn``, over batch chunks where one grid cannot hold the batch.
 
-    With the kernel wrapper (``layer_fn is kernel``) on a CUDA tensor the
-    chunk is planned on that device (``device_chunk``), ``variant`` goes to
-    every layer, each chunk's last layer writes straight into its rows of
-    the output and every launch borrows its buffers from one ``Workspace``
-    (inner layers' hs ping-pong between two).  Any other layer function
-    (the plain version) runs unchunked unless ``chunk`` forces chunks, and
-    its results are copied into the rows."""
-    if chunk is not None and chunk < 1:
-        raise ValueError(f"batch chunk must be >= 1, got {chunk}")
+    With the kernel wrapper (``layer_fn is kernel``) the chunk is planned
+    on the device of ``x`` (``device_chunk``) and ``variant`` goes to every
+    layer; on a CUDA tensor each chunk's last layer writes straight into
+    its rows of the output and every launch borrows its buffers from one
+    ``Workspace`` (inner layers' hs ping-pong between two).  Any other
+    layer function (the plain version) runs the batch whole."""
     layers = [params[f"layer{i}"] for i in range(len(params))]
     is_kernel = layer_fn is kernel
     B, T = x.shape[:2]
-    if chunk is None and is_kernel and x.device.type == "cuda":
+    chunk = None
+    if is_kernel:
         chunk = device_chunk(
             x.device, B, [(p["w_ih"].shape[0], p["w_hh"].shape[0])
                           for p in layers],
@@ -258,17 +256,15 @@ def chain_layers(params: Dict[str, Dict[str, torch.Tensor]],
         hs, h_last = xc, None
         for i, p in enumerate(layers):
             last = i == len(layers) - 1
-            kw = {}
-            if is_kernel:
-                kw["variant"] = variant
-                if ws is not None:
-                    b, H = xc.shape[0], p["w_hh"].shape[0]
-                    kw.update(
-                        workspace=ws,
-                        h_last_out=(h_dst if last else ws.take(
-                            "h_inner", (b, H), torch.float32)),
-                        out=(o_dst if last else ws.take(
-                            f"hs{i % 2}", (b, T, H), torch.float32)))
+            kw = {"variant": variant} if is_kernel else {}
+            if ws is not None:
+                b, H = xc.shape[0], p["w_hh"].shape[0]
+                kw.update(
+                    workspace=ws,
+                    h_last_out=(h_dst if last else ws.take(
+                        "h_inner", (b, H), torch.float32)),
+                    out=(o_dst if last else ws.take(
+                        f"hs{i % 2}", (b, T, H), torch.float32)))
             h_last, hs = layer_fn(
                 hs, lc, p["w_ih"], p["w_hh"], *(p[k] for k in bias_keys),
                 pool=pool if last else "none", weights_dtype=weights_dtype,
@@ -277,7 +273,7 @@ def chain_layers(params: Dict[str, Dict[str, torch.Tensor]],
 
     if chunk is None or chunk >= B:
         return run(x, lengths)
-    ws = Workspace(x.device) if is_kernel else None
+    ws = Workspace(x.device) if x.device.type == "cuda" else None
     H = layers[-1]["w_hh"].shape[0]
     return run_batch_chunks(
         lambda xc, lc, h, o: run(xc, lc, h, o, ws), x, lengths, chunk,
