@@ -67,6 +67,20 @@ Phases, one JSON line each:
               the card from a seeded normal, serving_10k weights: coarse
               build seconds, ms per 256-query batch of the exact full scan
               and of blockmax / centroid at C in {1024, 2048}.
+  bench       `vfr_tpu_torch.bench` in-process at full size (210,000 rows,
+              its every cell), the mean of 10 timed calls after 3: its JSON
+              line printed on a line of its own and held to its contract
+              (under 1,500 bytes, the JAX bench's five top-level keys and
+              metric, every ms finite and positive, value = rows / batch
+              seconds); K1a, K1b and K2 must launch, persistent / mma
+              only; every serving row on its base batch held to its plain
+              version: queries through K1a (B=128, T=24 and T=8) and K1b
+              within 2e-3 of the plain recurrence's, each exact row's
+              top-100 a right answer within what the bf16 rounding of the
+              two query sets can move a distance, the fused row's K2
+              against K2's plain version on the same queries (1e-3); the
+              exact top-k timed alone on the headline batch's scores; the
+              flagship f32 row's per-call ms and Python's collections.
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
@@ -174,6 +188,8 @@ import time
 
 import numpy as np
 
+from vfr_tpu_torch.utils.timing import bound, cuda_ms, nvidia_smi_line
+
 SEED = 0                 # weights, corpus and queries are made from it
 VIDEOS = 10_000          # flagship corpus: 210,000 index rows
 VIDEOS_10K = 2_000       # serving_10k and gru corpora, cut to keep the run
@@ -210,10 +226,10 @@ REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX: its one sync), and 26,250 (none)
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
-              "tf32": 495e12,       # dense tensor-core rate
-              "float32": 67e12}     # f32 outside the tensor cores
+BENCH_ITERS = 10         # bench: timed calls of each measurement
+BENCH_Q_TOL = 2e-3       # bench: queries through K1a / K1b vs plain, the
+                         # kernel checks' tolerance (recheck_rows)
+BENCH_STALL_CALLS = 40   # bench: per-call times of the flagship f32 row
 
 KERNEL_SOURCES = {
     "lstm_pooled": ("vfr_tpu_torch/csrc/lstm_recurrence.cu",
@@ -242,43 +258,6 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(bytes_moved: float, flops: float, dtype: str):
-    """(ms, "bytes" | "operations").  f32 products can run as f32 FMAs or,
-    to the same accuracy, as three TF32 tensor-core products of hi/lo
-    splits: the operations time of "float32" is the lesser of the two."""
-    t_bytes = bytes_moved / H100_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    if dtype == "float32":
-        t_ops = min(t_ops, 3.0 * flops / PEAK_FLOPS["tf32"])
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # --------------------------------------------------------------- kernels
@@ -2671,6 +2650,196 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     results["serving_10k"] = rec
 
 
+def _ms_values(tree, in_ms: bool = False, path: str = ""):
+    """(path, value) of every time in ms of the bench's nested detail: a
+    key naming ms, or any key under one (``stages_ms``)."""
+    for key, val in tree.items():
+        where = f"{path}.{key}"
+        if isinstance(val, dict):
+            yield from _ms_values(val, "_ms" in key, where)
+        elif in_ms or "_ms" in key:
+            yield where, val
+
+
+def _exact_rows_vs_plain(model, index, q_k, q_p, d_k, r_k):
+    """The exact path's answer ``d_k``, ``r_k`` [Q, k] on the kernel's
+    queries ``q_k`` held to the plain path's distances ``D_p`` [Q, N] of
+    every row on its queries ``q_p`` [S, Q, d] (the score's own operands
+    and functions).  Per query, delta bounds how far any row's distance
+    moves between the two query sets: sum_j |the change of round(2 w q)_j|
+    x max_n |m_cat[n, j]| + |the change of sum_s w_s |q_s|^2| (the score
+    rounds the scaled queries to its product dtype); eps =
+    RECHECK_REL_TOL x (sum_s w_s |q_p,s|^2 + max msq) covers the f32 sums.
+    The queries are held to each other at a fixed tolerance by the caller,
+    so delta is that of a correct kernel.  A right answer then has: no
+    returned row whose plain distance lies more than 2 delta + 4 eps above
+    the plain k-th (``rows_out_of_band``); every row more than that below
+    it returned (``rows_missing``); each returned distance within delta +
+    2 eps of its row's plain one (``max_distance_excess`` <= 0); no row
+    twice, distances ascending."""
+    from vfr_tpu_torch.eval.corpus import prep_score_operands
+    from vfr_tpu_torch.parallel.sharding import (
+        fused_corpus_scores,
+        query_cat_scaled,
+        query_sq_const,
+    )
+
+    m_cat, msq, in_dtype = prep_score_operands(index, model.compute_dtype)
+    w = index.weights
+    sq_p = query_sq_const(q_p, w)
+    D_p = sq_p[:, None] - fused_corpus_scores(q_p, m_cat, msq, w,
+                                              model.compute_dtype, in_dtype)
+
+    def rounded(q):
+        return query_cat_scaled(q, w).to(in_dtype).float()
+
+    delta = ((rounded(q_k) - rounded(q_p)).abs() @ m_cat.abs().amax(0)
+             + (query_sq_const(q_k, w) - sq_p).abs())
+    eps = RECHECK_REL_TOL * (sq_p.abs() + msq.abs().max())
+    r_k = r_k.long()
+    p_k = D_p.kthvalue(r_k.shape[1], dim=1).values[:, None]
+    band = (2 * delta + 4 * eps)[:, None]
+    d_pk = D_p.gather(1, r_k)
+    below = p_k - band
+    return dict(
+        max_query_shift=float(delta.max()),
+        rows_out_of_band=int((d_pk > p_k + band).sum()),
+        rows_missing=int(((D_p < below).sum(1)
+                          - (d_pk < below).sum(1)).sum()),
+        max_distance_excess=float(((d_k - d_pk).abs()
+                                   - (delta + 2 * eps)[:, None]).max()),
+        duplicate_rows=int((r_k.sort(1).values.diff(dim=1) == 0).sum()),
+        unsorted=int((d_k.diff(dim=1) < 0).sum()))
+
+
+def _per_call_ms(fn, calls: int):
+    """(ms of each of ``calls`` back-to-back calls ``fn(i)`` by CUDA events
+    recorded between them, no sync among them; Python's collections of
+    each generation meanwhile)."""
+    import gc
+
+    import torch
+
+    before = [g["collections"] for g in gc.get_stats()]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    ev[0].record()
+    for i in range(calls):
+        fn(i)
+        ev[i + 1].record()
+    ev[-1].synchronize()
+    return ([a.elapsed_time(b) for a, b in zip(ev, ev[1:])],
+            [g["collections"] - b for g, b in zip(gc.get_stats(), before)])
+
+
+def phase_bench(results, iters: int = BENCH_ITERS):
+    """``vfr_tpu_torch.bench`` in-process at full size with few calls: its
+    line printed, parsed and checked (under 1,500 bytes, the JAX bench's
+    keys and metric, every ms finite and positive, value = N / batch
+    seconds); K1a, K1b and K2 launched, on their persistent / mma
+    variants.  Then every serving row of the bench on its base batch,
+    against its plain version: the queries through K1a / K1b within
+    BENCH_Q_TOL of the plain recurrence's; each exact row's answer held to
+    the plain path's distances (``_exact_rows_vs_plain``); the fused row
+    with K2 against K2's plain version on the same queries (rows equal
+    outside near-ties, distances within 1e-3).  The exact top-k timed
+    alone on the headline batch's scores, and the flagship f32 row's
+    per-call times after the bench (``_per_call_ms``)."""
+    import math
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch import bench
+    from vfr_tpu_torch.eval import corpus as corpus_mod
+    from vfr_tpu_torch.eval.corpus import (
+        _embed_query_streams,
+        make_retriever,
+        prep_score_operands,
+    )
+    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
+    from vfr_tpu_torch.ops.topk import top_k_select
+    from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
+
+    reset_counts()
+    line, s = bench.measure("cuda", bench.VIDEOS, iters)
+    counts = read_counts()
+    text = json.dumps(line)
+    print(text, flush=True)
+    back = json.loads(text)
+    detail = back["detail"]
+    require(len(text.encode()) < 1500,
+            f"bench: the line has {len(text.encode())} bytes, not < 1,500")
+    require(set(back) == {"metric", "value", "unit", "vs_baseline",
+                          "detail"} and back["metric"] == bench.METRIC,
+            f"bench: top-level keys {sorted(back)}, metric {back['metric']}")
+    bad = [(k, v) for k, v in _ms_values(detail)
+           if not (isinstance(v, (int, float)) and math.isfinite(v)
+                   and v > 0)]
+    require(not bad, f"bench: times not finite and positive: {bad}")
+    rate = detail["index_rows"] / (detail["batch_latency_ms"] / 1e3)
+    require(abs(back["value"] - rate) <= 1e-5 * rate + 0.1,
+            f"bench: value {back['value']} is not N / batch seconds {rate}")
+    for name in ("lstm_pooled", "lstm_hs", "distance_select"):
+        require(counts[name] > 0, f"bench: {name} never launched")
+    require_persistent(counts, "lstm", "bench")
+    require_mma(counts, "select", "bench")
+
+    head = SimpleNamespace(
+        name="serving_10k", model=s.model, index=s.index,
+        q_params=s.q_params, method=s.cfg.eval.topk_method, tokens=s.tokens,
+        lengths=s.lengths)
+    fl = bench.flagship_rows(s, s.tokens.device)
+    checks, failed = {}, []
+    with torch.no_grad():
+        for r in [head, *fl]:
+            q_k, q_p = (_embed_query_streams(r.q_params, r.model, r.tokens,
+                                             r.lengths, rnn_kernel=kern)
+                        for kern in (None, "plain"))
+            q_err = float((q_k - q_p).abs().max())
+            retr = make_retriever(r.model, r.index, bench.K, r.method)
+            d_k, r_k = retr(r.q_params, r.tokens, r.lengths)
+            if r.method == "fused":
+                with mock.patch.object(corpus_mod, "distance_select",
+                                       distance_select_plain):
+                    d_p, r_p = retr(r.q_params, r.tokens, r.lengths)
+                mism, ddiff = compare_to_plain(
+                    *(t.cpu().numpy() for t in (d_k, r_k, d_p, r_p)))
+                rec = dict(rows_differing_from_plain_k2=mism,
+                           max_distance_diff_vs_plain_k2=ddiff)
+                ok = mism == 0 and ddiff <= 1e-3
+            else:
+                rec = _exact_rows_vs_plain(r.model, r.index, q_k, q_p, d_k,
+                                           r_k)
+                ok = (rec["rows_out_of_band"] == rec["rows_missing"]
+                      == rec["duplicate_rows"] == rec["unsorted"] == 0
+                      and rec["max_distance_excess"] <= 0)
+            checks[r.name] = dict(max_query_diff_vs_plain=q_err, **rec)
+            if not (ok and q_err <= BENCH_Q_TOL):
+                failed.append(r.name)
+        # the select layer alone on the headline batch's scores (CUDA events)
+        m_cat, msq, in_dtype = prep_score_operands(s.index,
+                                                   s.model.compute_dtype)
+        q = _embed_query_streams(s.q_params, s.model, s.tokens, s.lengths)
+        scores = fused_corpus_scores(q, m_cat, msq, s.index.weights,
+                                     s.model.compute_dtype, in_dtype)
+        topk_ms = cuda_ms(lambda: top_k_select(scores, bench.K))
+        f32 = fl[0]
+        retr = make_retriever(f32.model, f32.index, bench.K, f32.method)
+        per_call, collections = _per_call_ms(
+            lambda i: retr(f32.q_params, bench.perturb(i, f32.tokens),
+                           f32.lengths), BENCH_STALL_CALLS)
+    rec = dict(phase="bench", iters=iters,
+               line_bytes=len(text.encode()), launches=counts,
+               query_tol=BENCH_Q_TOL, vs_plain=checks, topk_alone_ms=topk_ms,
+               f32_row_per_call_ms=[round(t, 3) for t in per_call],
+               f32_row_gc_collections=collections)
+    emit(rec)
+    require(not failed, f"bench: {failed} disagree with their plain "
+            f"versions: {[checks[n] for n in failed]}")
+    results["bench"] = rec
+
+
 # ----------------------------------------------------------------- train
 
 def _memo_datasets():
@@ -4414,6 +4583,8 @@ def kernels_line(results):
                                     + tc.get("loop_launches", {}).get(name,
                                                                       0)),
                     devices=results.get("devices", {}).get(
+                        "launches", {}).get(name, 0),
+                    bench=results.get("bench", {}).get(
                         "launches", {}).get(name, 0))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4465,7 +4636,8 @@ def kernels_line(results):
 
 ALL_PHASES = ("kernels", "flagship", "coarse", "devices", "follow", "eval",
               "sharded", "train", "train_charades", "train_dp", "packed",
-              "eval_charades", "serving_10k", "live", "gru", "coarse_2m")
+              "eval_charades", "serving_10k", "live", "gru", "coarse_2m",
+              "bench")
 # the phases whose set-ups the sharded checks ride on
 SHARDED_HOSTS = ("flagship", "eval_charades", "live", "coarse_2m")
 
@@ -4591,6 +4763,9 @@ def main(argv=None) -> int:
     if "coarse_2m" in phases:
         phase_coarse_2m(results, SEED, VIDEOS_2M, shards=shards,
                         trace="trace" in phases)
+        settle()
+    if "bench" in phases:
+        phase_bench(results)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if not set(ALL_PHASES) <= phases:
         emit({"partial": sorted(phases)})

@@ -11,7 +11,10 @@ rows enter.  One test per site that selects:
 * the fused retriever's final top-k over the distance-select kernel's
   candidates (its plain version on the CPU);
 * the coarse retriever's stage 1 (blocks, blockmax and centroid) and
-  stage 2 (rows).
+  stage 2 (rows);
+* rows holding signed zeros, infinities and NaNs of either sign, over and
+  under ``KEY_MAX``, through every select of ``ops/topk.py``: the total
+  order of the f32 bits, as ``jax.lax.top_k`` sorts.
 
 The retrievers run over an index of duplicated integer rows, and the
 query embedding is replaced by integer vectors in both packages, so every
@@ -28,7 +31,12 @@ from vfr_tpu.eval import coarse as jcoarse
 from vfr_tpu.eval import corpus as jcorpus
 from vfr_tpu_torch.eval import coarse as tcoarse
 from vfr_tpu_torch.eval import corpus as tcorpus
-from vfr_tpu_torch.ops.topk import top_k_select, topk_lowest_index
+from vfr_tpu_torch.ops.topk import (
+    hierarchical_top_k,
+    top_k_select,
+    topk_lowest_index,
+    topk_lowest_index_many,
+)
 
 from test_torch_train_loss import _models
 
@@ -193,3 +201,87 @@ def test_coarse_stage_tie_order_matches_jax(integer_queries, monkeypatch,
                                       mode=mode))
     np.testing.assert_array_equal(td, jd)
     np.testing.assert_array_equal(tr, jr)
+
+
+def _special_row(name, n):
+    """One f32 row of ``n`` whose order depends on the total order:
+    alternating -0.0 / +0.0; ones with one -NaN; ones with +NaN at three
+    rows; or a seeded mix of +-0, +-inf, +-NaN and repeated values."""
+    if name == "signed_zeros":
+        x = np.zeros(n, np.float32)
+        x[0::2] = -0.0
+    elif name == "neg_nan":
+        x = np.ones(n, np.float32)
+        x[3] = -np.nan
+    elif name == "pos_nans":
+        x = np.ones(n, np.float32)
+        x[[7, 20, n * 3 // 4]] = np.nan
+    else:
+        rng = np.random.default_rng(5)
+        pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1.0,
+                         -1.0, 2.5, -2.5], np.float32)
+        x = pool[rng.integers(0, len(pool), n)]
+        x[rng.random(n) < 0.3] = np.float32(rng.standard_normal())
+    return x
+
+
+_SPECIAL = [("signed_zeros", 5), ("neg_nan", 4), ("pos_nans", 1),
+            ("pos_nans", 2), ("pos_nans", 3), ("mixed", 1), ("mixed", 5),
+            ("mixed", 100)]
+
+
+def _tied_row(n):
+    """A row with many ties and no NaN or zero: seeded normals rounded to
+    a tenth, shifted to (0, 10)."""
+    x = np.round(np.random.default_rng(6).standard_normal(n), 1)
+    return (np.clip(x, -4.5, 4.5) + 5.0).astype(np.float32)
+
+
+def _rows(path, x):
+    """The rows one call of ``path`` selects: ``x``, with its reverse
+    (``many``) or with a tied row free of NaNs and zeros (``many_mixed``,
+    and ``batch``: both rows of one [2, n] tensor)."""
+    if path == "many":
+        return [x, x[::-1].copy()]
+    if path in ("many_mixed", "batch"):
+        return [x, _tied_row(x.shape[-1])]
+    return [x]
+
+
+def _select(path, x, k):
+    """[(values, indices)] of ``_rows(path, x)`` through one select of
+    ``ops/topk.py``."""
+    rows = [torch.from_numpy(r) for r in _rows(path, x)]
+    if path == "single":
+        return [topk_lowest_index(rows[0], k)]
+    if path == "select":
+        return [top_k_select(rows[0], k, "approx")]
+    if path in ("many", "many_mixed"):
+        return topk_lowest_index_many(rows, k)
+    if path == "batch":
+        v, i = topk_lowest_index(torch.stack(rows), k)
+        return list(zip(v, i))
+    return [hierarchical_top_k(rows[0], k, chunk=64)]
+
+
+@pytest.mark.parametrize("n", [1000, 40000])
+@pytest.mark.parametrize("path,name,k",
+                         [(p, name, k) for p in ("single", "many",
+                                                 "many_mixed", "batch",
+                                                 "select")
+                          for name, k in _SPECIAL]
+                         + [("hierarchical", name, 60) for name in
+                            ("signed_zeros", "neg_nan", "pos_nans",
+                             "mixed")])
+def test_total_order_matches_lax_top_k(path, name, k, n):
+    """Rows of 40,000 take the long path (and ``hierarchical_top_k`` at
+    chunk 64, k = 60 then selects over 37,500 candidates); rows of 1,000
+    the 64-bit key: both give ``jax.lax.top_k``'s indices and its values
+    bit for bit, a row free of NaNs and zeros beside one that holds them
+    included."""
+    x = _special_row(name, n)
+    for (v, i), row in zip(_select(path, x, k), _rows(path, x)):
+        jv, ji = jax.lax.top_k(jnp.asarray(row), k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(v.numpy().view(np.int32),
+                                      np.asarray(jv).view(np.int32))

@@ -1,6 +1,9 @@
 """Top-k selection with ``jax.lax.top_k``'s order: largest value first,
 equal values by lowest index, and at the k-th place the lowest-index rows
-of the tied value enter (``torch.topk`` leaves both unspecified).
+of the tied value enter (``torch.topk`` leaves both unspecified).  Values
+compare in the total order of their f32 bits (``ordered_bits``), as
+``jax.lax.top_k`` sorts them: -NaN below -inf, -0.0 below +0.0, +NaN
+above +inf, and NaNs with the same bits equal.
 
 ``"approx"`` is exact too: that is what the JAX package's
 ``lax.approx_max_k`` does off the TPU, and the port has no counterpart of
@@ -31,14 +34,17 @@ def topk_lowest_index(x: torch.Tensor, k: int
     lowest index first.
 
     A row of at most ``KEY_MAX`` selects by ``torch.topk`` over a unique
-    int64 key, the value's order-preserving int32 bits above the reversed
-    index (``_key_topk``).  A longer one takes ``torch.topk`` of k + 1 and
-    one host sync to learn whether a tie matters: at the k-th place (the
+    int64 key, the value's ``ordered_bits`` above the reversed index
+    (``_key_topk``).  A longer one takes ``torch.topk`` of k + 1 and one
+    host sync to learn whether a tie matters: at the k-th place (the
     (k+1)-th value equals the k-th, so a row holding it was left out) the
     positions holding the k-th value get the lowest-index rows equal to it
     (``_lowest_tied``); any tie among the k then puts them in order by a
-    stable sort of [.., k].  Without ties it costs one ``torch.topk`` and
-    the sync."""
+    stable sort of [.., k].  Float order and equality are the total order
+    everywhere but at NaNs and zeros, so the same sync also says whether
+    one stands among the k + 1 (``torch.topk`` ranks every NaN first):
+    then the select is redone on ``ordered_bits`` (``_settle_ties``).
+    Without ties it costs one ``torch.topk`` and the sync."""
     N = x.shape[-1]
     k = min(k, N)
     if N <= KEY_MAX or k == 0:
@@ -75,47 +81,64 @@ def topk_lowest_index_many(xs: Sequence[torch.Tensor], k: int
     return out
 
 
+def ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 of the same order as ``x``'s f32 values in the total order of
+    ``jax.lax.top_k``: the bits themselves for a clear sign bit, the
+    magnitude bits flipped for a set one (-NaN < -inf < ... < -0.0 < +0.0
+    < ... < +inf < +NaN)."""
+    bits = x.float().contiguous().view(torch.int32)
+    key = (bits >> 31).bitwise_and_(0x7FFFFFFF)
+    return key.bitwise_xor_(bits)
+
+
 def _topk_queued(x: torch.Tensor, k: int):
     """A long row's select up to its sync: ``torch.topk`` of k + 1, then
-    (kth [.., 1], vals [.., k], idx [.., k], flags [2]), the flags (the
-    k-th value recurs past the k-th place, a value recurs inside the k)
-    still on the device."""
+    (kth [.., 1], vals [.., k], idx [.., k], flags [3]), the flags (the
+    k-th value recurs past the k-th place, a value recurs inside the k, a
+    NaN or a zero stands among the k + 1) still on the device."""
     N = x.shape[-1]
     vals, idx = torch.topk(x, min(k + 1, N), dim=-1, largest=True,
                            sorted=True)
     kth = vals[..., k - 1 : k]
     left_out = ((vals[..., k:] == kth).any() if N > k
                 else torch.zeros((), dtype=torch.bool, device=x.device))
+    special = ((vals != vals) | (vals == 0)).any()
     vals, idx = vals[..., :k], idx[..., :k]
     inside = (vals[..., 1:] == vals[..., :-1]).any()
-    return kth, vals, idx, torch.stack([left_out, inside])
+    return kth, vals, idx, torch.stack([left_out, inside, special])
 
 
-def _settle_ties(x, kth, vals, idx, left_out: bool, inside: bool):
+def _settle_ties(x, kth, vals, idx, left_out: bool, inside: bool,
+                 special: bool):
     """A long row's select after its sync: the lowest-index rows of the
     k-th value at the k-th place (``_lowest_tied``), then, on any tie, the
-    k put in (value descending, index ascending) order by a stable
-    sort."""
+    k put in (value descending, index ascending) order by a stable sort.
+    Where a NaN or a zero stood among the k + 1 (``special``), the select
+    and both steps run again on ``ordered_bits(x)``, with no second sync:
+    on no tie they leave the k as they are.  The values are gathered from
+    ``x``, bit for bit."""
+    v = x
+    if special:
+        v = ordered_bits(x)
+        kth, vals, idx, _ = _topk_queued(v, idx.shape[-1])
+        left_out = inside = True
     if left_out:
-        idx = _lowest_tied(x, kth, (vals == kth).sum(-1, keepdim=True), idx)
+        idx = _lowest_tied(v, kth, (vals == kth).sum(-1, keepdim=True), idx)
     if left_out or inside:
         idx, _ = torch.sort(idx, dim=-1)
-        vals = torch.gather(x, -1, idx)
+        vals = torch.gather(v, -1, idx)
         vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
         idx = torch.gather(idx, -1, order)
+        vals = torch.gather(x, -1, idx) if special else vals
     return vals, idx
 
 
 def _key_topk(x: torch.Tensor, k: int):
     """Top-k by (value descending, index ascending) as one ``torch.topk``
-    over int64 keys ``ord(x) * 2^32 + (N - 1 - index)``, where ``ord``
-    maps f32 bits to an int32 of the same order (negative values' magnitude
-    bits flipped)."""
+    over int64 keys ``ordered_bits(x) * 2^32 + (N - 1 - index)``."""
     N = x.shape[-1]
-    bits = x.float().contiguous().view(torch.int32)
-    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
     rev = N - 1 - torch.arange(N, device=x.device, dtype=torch.int64)
-    key = ordered.to(torch.int64) * (1 << 32) + rev
+    key = ordered_bits(x).to(torch.int64) * (1 << 32) + rev
     idx = torch.topk(key, k, dim=-1, largest=True, sorted=True).indices
     return torch.gather(x, -1, idx), idx
 
