@@ -80,7 +80,15 @@ Phases, one JSON line each:
               two query sets can move a distance, the fused row's K2
               against K2's plain version on the same queries (1e-3); the
               exact top-k timed alone on the headline batch's scores; the
-              flagship f32 row's per-call ms and Python's collections.
+              headline batch under carrier_dtype "auto" (f32 carrier cast
+              back in each product), the same carrier through an f32 GEMM
+              (its route before the product followed the operand) and
+              "bfloat16" (the bf16 operand's GEMM) in turns, the answers
+              held to the bf16 operand's, the operand's bytes, and an f32
+              operand under bf16 compute (one cast a call) beside the bf16
+              one; the bf16 product held to mm_f32 at the per-stream
+              (K=128) and flagship batch (K=256) shapes; the flagship f32
+              row's per-call ms and Python's collections.
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
@@ -137,7 +145,12 @@ Phases, one JSON line each:
               each, the live retriever held to a from-scratch index over the
               same corpus; the arena written in place until the grow; K1b
               must launch; seconds of each operation, retrieve ms before and
-              after, the arena's bytes; a `cli serve --follow
+              after; the arena bf16 [420,000, 256] + f32 norms, its bytes
+              read from the tensors, memory allocated before and after the
+              build; the bf16-operand score GEMM against its plain version
+              (mm_f32) on the arena at packs of 8 and 256 (rows equal
+              outside near-ties, distances within 1e-3, ms of both and the
+              bound); a `cli serve --follow
               --live-capacity-videos` subprocess running a script of queries
               and control lines, and a second booted from its `!save`.
   sharded     the corpus index row-sharded over a "corpus" mesh of n
@@ -1020,8 +1033,7 @@ def phase_profile(seed: int):
         lstm_layer(x, lengths, w_ih, w_hh, p["b"], pool="mean")
         distance_select(q, m32, m32_sq, [0.5, 0.5])
         distance_select(q, m, m_sq, [0.5, 0.5])
-        scores = fused_corpus_scores(q, m_cat, msq_fused, [0.5, 0.5],
-                                     in_dtype=torch.float32)
+        scores = fused_corpus_scores(q, m_cat, msq_fused, [0.5, 0.5])
         top_k_select(scores, 10)
 
     _device_profile("flagship_stages", work)
@@ -1386,11 +1398,11 @@ def _topk_cost(model, index, params, toks, lens, k):
     from vfr_tpu_torch.ops.topk import top_k_select
     from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
 
-    m_cat, msq, in_dtype = prep_score_operands(index, model.compute_dtype)
+    m_cat, msq = prep_score_operands(index, model.compute_dtype)
     with torch.no_grad():
         qs = _embed_query_streams(params, model, toks, lens)
         scores = fused_corpus_scores(qs, m_cat, msq, index.weights,
-                                     in_dtype=in_dtype)
+                                     model.compute_dtype)
     ordered = cuda_ms(lambda: top_k_select(scores, k))
     bare = cuda_ms(lambda: torch.topk(scores, k, dim=-1, sorted=True))
     same = torch.equal(top_k_select(scores, k)[0],
@@ -2664,11 +2676,13 @@ def _ms_values(tree, in_ms: bool = False, path: str = ""):
 def _exact_rows_vs_plain(model, index, q_k, q_p, d_k, r_k):
     """The exact path's answer ``d_k``, ``r_k`` [Q, k] on the kernel's
     queries ``q_k`` held to the plain path's distances ``D_p`` [Q, N] of
-    every row on its queries ``q_p`` [S, Q, d] (the score's own operands
-    and functions).  Per query, delta bounds how far any row's distance
-    moves between the two query sets: sum_j |the change of round(2 w q)_j|
-    x max_n |m_cat[n, j]| + |the change of sum_s w_s |q_s|^2| (the score
-    rounds the scaled queries to its product dtype); eps =
+    every row on its queries ``q_p`` [S, Q, d]: the index's stored-dtype
+    operands (``make_retriever``'s) through the plain product
+    (``device.mm_f32``), never the route under test.  Per query, delta
+    bounds how far any row's distance moves between the two query sets:
+    sum_j |the change of round(2 w q)_j| x max_n |m_cat[n, j]| + |the
+    change of sum_s w_s |q_s|^2| (the score rounds the scaled queries to
+    its product dtype); eps =
     RECHECK_REL_TOL x (sum_s w_s |q_p,s|^2 + max msq) covers the f32 sums.
     The queries are held to each other at a fixed tolerance by the caller,
     so delta is that of a correct kernel.  A right answer then has: no
@@ -2677,23 +2691,31 @@ def _exact_rows_vs_plain(model, index, q_k, q_p, d_k, r_k):
     it returned (``rows_missing``); each returned distance within delta +
     2 eps of its row's plain one (``max_distance_excess`` <= 0); no row
     twice, distances ascending."""
-    from vfr_tpu_torch.eval.corpus import prep_score_operands
+    import torch
+
+    from vfr_tpu_torch.device import mm_f32
     from vfr_tpu_torch.parallel.sharding import (
-        fused_corpus_scores,
+        fuse_index_cat,
         query_cat_scaled,
         query_sq_const,
     )
 
-    m_cat, msq, in_dtype = prep_score_operands(index, model.compute_dtype)
     w = index.weights
-    sq_p = query_sq_const(q_p, w)
-    D_p = sq_p[:, None] - fused_corpus_scores(q_p, m_cat, msq, w,
-                                              model.compute_dtype, in_dtype)
+    m_cat, msq = fuse_index_cat(index.m, index.m_sq, w)
+    # the product dtype: the operand's when it is bf16, else the compute
+    # dtype (parallel.sharding.fused_corpus_scores)
+    in_dtype = (torch.bfloat16 if m_cat.dtype == torch.bfloat16
+                else model.compute_dtype)
 
     def rounded(q):
         return query_cat_scaled(q, w).to(in_dtype).float()
 
-    delta = ((rounded(q_k) - rounded(q_p)).abs() @ m_cat.abs().amax(0)
+    sq_p = query_sq_const(q_p, w)
+    D_p = (sq_p[:, None] + msq[None, :]
+           - mm_f32(query_cat_scaled(q_p, w), m_cat.T, in_dtype))
+
+    delta = ((rounded(q_k) - rounded(q_p)).abs()
+             @ m_cat.abs().amax(0).float()
              + (query_sq_const(q_k, w) - sq_p).abs())
     eps = RECHECK_REL_TOL * (sq_p.abs() + msq.abs().max())
     r_k = r_k.long()
@@ -2710,6 +2732,84 @@ def _exact_rows_vs_plain(model, index, q_k, q_p, d_k, r_k):
                                    - (delta + 2 * eps)[:, None]).max()),
         duplicate_rows=int((r_k.sort(1).values.diff(dim=1) == 0).sum()),
         unsorted=int((d_k.diff(dim=1) < 0).sum()))
+
+
+def _carrier_routes(s):
+    """The ``serving_10k`` batch of the bench (bf16 index, bf16 compute)
+    under ``carrier_dtype="auto"`` (an f32 carrier, rounded back to bf16
+    in every product, one bf16 GEMM into f32 sums) and ``"bfloat16"`` (the
+    stored bf16 operand, the same GEMM), and the "auto" carrier through
+    the route it took before the product followed the operand
+    (``f32_gemm``: the queries rounded to bf16, an f32 GEMM on the carrier
+    as it is); ms by CUDA events in turns (auto, f32_gemm, bf16, bf16,
+    f32_gemm, auto, twice), the operand's bytes from its tensor, and the
+    answers held to the bf16 operand's (rows equal outside near-ties,
+    distances within 1e-3).  Then the one case that casts on every call,
+    an f32 operand under bf16 compute (an f32 live arena of a
+    bf16-compute model), beside the bf16 operand through one retriever
+    (the answers equal) and the cast alone."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch import bench
+    from vfr_tpu_torch.eval.corpus import (
+        make_operand_retriever,
+        make_score_topk,
+        prep_score_operands,
+    )
+    from vfr_tpu_torch.parallel import sharding
+    from vfr_tpu_torch.parallel.sharding import query_cat_scaled
+
+    def f32_gemm_scores(q, m_cat, msq_fused, weights, compute_dtype):
+        qc = query_cat_scaled(q, weights).to(torch.bfloat16).float()
+        return torch.matmul(qc, m_cat.T) - msq_fused[None, :]
+
+    def route(c):
+        return (mock.patch.object(sharding, "fused_corpus_scores",
+                                  f32_gemm_scores)
+                if c == "f32_gemm" else contextlib.nullcontext())
+
+    model, index, method = s.model, s.index, s.cfg.eval.topk_method
+    args = (s.q_params, s.tokens, s.lengths)
+    retr = {c: make_score_topk(model, index, bench.K, method,
+                               carrier_dtype=c)
+            for c in ("auto", "bfloat16")}
+    retr["f32_gemm"] = retr["auto"]
+    ms = {c: [] for c in retr}
+    outs = {}
+    for c in ("auto", "f32_gemm", "bfloat16", "bfloat16", "f32_gemm",
+              "auto") * 2:
+        with route(c):
+            ms[c].append(cuda_ms(lambda: retr[c](*args)))
+            outs[c] = [t.cpu().numpy() for t in retr[c](*args)]
+    vs_bf16 = {c: compare_to_plain(*outs["bfloat16"], *outs[c])
+               for c in ("auto", "f32_gemm")}
+    operand_bytes = {}
+    for c in ("auto", "bfloat16"):
+        m_cat = prep_score_operands(index, model.compute_dtype, c)[0]
+        operand_bytes[c] = m_cat.numel() * m_cat.element_size()
+    del retr, m_cat
+    m16, msq = prep_score_operands(index, model.compute_dtype, "bfloat16")
+    m32 = m16.float()
+    op = make_operand_retriever(model, index.weights, bench.K, method)
+    cast = dict(
+        f32_operand_ms=cuda_ms(lambda: op(m32, msq, *args)),
+        bf16_operand_ms=cuda_ms(lambda: op(m16, msq, *args)),
+        cast_alone_ms=cuda_ms(lambda: m32.to(torch.bfloat16)))
+    same = all(torch.equal(a, b) for a, b in zip(op(m32, msq, *args),
+                                                 op(m16, msq, *args)))
+    rec = dict(shape=[int(s.tokens.shape[0]), *m16.shape],
+               auto_ms=ms["auto"], auto_f32_gemm_ms=ms["f32_gemm"],
+               bfloat16_ms=ms["bfloat16"], operand_bytes=operand_bytes,
+               vs_bfloat16={c: dict(rows_differing=m, max_distance_diff=d)
+                            for c, (m, d) in vs_bf16.items()},
+               f32_operand_under_bf16_compute=dict(cast, answers_equal=same))
+    require(all(m == 0 and d <= 1e-3 for m, d in vs_bf16.values()) and same
+            and operand_bytes["bfloat16"] * 2 == operand_bytes["auto"],
+            f"bench: the carriers disagree: {rec}")
+    return rec
 
 
 def _per_call_ms(fn, calls: int):
@@ -2742,8 +2842,11 @@ def phase_bench(results, iters: int = BENCH_ITERS):
     the plain path's distances (``_exact_rows_vs_plain``); the fused row
     with K2 against K2's plain version on the same queries (rows equal
     outside near-ties, distances within 1e-3).  The exact top-k timed
-    alone on the headline batch's scores, and the flagship f32 row's
-    per-call times after the bench (``_per_call_ms``)."""
+    alone on the headline batch's scores, the carriers' routes
+    (``_carrier_routes``), the bf16 product against its plain version at
+    the per-stream and the flagship batch's shapes (``_product_vs_plain``)
+    and the flagship f32 row's per-call times after the bench
+    (``_per_call_ms``)."""
     import math
     from types import SimpleNamespace
     from unittest import mock
@@ -2759,7 +2862,12 @@ def phase_bench(results, iters: int = BENCH_ITERS):
     )
     from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
     from vfr_tpu_torch.ops.topk import top_k_select
-    from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
+    from vfr_tpu_torch.parallel.sharding import (
+        fuse_index_cat,
+        fused_corpus_scores,
+        query_cat_scaled,
+        query_sq_const,
+    )
 
     reset_counts()
     line, s = bench.measure("cuda", bench.VIDEOS, iters)
@@ -2818,12 +2926,28 @@ def phase_bench(results, iters: int = BENCH_ITERS):
             if not (ok and q_err <= BENCH_Q_TOL):
                 failed.append(r.name)
         # the select layer alone on the headline batch's scores (CUDA events)
-        m_cat, msq, in_dtype = prep_score_operands(s.index,
-                                                   s.model.compute_dtype)
+        m_cat, msq = prep_score_operands(s.index, s.model.compute_dtype)
         q = _embed_query_streams(s.q_params, s.model, s.tokens, s.lengths)
         scores = fused_corpus_scores(q, m_cat, msq, s.index.weights,
-                                     s.model.compute_dtype, in_dtype)
+                                     s.model.compute_dtype)
         topk_ms = cuda_ms(lambda: top_k_select(scores, bench.K))
+        del scores
+        carrier = _carrier_routes(s)
+        # the bf16 product at the eval ranker's per-stream shape (K = 128,
+        # fused_corpus_distances) and at the flagship batch's (K = 256)
+        bf = fl[1]
+        q = _embed_query_streams(bf.q_params, bf.model, bf.tokens,
+                                 bf.lengths)
+        w = bf.index.weights
+        m_cat, msq = fuse_index_cat(bf.index.m, bf.index.m_sq, w)
+        products = dict(
+            per_stream=_product_vs_plain(
+                2.0 * q[0], bf.index.m[0], bf.index.m_sq[0],
+                (q[0] * q[0]).sum(-1)[:, None], bench.K, "per-stream"),
+            flagship_batch=_product_vs_plain(
+                query_cat_scaled(q, w), m_cat, msq,
+                query_sq_const(q, w)[:, None], bench.K, "flagship batch"))
+        del m_cat, msq
         f32 = fl[0]
         retr = make_retriever(f32.model, f32.index, bench.K, f32.method)
         per_call, collections = _per_call_ms(
@@ -2832,6 +2956,7 @@ def phase_bench(results, iters: int = BENCH_ITERS):
     rec = dict(phase="bench", iters=iters,
                line_bytes=len(text.encode()), launches=counts,
                query_tol=BENCH_Q_TOL, vs_plain=checks, topk_alone_ms=topk_ms,
+               carrier=carrier, bf16_product=products,
                f32_row_per_call_ms=[round(t, 3) for t in per_call],
                f32_row_gc_collections=collections)
     emit(rec)
@@ -4040,6 +4165,10 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
     8, depth 2) with queries between ``!add``, ``!remove`` and
     ``!compact``, each run of queries held to a shadow arena taken
     through the same operations and to a rebuild at the same point.
+    The arena must be bf16 ``[cap, 256]`` + f32 norms, its bytes read from
+    the tensors, with ``memory_allocated`` before and after the build; the
+    bf16-operand score GEMM is held to its plain version on it
+    (``_bf16_product_check``).
     Launch counts are zeroed just before each live retrieval and each
     daemon run and read just after; the references run outside those
     windows.  Then one ``cli serve --follow --live-capacity-videos``
@@ -4119,9 +4248,30 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
     def host(pair):
         return tuple(t.cpu().numpy() for t in pair)
 
+    def arena_bytes(x):
+        """The arena's bytes of rows and of norms, from its tensors."""
+        return {part: sum(t.numel() * t.element_size() for t in shards)
+                for part, shards in zip(("rows", "norms"), L._shards(x))}
+
+    torch.cuda.synchronize()
+    allocated = {"before_build": torch.cuda.memory_allocated(dev)}
     live, build_s = _timed(lambda: L.make_live_index(
         params, model, ds, capacity_videos=LIVE_CAPACITY,
         index_dtype=idx_dtype))
+    allocated["after_build"] = torch.cuda.memory_allocated(dev)
+    cap, width = LIVE_CAPACITY * ds.num_proposals, \
+        len(model.streams) * cfg.model.joint_dim
+    bytes_build = arena_bytes(live)
+    require(live.m_cat.dtype == torch.bfloat16
+            and tuple(live.m_cat.shape) == (cap, width)
+            and live.msq_fused.dtype == torch.float32
+            and tuple(live.msq_fused.shape) == (cap,)
+            and bytes_build == {"rows": cap * width * 2, "norms": cap * 4},
+            f"live: the arena is {live.m_cat.dtype} "
+            f"{tuple(live.m_cat.shape)} + {live.msq_fused.dtype} norms "
+            f"({bytes_build} bytes), not bf16 [{cap}, {width}] + f32")
+    product = _bf16_product_check(model, q_params, live.m_cat,
+                                  live.msq_fused, live.weights, toks, lens, k)
     retrieve = L.make_live_retriever(model, live, k, topk_method=method)
     ptr = live.m_cat.data_ptr()
     timings, checks = {}, {}
@@ -4133,6 +4283,8 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
             index_dtype=idx_dtype, mesh=mesh))
         retrieve_s = L.make_live_retriever(model, live_s, k,
                                            topk_method=method)
+        require({t.dtype for t in live_s.m_cat} == {torch.bfloat16},
+                "live[sharded]: the arena's shards are not bf16")
 
     def live_op(name, fn):
         """``fn(arena)`` on the live arena (timed under ``name``) and on the
@@ -4236,7 +4388,8 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
                                                        model=model))
     back, timings["load_s"] = _timed(lambda: L.load_arena(
         path, params=params, model=model))
-    require(torch.equal(back.m_cat, live.m_cat)
+    require(back.m_cat.dtype == torch.bfloat16
+            and torch.equal(back.m_cat, live.m_cat)
             and torch.equal(back.msq_fused, live.msq_fused)
             and back.video_ids == live.video_ids
             and all(np.array_equal(getattr(back, f), getattr(live, f))
@@ -4267,8 +4420,7 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
                 f"differ, max |d diff| {o_ddiff}")
         del one
     check("reload")
-    arena_bytes = live.m_cat.numel() * 4 + live.msq_fused.numel() * 4
-    bf16_bytes = live.m_cat.numel() * 2 + live.msq_fused.numel() * 4
+    bytes_reload = arena_bytes(live)
 
     # the daemon over this arena: queries between !add, !remove, !compact
     delta = os.path.join(workdir, "live_follow_delta.npz")
@@ -4371,7 +4523,12 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
                append_s=appends, append_first_s=appends[0],
                append_steady_s=float(np.median(appends[1:])),
                **timings, arena_in_place=in_place, reload_bit_exact=True,
-               arena_bytes=arena_bytes, arena_bytes_bf16_carrier=bf16_bytes,
+               arena=dict(dtype=str(live.m_cat.dtype).split(".")[-1],
+                          width=width, bytes_at_build=bytes_build,
+                          rows_at_build=cap, bytes_after_reload=bytes_reload,
+                          rows_after_reload=live.capacity,
+                          memory_allocated=allocated),
+               bf16_product=product,
                launches=launches, checks=checks,
                follow=dict(micro_batch=8, pipeline_depth=2,
                            requests=len(answered), controls=len(acks),
@@ -4387,6 +4544,79 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
             follow=dict(requests=len(answered_s), seconds=daemon_s_s,
                         requests_per_s=len(answered_s) / daemon_s_s,
                         launches=daemon_counts_s)))
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """Host µs a call of ``fn`` spends issuing its work: the host clock
+    over ``calls`` back-to-back calls that enqueue on the stream, no sync
+    among them (the card drains them afterwards)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def _product_vs_plain(qc, m, msq, sq, k: int, name: str):
+    """The score product on a bf16 operand ``m`` [N, D]
+    (``parallel.sharding.score_mm``: one bf16 GEMM into f32 sums) against
+    its plain version (``mm_f32``: both operands upcast, an f32 GEMM) on
+    the same queries ``qc`` [Q, D]: the top-k rows of ``sq + msq - 2 q.m``
+    equal outside near-ties and distances within 1e-3; ms of both by CUDA
+    events, the GEMM's bound (each operand read once, the f32 scores
+    written once) and each one's host µs a call (``_host_us``)."""
+    import torch
+
+    from vfr_tpu_torch.device import mm_f32
+    from vfr_tpu_torch.ops.topk import top_k_select
+    from vfr_tpu_torch.parallel.sharding import score_mm
+
+    require(m.dtype == torch.bfloat16, f"bf16 product {name}: operand is "
+            f"{m.dtype}")
+    (Q, D), N = qc.shape, m.shape[0]
+    ours = lambda: score_mm(qc, m.T, torch.bfloat16)  # noqa: E731
+    plain = lambda: mm_f32(qc, m.T, torch.bfloat16)  # noqa: E731
+    s_k, s_p = ours() - msq[None, :], plain() - msq[None, :]
+    (v_k, r_k), (v_p, r_p) = top_k_select(s_k, k), top_k_select(s_p, k)
+    mism, ddiff = compare_to_plain(*(t.cpu().numpy() for t in (
+        sq - v_k, r_k, sq - v_p, r_p)))
+    del s_k, s_p
+    b_ms, b_by = bound(N * D * 2 + Q * D * 2 + Q * N * 4, 2.0 * Q * N * D,
+                       "bfloat16")
+    require(mism == 0 and ddiff <= 1e-3,
+            f"bf16 product {name}: vs mm_f32: {mism} rows differ, max "
+            f"|d diff| {ddiff}")
+    return dict(shape=[Q, N, D], rows_differing_from_plain=mism,
+                max_distance_diff_vs_plain=ddiff, ms=cuda_ms(ours),
+                plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                host_us=_host_us(ours), plain_host_us=_host_us(plain))
+
+
+def _bf16_product_check(model, q_params, m_cat, msq, weights, toks, lens,
+                        k: int):
+    """``_product_vs_plain`` on the live arena's bf16 operand at packs of
+    8 and 256 queries."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import _embed_query_streams
+    from vfr_tpu_torch.parallel.sharding import (
+        query_cat_scaled,
+        query_sq_const,
+    )
+
+    out = {}
+    with torch.no_grad():
+        for Q in (8, 256):
+            qs = _embed_query_streams(q_params, model, toks[:Q], lens[:Q])
+            out[f"q{Q}"] = _product_vs_plain(
+                query_cat_scaled(qs, weights), m_cat, msq,
+                query_sq_const(qs, weights)[:, None], k, f"live Q={Q}")
+    return out
 
 
 def _live_cli(workdir: str):

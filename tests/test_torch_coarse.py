@@ -11,6 +11,8 @@ into the port) and the same numpy weights (small widths).
 * Coarse files cross between the packages bit for bit, both ways.
 * ``make_coarse_retriever`` (blockmax and centroid) on one coarse file:
   rows equal outside near-ties, distances within atol 1e-4.
+* ``make_coarse_score_topk`` / ``make_coarse_stream_retriever`` take the
+  JAX signature's ``approx_recall`` and give the same answer.
 * Full rank (d_coarse = D, f32 store, every block gathered) equals the
   port's exact retriever.
 * ``serve_queries(coarse=...)`` returns the JAX package's moments; the CLI
@@ -174,6 +176,38 @@ def test_retriever_matches_jax(world, mode):
     assert d_t.shape == r_t.shape == (16, K)
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-4)
     _rows_equal_outside_ties(r_t.numpy(), np.asarray(r_j), np.asarray(d_j))
+
+
+@pytest.mark.parametrize("mode", ["blockmax", "centroid"])
+def test_score_topk_and_stream_take_approx_recall(world, mode):
+    """``make_coarse_score_topk`` / ``make_coarse_stream_retriever`` with
+    the JAX signature (``approx_recall`` fifth, positional): the JAX
+    package's answer, and the port's ``make_coarse_retriever``'s."""
+    jc, tc = _shared_coarse(world)
+    jt, jl = jnp.asarray(world["toks"]), jnp.asarray(world["lens"])
+    tt, tl = torch.from_numpy(world["toks"]), torch.from_numpy(world["lens"])
+    d_j, r_j = jcoarse.make_coarse_score_topk(
+        world["jmodel"], jc, K, C, 0.9, mode=mode)(world["jparams"], jt, jl)
+    d_t, r_t = tcoarse.make_coarse_score_topk(
+        world["tmodel"], tc, K, C, 0.9, mode=mode)(world["tparams"], tt, tl)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-4)
+    _rows_equal_outside_ties(r_t.numpy(), np.asarray(r_j), np.asarray(d_j))
+    d_s, r_s = tcoarse.make_coarse_stream_retriever(
+        world["tmodel"], tc, K, C, 0.9, mode=mode)(
+            world["tparams"], torch.stack([tt, tt]), torch.stack([tl, tl]))
+    d_js, r_js = jcoarse.make_coarse_stream_retriever(
+        world["jmodel"], jc, K, C, 0.9, mode=mode)(
+            world["jparams"], jnp.stack([jt, jt]), jnp.stack([jl, jl]))
+    for b in range(2):
+        np.testing.assert_allclose(d_s[b].numpy(), np.asarray(d_js[b]),
+                                   atol=1e-4)
+        _rows_equal_outside_ties(r_s[b].numpy(), np.asarray(r_js[b]),
+                                 np.asarray(d_js[b]))
+        np.testing.assert_array_equal(r_s[b].numpy(), r_t.numpy())
+    d_r, r_r = tcoarse.make_coarse_retriever(
+        world["tmodel"], tc, K, C, 0.9, mode=mode)(world["tparams"], tt, tl)
+    np.testing.assert_array_equal(r_r.numpy(), r_t.numpy())
+    np.testing.assert_array_equal(d_r.numpy(), d_t.numpy())
 
 
 @pytest.mark.parametrize("mode,cands", [("blockmax", 1), ("centroid", 8)])

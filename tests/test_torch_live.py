@@ -33,6 +33,11 @@ def w():
     return world()
 
 
+@pytest.fixture(scope="module")
+def w_bf16():
+    return world(compute_dtype="bfloat16")
+
+
 def _delta(w, lo, hi):
     d = w.delta
     return d.video_ids[lo:hi], d.rgb_feats[lo:hi], d.flow_feats[lo:hi]
@@ -113,8 +118,9 @@ def test_remove_compact_grow_match_jax(w, index_dtype):
     assert tlive.live_compact(t) == jlive.live_compact(j) == 63
     _check(w, j, t, without, index_dtype)
     # the compacted arena is the JAX package's row for row (survivors
-    # packed, every row past them the old row 0)
-    np.testing.assert_allclose(t.m_cat.numpy(),
+    # packed, every row past them the old row 0), at its dtype
+    assert str(t.m_cat.dtype).split(".")[-1] == str(j.m_cat.dtype)
+    np.testing.assert_allclose(t.m_cat.float().numpy(),
                                np.asarray(j.m_cat.astype(jnp.float32)),
                                rtol=8e-3 if index_dtype == "bfloat16"
                                else 1e-5, atol=1e-5)
@@ -306,8 +312,14 @@ def _bits(m):
     return a.view(np.uint16) if a.dtype == jnp.bfloat16 else a.view(np.int32)
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 @pytest.mark.parametrize("index_dtype", ["float32", "bfloat16"])
-def test_arena_files_cross_bit_exact(w, tmp_path, index_dtype):
+def test_arena_files_cross_bit_exact(w, w_bf16, tmp_path, index_dtype,
+                                     compute):
+    """JAX writes, the port reads and writes back, JAX reads: every array
+    bit for bit, at both compute dtypes (an f32 arena under bf16 compute
+    keeps its unrounded values), and the port's arena at JAX's dtype."""
+    w = w_bf16 if compute == "bfloat16" else w
     j, t = _both(w, 16, index_dtype)
     ids, rgb, flow = _delta(w, 0, 2)
     jlive.live_append(j, w.jparams, w.jmodel, w.jds, ids, rgb, flow)
@@ -318,11 +330,12 @@ def test_arena_files_cross_bit_exact(w, tmp_path, index_dtype):
     t2 = tlive.load_arena(jpath, params=w.tparams, model=w.tmodel,
                           device="cpu")
     j_m = np.asarray(j.m_cat)
+    assert str(t2.m_cat.dtype).split(".")[-1] == str(j_m.dtype) \
+        == str(t.m_cat.dtype).split(".")[-1] == index_dtype
     if index_dtype == "bfloat16":
         assert np.array_equal(
-            t2.m_cat.to(torch.bfloat16).view(torch.int16).numpy()
-            .view(np.uint16), j_m.view(np.uint16))
-        assert torch.equal(t2.m_cat, t2.m_cat.to(torch.bfloat16).float())
+            t2.m_cat.view(torch.int16).numpy().view(np.uint16),
+            j_m.view(np.uint16))
     else:
         assert np.array_equal(_bits(t2.m_cat), j_m.view(np.int32))
     assert np.array_equal(t2.msq_fused.numpy(), np.asarray(j.msq_fused))

@@ -164,10 +164,12 @@ def test_scores_and_distances_match_jax(dtype):
                                              w_np))
     np.testing.assert_allclose(
         tsh.fused_corpus_scores(q_t, mc_t, mf_t, w).numpy(), ref, atol=1e-4)
-    # the prepared f32 carrier (bf16 values upcast once) gives the same
+    # the f32 carrier (bf16 values upcast once) under compute at the
+    # index's dtype, rounded back in the product, gives the same
     np.testing.assert_allclose(
         tsh.fused_corpus_scores(q_t, mc_t.float(), mf_t, w,
-                                in_dtype=m_t.dtype).numpy(), ref, atol=1e-4)
+                                compute_dtype=m_t.dtype).numpy(), ref,
+        atol=1e-4)
     np.testing.assert_allclose(
         tsh.query_sq_const(q_t, w).numpy(),
         np.asarray(jsh.query_sq_const(jnp.asarray(q), w_np)), rtol=1e-6)

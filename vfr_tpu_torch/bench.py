@@ -25,10 +25,12 @@ mean over every timed call):
   ``fused_corpus_scores`` prefix), the score alone on precomputed queries
   rolled by the call's index (``score_direct``), top-k = full - prefix.
   The roofline counts a bf16 index's bytes (S N d 2 + N 4) and the
-  score's 2 S Q N d operations against the H100's peaks; the port carries
-  the index as f32 and multiplies in f32 (``prep_score_operands``), so it
-  cannot reach that bound.  ``*_tc_*`` keys are the JAX bench's
-  ``*_mxu_*``: shares of the tensor cores' bf16 peak.
+  score's 2 S Q N d operations against the H100's peaks; under
+  ``carrier_dtype="auto"`` the index rides as f32 and every product
+  rounds it back to bf16 (``prep_score_operands``, the JAX package's
+  carrier), so the score reads twice that bound's index bytes.
+  ``*_tc_*`` keys are the JAX bench's ``*_mxu_*``: shares of the tensor
+  cores' bf16 peak.
 * ``train_step_ms``: ``didemo_fusion`` at B = 64, forward, backward and
   Adam, the clip features carried in the batch (``train/step.py``, one
   device).
@@ -165,8 +167,7 @@ def _serving_ms(s, time_fn):
     model, index, qp = s.model, s.index, s.q_params
     retr = make_score_topk(model, index, K, topk_method=s.cfg.eval.topk_method,
                            approx_recall=s.cfg.eval.approx_recall)
-    m_cat, msq_fused, in_dtype = prep_score_operands(index,
-                                                     model.compute_dtype)
+    m_cat, msq_fused = prep_score_operands(index, model.compute_dtype)
 
     def embed(i, toks):
         return embed_queries_multi(qp, model, perturb(i, toks), s.lengths,
@@ -174,7 +175,7 @@ def _serving_ms(s, time_fn):
 
     def scores(qs):
         return fused_corpus_scores(qs, m_cat, msq_fused, index.weights,
-                                   model.compute_dtype, in_dtype)
+                                   model.compute_dtype)
 
     full = time_fn(lambda i, t: retr(qp, perturb(i, t), s.lengths), s.tokens)
     encode = time_fn(embed, s.tokens)

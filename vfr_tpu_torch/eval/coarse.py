@@ -343,6 +343,7 @@ def make_coarse_score_topk(
     coarse: CoarseIndex,
     k: int,
     num_candidates: int = 2048,
+    approx_recall: float = 0.95,
     rnn_kernel: Optional[str] = None,
     mode: str = "blockmax",
     mesh=None,
@@ -350,13 +351,15 @@ def make_coarse_score_topk(
     """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
     [Q, k], rows [Q, k])``.  Distances are exact fused distances of the
     returned rows; only candidate-set membership is approximate.
-    ``num_candidates`` (rows) is rounded up to whole blocks.  Stage 1 is
-    exact, so the JAX package's ``approx_recall`` has no counterpart.
-    With ``mesh``: ``make_sharded_coarse_retriever``."""
+    ``num_candidates`` (rows) is rounded up to whole blocks.
+    ``approx_recall`` is the JAX package's parameter, passed on as
+    ``eval.corpus.make_score_topk`` takes it: the port's stage 1 is exact,
+    so it changes no result.  With ``mesh``:
+    ``make_sharded_coarse_retriever``."""
     if mesh is not None:
         return make_sharded_coarse_retriever(
-            model, coarse, k, mesh, num_candidates, rnn_kernel=rnn_kernel,
-            mode=mode)
+            model, coarse, k, mesh, num_candidates, approx_recall,
+            rnn_kernel=rnn_kernel, mode=mode)
     g = _num_blocks(num_candidates, coarse.block_rows, coarse.num_blocks)
     k = int(min(k, coarse.num_rows, g * coarse.block_rows))
     return _coarse_fn(model, coarse, k, g, rnn_kernel, mode)
@@ -378,7 +381,7 @@ def make_coarse_retriever(
     contract and unused (stage 1 is exact).  With ``mesh``:
     ``make_sharded_coarse_retriever``."""
     return make_coarse_score_topk(model, coarse, k, num_candidates,
-                                  rnn_kernel, mode, mesh)
+                                  approx_recall, rnn_kernel, mode, mesh)
 
 
 def make_coarse_stream_retriever(
@@ -386,6 +389,7 @@ def make_coarse_stream_retriever(
     coarse: CoarseIndex,
     k: int,
     num_candidates: int = 2048,
+    approx_recall: float = 0.95,
     rnn_kernel: Optional[str] = None,
     mode: str = "blockmax",
     mesh=None,
@@ -393,9 +397,10 @@ def make_coarse_stream_retriever(
     """Throughput serving through the two-stage retriever: ``(params,
     tokens [M, Q, T], lengths [M, Q]) -> (dists [M, Q, k], rows [M, Q,
     k])``, the M batches in a Python loop (the JAX package scans them
-    inside one program), each sharded over ``mesh`` when given."""
+    inside one program), each sharded over ``mesh`` when given;
+    ``approx_recall`` as ``make_coarse_score_topk``."""
     fn = make_coarse_score_topk(model, coarse, k, num_candidates,
-                                rnn_kernel, mode, mesh)
+                                approx_recall, rnn_kernel, mode, mesh)
 
     def retrieve_stream(params, tokens, lengths):
         outs = [fn(params, tokens[b], lengths[b])

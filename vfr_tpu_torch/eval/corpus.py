@@ -8,7 +8,7 @@ bit-exact both ways.
 
 PASS 2 — retrieval: embed a query batch (GloVe -> LSTM kernel -> projection
 -> cosine normalization), score it against the whole index and select.
-``exact``/``approx``: one f32 score GEMM over the stream-concatenated index
+``exact``/``approx``: one score GEMM over the stream-concatenated index
 + an exact top-k (``approx`` is exact in the port).  ``fused``: the CUDA
 distance+strided-bin kernel, then an exact top-k over its candidates.
 
@@ -22,9 +22,16 @@ in ``eval/coarse.py``; ``serve_queries``, ``serve_follow`` and
 ``corpus_evaluate`` route to it when asked.  ``serve_follow`` is the
 request-at-a-time daemon (micro-batched, pipelined), over a fixed index or
 the live arena of ``eval/live.py``, whose retriever is
-``make_operand_retriever``.  The ``carrier_dtype="auto"`` policy (a TPU
-layout choice) has no counterpart: the port always carries the score
-operand as f32, see ``prep_score_operands``.
+``make_operand_retriever``.
+
+The score operand of ``make_score_topk`` / ``make_stream_retriever``
+follows the JAX package's carrier policy (``carrier_dtype``,
+``prep_score_operands``): "auto" carries a bf16 index as f32 under bf16
+compute (exact, the values stay bf16), and otherwise the index's stored
+dtype is kept, so a bf16 operand takes 2 bytes an element on the card.
+``make_retriever`` and the sharded operands keep the stored dtype, as the
+JAX package's.  The product dtype follows the operand (``parallel.
+sharding.fused_corpus_scores``): bf16 operands multiply into f32 sums.
 
 With a ``mesh`` (``parallel/mesh.py``) the index rows are split over its
 "corpus" axis (``shard_index_operands``; the mining refresh's stream
@@ -299,14 +306,16 @@ def make_retriever(
 
     ``topk_method="fused"`` runs the distance+selection kernel over the
     per-stream index and an exact top-k over its candidates; otherwise the
-    one-GEMM score path of ``make_score_topk``.  With ``mesh`` the index is
-    split over its "corpus" axis once (``shard_index_operands``) and every
-    call runs the sharded top-k ("fused" raises there, as in the JAX
-    package)."""
+    one-GEMM score path over the index's stored dtype, as the JAX
+    package's (no carrier).  With ``mesh`` the index is split over its
+    "corpus" axis once (``shard_index_operands``) and every call runs the
+    sharded top-k ("fused" raises there, as in the JAX package)."""
     _check_distance(model)
     if topk_method != "fused" or mesh is not None:
-        return make_score_topk(model, index, k, topk_method, approx_recall,
-                               rnn_kernel, mesh)
+        ops = (fuse_index_cat(index.m, index.m_sq, index.weights)
+               if mesh is None else shard_index_operands(index, mesh))
+        return _bind_operands(model, index, k, topk_method, approx_recall,
+                              rnn_kernel, *ops)
     w = [float(x) for x in model.cfg.stream_weights]
     bin_size = fused_bin_size(index.num_rows, k)
 
@@ -323,33 +332,25 @@ def make_retriever(
     return retrieve
 
 
-def score_in_dtype(index_is_bf16: bool, compute_dtype: torch.dtype
-                   ) -> torch.dtype:
-    """Product dtype of the score GEMM: bf16 for a bf16 index, else the
-    model's compute dtype (the JAX package's ``fused_corpus_scores``)."""
-    return torch.bfloat16 if index_is_bf16 else compute_dtype
-
-
 def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype,
-                        multiple: int = 1):
-    """(m_cat [N, S*d] f32, msq_fused [N], in_dtype): the one-GEMM score
-    operands.  ``m_cat`` is rounded to the product dtype (bf16 for a bf16
-    index or bf16 compute) once and carried as f32 — exact, and the score
-    GEMM then gives f32 sums of the rounded products on every call.  The
-    rows are padded to a ``multiple`` first (``parallel.sharding.
-    pad_index``: pad rows never retrievable)."""
-    m, m_sq = pad_index(index.m, index.m_sq, multiple)
-    m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
-    in_dtype = score_in_dtype(m_cat.dtype == torch.bfloat16, compute_dtype)
-    m_cat = m_cat.to(in_dtype).float().contiguous()
-    return m_cat, msq_fused, in_dtype
+                        carrier_dtype: str = "auto"):
+    """(m_cat [N, S*d], msq_fused [N]): the one-GEMM score operands under
+    the JAX package's carrier policy.  ``"auto"`` carries a bf16 index as
+    f32 when compute is bf16: exact, and the product rounds it back to
+    bf16 on every call (``parallel.sharding.fused_corpus_scores``).
+    Otherwise, and under any other ``carrier_dtype``, the stored dtype is
+    kept."""
+    m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
+    if (carrier_dtype == "auto" and m_cat.dtype == torch.bfloat16
+            and compute_dtype == torch.bfloat16):
+        m_cat = m_cat.float()
+    return m_cat, msq_fused
 
 
 def make_operand_retriever(model: Model, weights, k: int,
                            topk_method: str = "exact",
                            approx_recall: float = 0.95,
-                           rnn_kernel: Optional[str] = None,
-                           in_dtype: Optional[torch.dtype] = None):
+                           rnn_kernel: Optional[str] = None):
     """The one-GEMM retriever with its index operands as call-time
     arguments: ``(m_cat, msq_fused, params, tokens, lengths) -> (dists
     [Q, k], rows [Q, k])``.  The operands are whole (``m_cat [N, S*d]``,
@@ -359,10 +360,9 @@ def make_operand_retriever(model: Model, weights, k: int,
     ``make_score_topk`` binds a fixed index to it; the live index
     (``eval/live.py``) passes its arena, whose buffers change in place.
     The queries are encoded once, on the params' device, and copied to
-    each shard's.
+    each shard's.  The product dtype follows ``m_cat``'s
+    (``parallel.sharding.fused_corpus_scores``).
 
-    ``m_cat`` is an f32 carrier already holding ``in_dtype`` values
-    (``prep_score_operands``; default: the model's compute dtype).
     ``topk_method="fused"`` raises, as in the JAX package: the fused
     kernel reads the per-stream index, not these operands."""
     _check_distance(model)
@@ -372,7 +372,6 @@ def make_operand_retriever(model: Model, weights, k: int,
             "fused distance+select kernel reads the per-stream index "
             "(make_retriever, unsharded); use 'exact' or 'approx'")
     check_topk_method(topk_method)
-    in_dtype = model.compute_dtype if in_dtype is None else in_dtype
     weights = np.asarray(weights, np.float32)
 
     @torch.no_grad()
@@ -381,45 +380,28 @@ def make_operand_retriever(model: Model, weights, k: int,
         if isinstance(m_cat, torch.Tensor):
             m_cat, msq_fused = [m_cat], [msq_fused]
         return corpus_topk_shards(qs, m_cat, msq_fused, weights, k,
-                                  method=topk_method, recall=approx_recall,
-                                  in_dtype=in_dtype)
+                                  model.compute_dtype, topk_method,
+                                  approx_recall)
 
     return retrieve
 
 
-def shard_index_operands(index: MomentIndex, mesh,
-                         compute_dtype: torch.dtype = torch.float32,
-                         axis: str = "corpus"):
-    """(m_cat shards, msq_fused shards, in_dtype): ``prep_score_operands``
-    padded to the mesh's ``axis`` and split over its devices
-    (``parallel.sharding.shard_rows``), once: the sharded operands of
-    ``make_operand_retriever``."""
+def shard_index_operands(index: MomentIndex, mesh, axis: str = "corpus"):
+    """(m_cat shards, msq_fused shards): the one-GEMM operands at the
+    index's stored dtype, padded to the mesh's ``axis`` and split over its
+    devices (``parallel.sharding.shard_rows``), once: the sharded operands
+    of ``make_operand_retriever``."""
     devices = mesh.axis_devices(axis)
-    m_cat, msq_fused, in_dtype = prep_score_operands(index, compute_dtype,
-                                                     len(devices))
-    return (shard_rows(m_cat, devices), shard_rows(msq_fused, devices),
-            in_dtype)
+    m, m_sq = pad_index(index.m, index.m_sq, len(devices))
+    m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
+    return shard_rows(m_cat, devices), shard_rows(msq_fused, devices)
 
 
-def make_score_topk(model: Model, index: MomentIndex, k: int,
-                    topk_method: str = "exact", approx_recall: float = 0.95,
-                    rnn_kernel: Optional[str] = None, mesh=None,
-                    axis: str = "corpus"):
-    """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
-    [Q, k], rows [Q, k])`` over operands prepared once, split over
-    ``mesh``'s ``axis`` when given (``shard_index_operands``).  Hand it
-    (and every retriever of this module and of ``eval.coarse``) a tree that
-    went through ``prepare_query_params`` once, as ``serve_queries`` does,
-    and no batch casts the recurrence weights again."""
-    in_dtype = score_in_dtype(index.m.dtype == torch.bfloat16,
-                              model.compute_dtype)
+def _bind_operands(model: Model, index: MomentIndex, k: int, topk_method,
+                   approx_recall, rnn_kernel, m_cat, msq_fused):
+    """``make_operand_retriever`` over operands bound once."""
     fn = make_operand_retriever(model, index.weights, k, topk_method,
-                                approx_recall, rnn_kernel, in_dtype)
-    if mesh is None:
-        m_cat, msq_fused, _ = prep_score_operands(index, model.compute_dtype)
-    else:
-        m_cat, msq_fused, _ = shard_index_operands(index, mesh,
-                                                   model.compute_dtype, axis)
+                                approx_recall, rnn_kernel)
 
     def score_topk(params, toks, lens):
         return fn(m_cat, msq_fused, params, toks, lens)
@@ -427,20 +409,44 @@ def make_score_topk(model: Model, index: MomentIndex, k: int,
     return score_topk
 
 
+def make_score_topk(model: Model, index: MomentIndex, k: int,
+                    topk_method: str = "exact", approx_recall: float = 0.95,
+                    rnn_kernel: Optional[str] = None,
+                    carrier_dtype: str = "auto", mesh=None,
+                    axis: str = "corpus"):
+    """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
+    [Q, k], rows [Q, k])`` over operands prepared once under
+    ``carrier_dtype`` (``prep_score_operands``).  With ``mesh`` they are
+    split over its ``axis`` at the stored dtype (``shard_index_operands``:
+    the JAX package's sharded operands have no carrier).  Hand it (and
+    every retriever of this module and of ``eval.coarse``) a tree that
+    went through ``prepare_query_params`` once, as ``serve_queries`` does,
+    and no batch casts the recurrence weights again."""
+    if mesh is None:
+        ops = prep_score_operands(index, model.compute_dtype, carrier_dtype)
+    else:
+        ops = shard_index_operands(index, mesh, axis)
+    return _bind_operands(model, index, k, topk_method, approx_recall,
+                          rnn_kernel, *ops)
+
+
 def make_stream_retriever(model: Model, index: MomentIndex, k: int,
                           topk_method: str = "exact",
                           approx_recall: float = 0.95,
                           rnn_kernel: Optional[str] = None,
+                          carrier_dtype: str = "auto",
                           mesh=None, axis: str = "corpus"):
     """Throughput serving: ``(params, tokens [M, Q, T], lengths [M, Q]) ->
     (dists [M, Q, k], rows [M, Q, k])``, the M batches in a Python loop
-    over one set of operands prepared once (the JAX package scans them
-    inside one program).  With ``mesh`` the operands are split over its
-    ``axis`` once and every batch runs the sharded top-k: the JAX
-    package's ``make_sharded_stream_retriever``, the mining refresh's mesh
-    path ("fused" raises there)."""
+    over one set of operands prepared once under ``carrier_dtype`` (the
+    JAX package scans them inside one program).  With ``mesh`` the
+    operands are split over its ``axis`` once, at the stored dtype
+    (``make_score_topk``), and every batch runs the
+    sharded top-k: the JAX package's ``make_sharded_stream_retriever``,
+    the mining refresh's mesh path ("fused" raises there)."""
     score_topk = make_score_topk(model, index, k, topk_method,
-                                 approx_recall, rnn_kernel, mesh, axis)
+                                 approx_recall, rnn_kernel, carrier_dtype,
+                                 mesh, axis)
 
     def retrieve_stream(params, tokens, lengths):
         outs = [score_topk(params, tokens[b], lengths[b])
@@ -542,7 +548,7 @@ def serve_queries(
             if r is None:
                 r = state["coarse_stream"] = make_coarse_stream_retriever(
                     model, coarse, k_eff, num_candidates=coarse_candidates,
-                    mode=coarse_mode, mesh=mesh)
+                    approx_recall=approx_recall, mode=coarse_mode, mesh=mesh)
             d, rows = r(params, toks, lens)
             return d.cpu().numpy(), rows.cpu().numpy()
         if mesh is None and topk_method != "fused":

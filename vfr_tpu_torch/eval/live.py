@@ -21,12 +21,15 @@ every retrieval dispatched before it, and a dispatched retrieval reads the
 corpus as it was at dispatch.  ``serve_follow`` also fetches its in-flight
 packs before a control line applies.
 
-The arena carries the score operand as f32 holding values rounded to the
-product dtype (``eval.corpus.prep_score_operands``, the same rounding for
-the initial build and for every delta, so an append equals a rebuild).  A
-bf16 arena therefore takes twice the bf16 bytes on the card; its file
-(``save_arena``) holds the bf16 bit pattern as the JAX package's does, and
-snapshots cross between the two packages bit for bit.
+The arena is kept at its index's dtype, as the JAX package's: a bf16
+index is a bf16 arena (2 bytes an element on the card), an f32 index an
+f32 arena holding the embeddings unrounded, whatever the compute dtype.
+The score product follows the arena's dtype (``parallel.sharding.
+fused_corpus_scores``): bf16 operands into f32 sums, and an f32 arena
+under bf16 compute rounded on every call.  Its file (``save_arena``)
+holds the tensor's own values, a bf16 arena as its bit pattern, as the
+JAX package's does, and snapshots cross between the two packages bit for
+bit.
 
 With a ``mesh`` (``parallel/mesh.py``) the arena is row-sharded over its
 "corpus" axis: ``m_cat`` and ``msq_fused`` are lists of per-shard tensors,
@@ -56,10 +59,9 @@ from vfr_tpu_torch.eval.corpus import (
     build_moment_index,
     index_fingerprint,
     make_operand_retriever,
-    prep_score_operands,
-    score_in_dtype,
 )
 from vfr_tpu_torch.models.mcn import Model
+from vfr_tpu_torch.parallel.sharding import fuse_index_cat
 from vfr_tpu_torch.utils.io import atomic_savez
 
 _INVALID = 1e29
@@ -72,8 +74,9 @@ class LiveIndex:
     """Capacity-padded one-GEMM index whose row region changes in place.
     With ``mesh``, ``m_cat`` and ``msq_fused`` are lists of equal shards
     over the mesh's "corpus" axis (see the module docstring)."""
-    # [cap, S*d] f32 carrier of rounded values and [cap] f32 norms (1e30
-    # past used_rows and on removed rows); lists of shards with a mesh
+    # [cap, S*d] at the index's dtype (bf16 or f32) and [cap] f32 norms
+    # (1e30 past used_rows and on removed rows); lists of shards with a
+    # mesh
     m_cat: Union[torch.Tensor, List[torch.Tensor]]
     msq_fused: Union[torch.Tensor, List[torch.Tensor]]
     video_row: np.ndarray    # [cap] int32 (-1 on free rows)
@@ -133,11 +136,11 @@ def _mesh_capacity(cap: int, rows_per_video: int, mesh) -> int:
     return cap + (-cap) % ndev
 
 
-def _alloc(cap: int, width: int, devices):
-    """Free shards of a ``cap``-row arena over ``devices``: zero rows,
-    msq 1e30."""
+def _alloc(cap: int, width: int, dtype: torch.dtype, devices):
+    """Free shards of a ``cap``-row arena of ``dtype`` rows over
+    ``devices``: zero rows (exact in bf16 too), msq 1e30."""
     n = cap // len(devices)
-    return ([torch.zeros((n, width), dtype=torch.float32, device=d)
+    return ([torch.zeros((n, width), dtype=dtype, device=d)
              for d in devices],
             [torch.full((n,), 1e30, dtype=torch.float32, device=d)
              for d in devices])
@@ -182,17 +185,6 @@ def _pad_host_metadata(cap: int, video_row, prop_idx, spans_sec):
     return vr, pi, sp
 
 
-def _index_operands(index, compute_dtype: torch.dtype):
-    """(m_cat f32 carrier, msq_fused) of a built index: the batch serving
-    path's own rounding (``prep_score_operands``)."""
-    return prep_score_operands(index, compute_dtype)[:2]
-
-
-def arena_in_dtype(live: LiveIndex, model: Model) -> torch.dtype:
-    """The score GEMM's product dtype over ``live``."""
-    return score_in_dtype(live.index_dtype == "bfloat16", model.compute_dtype)
-
-
 @torch.no_grad()
 def make_live_index(
     params, model: Model, dataset,
@@ -226,9 +218,9 @@ def make_live_index(
                 f"({len(devices)}): each shard must hold at least one video")
         cap = _mesh_capacity(cap, P, mesh)
     used = index.num_rows
-    m_cat, msq_fused = _index_operands(index, model.compute_dtype)
+    m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
     index.m = index.m_sq = None
-    m_sh, sq_sh = _alloc(cap, m_cat.shape[1], devices)
+    m_sh, sq_sh = _alloc(cap, m_cat.shape[1], m_cat.dtype, devices)
     _write_rows(m_sh, 0, m_cat)
     _write_rows(sq_sh, 0, msq_fused)
     del m_cat, msq_fused
@@ -333,7 +325,7 @@ def live_append(
     if not np.allclose(np.asarray(delta.weights),
                        np.asarray(live.weights)):
         raise ValueError("stream weights changed between build and append")
-    d_cat, d_sq = _index_operands(delta, model.compute_dtype)
+    d_cat, d_sq = fuse_index_cat(delta.m, delta.m_sq, delta.weights)
     start = live.used_rows
     m_sh, sq_sh = _shards(live)
     _write_rows(m_sh, start, d_cat)
@@ -446,7 +438,7 @@ def live_grow(live: LiveIndex, capacity_videos: int) -> int:
         return live.capacity
     m_sh, sq_sh = _shards(live)
     rps = live.rows_per_shard
-    new_m, new_sq = _alloc(new_cap, m_sh[0].shape[1],
+    new_m, new_sq = _alloc(new_cap, m_sh[0].shape[1], m_sh[0].dtype,
                            [t.device for t in m_sh])
     for i, (m, sq) in enumerate(zip(m_sh, sq_sh)):
         _write_rows(new_m, i * rps, m)
@@ -466,17 +458,16 @@ def _arena_fingerprint(live: LiveIndex, params, model: Model) -> Dict:
 
 def save_arena(live: LiveIndex, path: str, params=None, model=None) -> str:
     """Snapshot the whole arena (operands, metadata, used region) to one
-    .npz, atomically, in the JAX package's format: a bf16 arena as its
-    uint16 bit pattern.  A sharded arena writes the same single-device
-    file (its shards in row order), so snapshots move between meshes.
+    .npz, atomically, in the JAX package's format: the arena's own values,
+    a bf16 arena as its uint16 bit pattern.  A sharded arena writes the
+    same single-device file (its shards in row order), so snapshots move
+    between meshes.
     With ``params``/``model`` a provenance fingerprint is stored and
     checked at load."""
     m_sh = _shards(live)[0]
-    if live.index_dtype == "bfloat16":
-        # the carrier holds bf16 values: the cast back is exact
-        m_store = np.concatenate([
-            t.to(torch.bfloat16).view(torch.int16).cpu().numpy()
-            for t in m_sh]).view(np.uint16)
+    if m_sh[0].dtype == torch.bfloat16:
+        m_store = np.concatenate([t.view(torch.int16).cpu().numpy()
+                                  for t in m_sh]).view(np.uint16)
         m_dtype = "bfloat16"
     else:
         m_store = np.concatenate([t.cpu().numpy() for t in m_sh])
@@ -506,17 +497,15 @@ def load_arena(path: str, params=None, model=None, mesh=None,
     free rows, so a snapshot from any mesh, or none, loads).  With
     ``params``/``model`` the stored fingerprint (if any) is checked: a
     snapshot from another checkpoint or corpus raises instead of serving
-    wrong moments.  With ``model`` the carrier is rounded to the score
-    GEMM's product dtype, as the batch path's operands are: a no-op but
-    for an f32 arena served with bf16 compute, whose file then holds the
-    rounded values."""
+    wrong moments.  The arena keeps the file's dtype and values: a bf16
+    file loads as a bf16 arena, an f32 file unrounded."""
     devices = ([resolve_device(device)] if mesh is None
                else mesh.axis_devices("corpus"))
     with np.load(path, allow_pickle=False) as z:
         m_dtype = str(z["m_dtype"])
         if m_dtype == "bfloat16":
             m = torch.from_numpy(z["m_cat"].view(np.int16)).view(
-                torch.bfloat16).float()
+                torch.bfloat16)
         else:
             m = torch.from_numpy(np.asarray(z["m_cat"], np.float32))
         msq = torch.from_numpy(np.asarray(z["msq_fused"], np.float32))
@@ -528,7 +517,7 @@ def load_arena(path: str, params=None, model=None, mesh=None,
         if cap > m.shape[0]:
             video_row, prop_idx, spans_sec = _pad_host_metadata(
                 cap, video_row, prop_idx, spans_sec)
-        m_sh, sq_sh = _alloc(cap, m.shape[1], devices)
+        m_sh, sq_sh = _alloc(cap, m.shape[1], m.dtype, devices)
         _write_rows(m_sh, 0, m)
         _write_rows(sq_sh, 0, msq)
         del m, msq
@@ -548,11 +537,6 @@ def load_arena(path: str, params=None, model=None, mesh=None,
         )
         fp = (json.loads(str(z["fingerprint"]))
               if "fingerprint" in z.files else None)
-    if model is not None:
-        in_dtype = arena_in_dtype(live, model)
-        if in_dtype != torch.float32:
-            for t in m_sh:
-                t.copy_(t.to(in_dtype).float())
     if fp is not None and params is not None and model is not None:
         want = _arena_fingerprint(live, params, model)
         for key in ("model", "params", "videos"):
@@ -588,11 +572,9 @@ def make_live_retriever(
         fn = built.get(k_eff)
         if fn is None:
             built.clear()
-            kw = dict(topk_method=topk_method, approx_recall=approx_recall,
-                      rnn_kernel=rnn_kernel,
-                      in_dtype=arena_in_dtype(live, model))
             fn = built[k_eff] = make_operand_retriever(
-                model, live.weights, k_eff, **kw)
+                model, live.weights, k_eff, topk_method=topk_method,
+                approx_recall=approx_recall, rnn_kernel=rnn_kernel)
         return fn(live.m_cat, live.msq_fused, params, tokens, lengths)
 
     return retrieve

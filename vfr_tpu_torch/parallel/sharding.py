@@ -1,10 +1,14 @@
 """Query x corpus scoring, on one device and sharded over a mesh.
 
-The score GEMM is ``torch.matmul`` on f32 operands: the JAX package leaves
-this product to XLA outside any Pallas kernel.  A bf16 operand is rounded
-and then upcast to f32 (exact), so the result is the f32-accumulated
-product that JAX's ``preferred_element_type=float32`` gives, never a bf16
-``matmul`` output.
+The score GEMM is a library GEMM: the JAX package leaves this product to
+XLA outside any Pallas kernel.  Its product dtype follows the JAX
+package's rule: the operand's dtype when it is bf16, else the compute
+dtype.  A bf16 product multiplies bf16 operands into f32 sums, as JAX's
+``preferred_element_type=float32``, never a bf16 ``matmul`` output: on
+CUDA tensors one bf16 GEMM with f32 outputs (``aten::mm.dtype``,
+``score_mm``), on the CPU and as its plain version both operands rounded
+and upcast to f32 (``device.mm_f32``).  The products are exact either way;
+only the order of the sums differs.
 
 Sharded (``corpus_topk_shards``, its mesh forms ``sharded_corpus_topk
 (_cat)``, and ``sharded_gt_ranks``): the index rows are split over the
@@ -21,7 +25,7 @@ the lead device.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
@@ -60,12 +64,13 @@ def fused_corpus_distances(
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Fused squared-euclidean distance [Q, N] = sum_s w_s ||q_s - m_s||^2;
-    products at m's storage dtype when it is bf16, else ``compute_dtype``."""
+    products at m's storage dtype when it is bf16, else ``compute_dtype``
+    (``score_mm``)."""
     w = _w(weights)
     in_dt = m.dtype if m.dtype == torch.bfloat16 else compute_dtype
     D = None
     for s in range(q.shape[0]):
-        qm = mm_f32(q[s], m[s].T, in_dt)
+        qm = score_mm(q[s], m[s].T, in_dt)
         q_sq = (q[s] * q[s]).sum(-1)[:, None]
         d_s = q_sq + m_sq[s][None, :] - 2.0 * qm
         D = w[s] * d_s if D is None else D + w[s] * d_s
@@ -91,29 +96,40 @@ def query_sq_const(q: torch.Tensor, weights: Weights) -> torch.Tensor:
     return _weighted_sum(_w(weights), (q * q).sum(-1))
 
 
+def score_mm(a: torch.Tensor, b: torch.Tensor, in_dtype: torch.dtype
+             ) -> torch.Tensor:
+    """``a @ b`` with both operands at ``in_dtype`` and f32 products and
+    sums.  A bf16 product of CUDA tensors is one bf16 GEMM into f32 outputs
+    (``aten::mm.dtype``); a torch without it raises.  CPU tensors, and
+    every other product dtype, take ``device.mm_f32``: the plain version."""
+    if in_dtype != torch.bfloat16 or a.device.type == "cpu":
+        return mm_f32(a, b, in_dtype)
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    try:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, NotImplementedError) as e:
+        raise RuntimeError(
+            f"the bf16 score product needs aten::mm.dtype (bf16 operands, "
+            f"f32 outputs) on {a.device.type} tensors; torch "
+            f"{torch.__version__} has none") from e
+
+
 def fused_corpus_scores(
     q: torch.Tensor,          # [S, Q, d]
     m_cat: torch.Tensor,      # [N, S*d]
     msq_fused: torch.Tensor,  # [N]
     weights: Weights,         # [S]
     compute_dtype: torch.dtype = torch.float32,
-    in_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Scores [Q, N] (higher = closer): 2 sum_s w_s q_s.m_s - msq_fused.
 
-    Products run at ``in_dtype``: by default m's storage dtype when it is
-    bf16, else ``compute_dtype``.  A caller that carries a bf16 index
-    upcast to f32 once (``eval.corpus.prep_score_operands``) passes
-    ``in_dtype=torch.bfloat16`` so the queries are still rounded; such an
-    f32 carrier must already hold ``in_dtype`` values (it is not rounded
-    again on every call)."""
-    qc = query_cat_scaled(q, weights)
-    if in_dtype is None:
-        in_dtype = (m_cat.dtype if m_cat.dtype == torch.bfloat16
-                    else compute_dtype)
-        return mm_f32(qc, m_cat.T, in_dtype) - msq_fused[None, :]
-    qc = qc.to(in_dtype).float()
-    return torch.matmul(qc, m_cat.T) - msq_fused[None, :]
+    Products run at m's dtype when it is bf16, else ``compute_dtype``
+    (``score_mm``): an f32 operand under bf16 compute (the "auto" carrier
+    of a bf16 index, ``eval.corpus.prep_score_operands``, or an f32 live
+    arena) is rounded on every call, as in the JAX package."""
+    in_dtype = m_cat.dtype if m_cat.dtype == torch.bfloat16 else compute_dtype
+    return (score_mm(query_cat_scaled(q, weights), m_cat.T, in_dtype)
+            - msq_fused[None, :])
 
 
 Shards = List[torch.Tensor]
@@ -180,12 +196,11 @@ def corpus_topk_shards(
     compute_dtype: torch.dtype = torch.float32,
     method: str = "exact",
     recall: float = 0.95,
-    in_dtype: Optional[torch.dtype] = None,
 ):
     """The top-k over the one-matmul layout held as shards, each on its own
     device: (distances [Q, k], global row ids [Q, k]) on shard 0's device.
-    Per shard: the scores of its rows (``fused_corpus_scores``,
-    ``in_dtype`` as there), a local top-k of ``min(k, n_loc)``, its global
+    Per shard: the scores of its rows (``fused_corpus_scores``), a local
+    top-k of ``min(k, n_loc)``, its global
     rows; then ``merge_candidates``.  The shards' selections share one
     host sync (``topk_lowest_index_many``): none at all while a shard holds
     at most ``ops.topk.KEY_MAX`` rows.  One shard is the single-device
@@ -194,7 +209,7 @@ def corpus_topk_shards(
     n_loc = m_sh[0].shape[0]
     k_loc = min(k, n_loc)            # a shard can hold fewer than k rows
     scores = [fused_corpus_scores(q.to(mc.device, non_blocking=True), mc, ms,
-                                  weights, compute_dtype, in_dtype)
+                                  weights, compute_dtype)
               for mc, ms in zip(m_sh, sq_sh)]
     local = topk_lowest_index_many(scores, k_loc)
     lead = m_sh[0].device
@@ -243,7 +258,6 @@ def sharded_corpus_topk_cat(
     compute_dtype: torch.dtype = torch.float32,
     method: str = "exact",
     recall: float = 0.95,
-    in_dtype: Optional[torch.dtype] = None,
 ):
     """The distributed top-k over the one-matmul layout (``fuse_index_cat``)
     split over ``axis`` once (``shard_rows``, as ``eval.corpus.
@@ -252,7 +266,7 @@ def sharded_corpus_topk_cat(
     devices = mesh.axis_devices(axis)
     return corpus_topk_shards(q, _check_shards(m_cat, devices),
                               _check_shards(msq_fused, devices), weights, k,
-                              compute_dtype, method, recall, in_dtype)
+                              compute_dtype, method, recall)
 
 
 def sharded_gt_ranks(
