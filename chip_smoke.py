@@ -68,13 +68,15 @@ Phases, one JSON line each:
               build seconds, ms per 256-query batch of the exact full scan
               and of blockmax / centroid at C in {1024, 2048}.
   bench       `vfr_tpu_torch.bench` in-process at full size (210,000 rows,
-              its every cell), the mean of 10 timed calls after 3: its JSON
+              its every cell), timed at its defaults (adaptive windows, a
+              2-call baseline subtracted, the median of 3): its JSON
               line printed on a line of its own and held to its contract
               (under 1,500 bytes, the JAX bench's five top-level keys and
               metric, every ms finite and positive, value = rows / batch
-              seconds); K1a, K1b and K2 must launch, persistent / mma
-              only; every serving row on its base batch held to its plain
-              version: queries through K1a (B=128, T=24 and T=8) and K1b
+              seconds, the method named); K1a, K1b and K2 must launch,
+              persistent / mma only; every serving row on its base batch
+              held to its plain version: queries through K1a (B=128, T=24
+              and T=8) and K1b
               within 2e-3 of the plain recurrence's, each exact row's
               top-100 a right answer within what the bf16 rounding of the
               two query sets can move a distance, the fused row's K2
@@ -88,7 +90,12 @@ Phases, one JSON line each:
               operand under bf16 compute (one cast a call) beside the bf16
               one; the bf16 product held to mm_f32 at the per-stream
               (K=128) and flagship batch (K=256) shapes; the flagship f32
-              row's per-call ms and Python's collections.
+              row's per-call ms and Python's collections; then the
+              serving_10k batch and its stages by the bench's timing and
+              by the one it had before (the mean of one 20-call window
+              after 3 untimed calls), 6 runs each in turns (P C C P ...),
+              a line each, with each method's median, quartile spread and
+              max / min of the headline.
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
@@ -239,7 +246,7 @@ REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX: its one sync), and 26,250 (none)
-BENCH_ITERS = 10         # bench: timed calls of each measurement
+BENCH_TURNS = 3          # bench: rounds of P C C P of the two timings
 BENCH_Q_TOL = 2e-3       # bench: queries through K1a / K1b vs plain, the
                          # kernel checks' tolerance (recheck_rows)
 BENCH_STALL_CALLS = 40   # bench: per-call times of the flagship f32 row
@@ -2831,22 +2838,97 @@ def _per_call_ms(fn, calls: int):
             [g["collections"] - b for g, b in zip(gc.get_stats(), before)])
 
 
-def phase_bench(results, iters: int = BENCH_ITERS):
-    """``vfr_tpu_torch.bench`` in-process at full size with few calls: its
+def _mean_of_20(body, x, iters: int = 20, warmup: int = 3) -> float:
+    """The bench's timing before it took the JAX package's: ``warmup``
+    untimed calls, then one window of ``iters`` calls between two CUDA
+    events, its mean; ``i`` runs over all the calls."""
+    import torch
+
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    calls = iter(range(warmup + iters))
+
+    def run(n):
+        for _ in range(n):
+            out = body(next(calls), x)
+            while isinstance(out, (tuple, list)):
+                out = out[0]
+            torch.maximum(acc, out.detach().float().amax(), out=acc)
+
+    run(warmup)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(iters)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def _spread(values):
+    """median, quartile spread (Q3 - Q1, numpy's linear percentiles) and
+    max / min of ``values``."""
+    q1, med, q3 = np.percentile(values, [25, 50, 75])
+    return dict(median=float(med), quartile_spread=float(q3 - q1),
+                max_over_min=float(max(values) / min(values)))
+
+
+def _timing_turns(s):
+    """The ``serving_10k`` batch and its stages (``bench._serving_ms``) by
+    the bench's timing ("adaptive": ``device_seconds_and_window`` at its
+    defaults) and by the parent's (``_mean_of_20``), ``BENCH_TURNS``
+    rounds of P C C P; a line a run (headline value, batch ms, stages,
+    the headline window's calls) and each method's spread."""
+    import torch
+
+    from vfr_tpu_torch import bench
+    from vfr_tpu_torch.utils.timing import device_seconds_and_window
+
+    def adaptive(body, x):
+        sec, n = device_seconds_and_window(body, x)
+        windows.append(n)
+        return sec
+
+    method = {"P": ("mean_of_20", _mean_of_20), "C": ("adaptive", adaptive)}
+    runs = {"mean_of_20": [], "adaptive": []}
+    t0 = time.perf_counter()
+    for turn in "PCCP" * BENCH_TURNS:
+        name, fn = method[turn]
+        windows = []
+
+        def time_fn(body, x):
+            with torch.no_grad():
+                return fn(body, x)
+
+        sec, st = bench._serving_ms(s, time_fn)
+        run = dict(value=round(s.index.num_rows / sec, 1),
+                   batch_ms=round(1e3 * sec, 6),
+                   stages_ms=bench.stages_ms(sec, st),
+                   headline_n=windows[0] if windows else 20)
+        emit({"phase": "bench_turn", "method": name, **run})
+        runs[name].append(run)
+    return dict(order="PCCP" * BENCH_TURNS, runs=runs,
+                value={k: _spread([r["value"] for r in v])
+                       for k, v in runs.items()},
+                seconds=time.perf_counter() - t0)
+
+
+def phase_bench(results):
+    """``vfr_tpu_torch.bench`` in-process at full size at its defaults: its
     line printed, parsed and checked (under 1,500 bytes, the JAX bench's
     keys and metric, every ms finite and positive, value = N / batch
-    seconds); K1a, K1b and K2 launched, on their persistent / mma
-    variants.  Then every serving row of the bench on its base batch,
-    against its plain version: the queries through K1a / K1b within
-    BENCH_Q_TOL of the plain recurrence's; each exact row's answer held to
-    the plain path's distances (``_exact_rows_vs_plain``); the fused row
-    with K2 against K2's plain version on the same queries (rows equal
-    outside near-ties, distances within 1e-3).  The exact top-k timed
+    seconds, the timing named); K1a, K1b and K2 launched, on their
+    persistent / mma variants.  Then every serving row of the bench on its
+    base batch, against its plain version: the queries through K1a / K1b
+    within BENCH_Q_TOL of the plain recurrence's; each exact row's answer
+    held to the plain path's distances (``_exact_rows_vs_plain``); the
+    fused row with K2 against K2's plain version on the same queries (rows
+    equal outside near-ties, distances within 1e-3).  The exact top-k timed
     alone on the headline batch's scores, the carriers' routes
     (``_carrier_routes``), the bf16 product against its plain version at
     the per-stream and the flagship batch's shapes (``_product_vs_plain``)
     and the flagship f32 row's per-call times after the bench
-    (``_per_call_ms``)."""
+    (``_per_call_ms``); then the two timings in turns (``_timing_turns``)."""
     import math
     from types import SimpleNamespace
     from unittest import mock
@@ -2869,9 +2951,11 @@ def phase_bench(results, iters: int = BENCH_ITERS):
         query_sq_const,
     )
 
+    t0 = time.perf_counter()
     reset_counts()
-    line, s = bench.measure("cuda", bench.VIDEOS, iters)
+    line, s = bench.measure("cuda")
     counts = read_counts()
+    measure_s = time.perf_counter() - t0
     text = json.dumps(line)
     print(text, flush=True)
     back = json.loads(text)
@@ -2888,6 +2972,10 @@ def phase_bench(results, iters: int = BENCH_ITERS):
     rate = detail["index_rows"] / (detail["batch_latency_ms"] / 1e3)
     require(abs(back["value"] - rate) <= 1e-5 * rate + 0.1,
             f"bench: value {back['value']} is not N / batch seconds {rate}")
+    require(detail["timing"].startswith(
+        "cuda events: median of 3, adaptive n (min_signal 0.25 s), base 2 "
+        "subtracted; headline n="),
+        f"bench: the timing is not the adaptive one: {detail['timing']}")
     for name in ("lstm_pooled", "lstm_hs", "distance_select"):
         require(counts[name] > 0, f"bench: {name} never launched")
     require_persistent(counts, "lstm", "bench")
@@ -2953,7 +3041,9 @@ def phase_bench(results, iters: int = BENCH_ITERS):
         per_call, collections = _per_call_ms(
             lambda i: retr(f32.q_params, bench.perturb(i, f32.tokens),
                            f32.lengths), BENCH_STALL_CALLS)
-    rec = dict(phase="bench", iters=iters,
+    turns = _timing_turns(s)
+    rec = dict(phase="bench", timing=detail["timing"],
+               measure_seconds=measure_s, timing_turns=turns,
                line_bytes=len(text.encode()), launches=counts,
                query_tol=BENCH_Q_TOL, vs_plain=checks, topk_alone_ms=topk_ms,
                carrier=carrier, bf16_product=products,

@@ -1,10 +1,13 @@
 """The port's bench entry point (``vfr_tpu_torch/bench.py``) and its timing
-harness (``vfr_tpu_torch/utils/timing.py``) on the CPU: the harness calls
-the body once per index and returns a positive mean; the bench prints one
+harness (``vfr_tpu_torch/utils/timing.py``) on the CPU: the harness gives
+every call of every window its own index and returns a positive time; it
+refuses a long window no longer than the baseline; the bench prints one
 JSON line with the JAX bench's top-level keys and metric name, under
-1,500 bytes, whose value is the index rows over the batch seconds; without
-CUDA it raises unless ``--device cpu`` is given.  The bench runs in a
-subprocess at its smallest corpus (8 videos) with one timed call."""
+1,500 bytes, whose value is the index rows over the batch seconds and
+whose timing names the method; without CUDA it raises unless ``--device
+cpu`` is given.  The bench runs in a subprocess at its smallest corpus (8
+videos) with long windows of 3 calls.  The harness is held to the JAX
+package's under a scripted clock in ``test_torch_timing.py``."""
 
 import json
 import math
@@ -24,17 +27,23 @@ TOP_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 
 @pytest.mark.parametrize("iters", [1, 4])
 def test_device_seconds_per_iter_calls_each_index_once(iters):
+    """``iters`` given, over the largest baseline below it (at most 2):
+    two warm windows of base and base + 1 calls, then 3 repeats of a base
+    and an ``iters`` window; each index once across them all."""
     seen = []
 
     def body(i, x):
         seen.append(i)
         return x * i
 
-    sec = timing.device_seconds_per_iter(body, torch.ones(3), iters)
+    base = min(2, iters - 1)
+    sec = timing.device_seconds_per_iter(body, torch.ones(3), iters,
+                                         base_iters=base)
     assert sec > 0
-    assert seen == list(range(timing.WARMUP + iters))
-    with pytest.raises(ValueError):
-        timing.device_seconds_per_iter(body, torch.ones(3), iters=0)
+    assert seen == list(range(2 * base + 1 + 3 * (base + iters)))
+    for bad in (dict(iters=iters, base_iters=iters), dict(iters=-1)):
+        with pytest.raises(ValueError, match="base_iters"):
+            timing.device_seconds_per_iter(body, torch.ones(3), **bad)
 
 
 def test_bound_is_the_larger_of_bytes_and_operations():
@@ -52,7 +61,7 @@ def test_bench_line_on_the_cpu():
     env = dict(os.environ, OMP_NUM_THREADS="4")
     r = subprocess.run(
         [sys.executable, "-m", "vfr_tpu_torch.bench", "--device", "cpu",
-         "--videos", "8", "--iters", "1"],
+         "--videos", "8", "--iters", "3"],
         cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
@@ -73,6 +82,8 @@ def test_bench_line_on_the_cpu():
     assert all(math.isfinite(x) and x > 0 for x in nums)
     assert set(d["stages_ms"]) == {"encode", "score_direct", "topk",
                                    "score_prefix_diff"}
+    assert d["timing"] == ("host clock (cpu): median of 3, n=3, "
+                           "base 2 subtracted; headline n=3")
 
 
 def test_bench_refuses_missing_cuda(monkeypatch):

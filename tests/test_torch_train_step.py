@@ -6,7 +6,9 @@ gradients (small widths).
   momentum) x schedule (constant, cosine, step) x (warmup 2 + a global-
   norm clip that triggers on some steps, or neither) against the JAX
   package's ``make_optimizer`` (optax): params after every step rtol 1e-5
-  (atol 1e-7); the frozen GloVe table never moves.
+  (atol 1e-7); the frozen GloVe table never moves.  adamw with
+  ``freeze_embeddings`` True and False (every leaf decayed), the table
+  with and without a gradient, held to optax's the same way.
 * ``make_train_step`` (single steps) and ``make_train_multi_step`` (one
   chunk of K steps, query dropout on with the JAX keys' masks, two
   streams) against the JAX package's: params, the Polyak average and
@@ -86,6 +88,48 @@ def test_optimizer_steps_match_optax(kw):
                                        atol=1e-7)
     np.testing.assert_array_equal(tp["embeddings"].numpy(),
                                   params["embeddings"])
+
+
+@pytest.mark.parametrize("frozen_table", [True, False],
+                         ids=["table-no-grad", "table-grad"])
+@pytest.mark.parametrize("freeze", [True, False],
+                         ids=["freeze", "decay-all"])
+def test_adamw_freeze_embeddings_matches_optax(freeze, frozen_table):
+    """``make_optimizer(freeze_embeddings=False)``: adamw decays every
+    leaf, the GloVe table and log_tau too, as optax's unmasked adamw; a
+    table with no gradient (None here, zeros in optax) is then decayed
+    alone.  K steps on the same params and gradients, the tolerance of
+    ``test_optimizer_steps_match_optax``."""
+    kw = dict(optimizer="adamw", learning_rate=0.05, weight_decay=0.1,
+              grad_clip_norm=1.5)
+    K = 3
+    rng = np.random.default_rng(5)
+    params = _tree(lambda s: rng.standard_normal(s).astype(np.float32))
+    grads = [_tree(lambda s: rng.standard_normal(s).astype(np.float32))
+             for _ in range(K)]
+    jopt = joptim.make_optimizer(JTrainConfig(**kw), 8,
+                                 freeze_embeddings=freeze)
+    topt = toptim.make_optimizer(TrainConfig(**kw), 8,
+                                 freeze_embeddings=freeze)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jopt.init(jp)
+    tp = params_from_numpy(params)
+    ts = topt.init(tp)
+    for g in grads:
+        tg = params_from_numpy(g)
+        if frozen_table:
+            g = dict(g, embeddings=np.zeros_like(g["embeddings"]))
+            tg["embeddings"] = None
+        ju, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = jax.tree.map(lambda p, u: p + u, jp, ju)
+        tu, ts = topt.update(tg, ts, tp)
+        tp = toptim.apply_updates(tp, tu)
+        for a, b in zip(jax.tree.leaves(tp), jax.tree.leaves(jp)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-7)
+    table_still = np.array_equal(tp["embeddings"].numpy(),
+                                 params["embeddings"])
+    assert table_still == (freeze and frozen_table)
 
 
 @pytest.mark.parametrize("name", ["constant", "cosine", "step"])

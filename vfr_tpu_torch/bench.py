@@ -10,9 +10,11 @@ there) and the same top-level keys (``metric``, ``value``, ``unit``,
 ``vs_baseline``, ``detail``).  Seeded weights differ from ``jax.random``'s.
 
 What it measures, every time by ``utils/timing.py::device_seconds_per_iter``
-(CUDA events around back-to-back calls after a few untimed ones, each
-on a different query batch: the tokens shifted by the call's index; the
-mean over every timed call):
+at its defaults, as the JAX bench does (windows of back-to-back calls
+between CUDA events, each call on a different query batch: the tokens
+shifted by the call's index; the window grown until it outlasts a 2-call
+baseline window by 0.25 s; the median of 3 such differences over the
+extra calls):
 
 * ``serving_10k``, the headline: the preset (last pool, bf16 compute and
   index) over V = 10,000 videos x 21 proposals = N = 210,000 rows of two
@@ -45,8 +47,11 @@ mean over every timed call):
   ``approx_max_k``, which the port has no counterpart of).
 
 Every ms is stream time per call, so where the host cannot keep the card
-busy the gaps count (the JAX bench's is device time inside one program;
-``detail.timing`` says which).  The line is kept under 1,500 bytes.  The
+busy the gaps between calls count (the JAX bench's is device time inside
+one program; ``detail.timing`` says which, with the headline's window).
+A train row steps its optimizer on every call of every window; each
+step's loss is kept on the device and all are checked finite after its
+timing.  The line is kept under 1,500 bytes.  The
 kernels build at first use (``kernels/build.py``).  Without CUDA it
 raises unless ``--device cpu`` is given, and then times on the host clock.
 """
@@ -86,9 +91,8 @@ from vfr_tpu_torch.train.step import make_train_step
 from vfr_tpu_torch.utils.timing import (
     H100_BYTES_PER_S,
     PEAK_FLOPS,
-    WARMUP,
     bound,
-    device_seconds_per_iter,
+    device_seconds_and_window,
     nvidia_smi_line,
 )
 from vfr_tpu_torch.utils.tree import tree_map
@@ -186,6 +190,14 @@ def _serving_ms(s, time_fn):
     return full, dict(encode=encode, prefix=prefix, score_direct=direct)
 
 
+def stages_ms(sec, st):
+    """The line's ``stages_ms`` from ``_serving_ms``'s seconds."""
+    return {k: round(1e3 * v, 4) for k, v in (
+        ("encode", st["encode"]), ("score_direct", st["score_direct"]),
+        ("topk", sec - st["prefix"]),
+        ("score_prefix_diff", st["prefix"] - st["encode"]))}
+
+
 def flagship_rows(s, dev):
     """The ``flagship_serving`` rows: ``didemo_flagship`` over the rows of
     ``s`` L2-normalised and rounded to bf16, with f32 compute, bf16
@@ -237,6 +249,8 @@ def _step_seconds(cfg, model, params, batch, banks, vocab: int, time_fn):
                  e=tree_map(torch.clone, params) if cfg.train.ema_decay > 0
                  else None)
 
+    losses = []
+
     def body(i, tokens):
         b = dict(batch, tokens=perturb(i, tokens, vocab))
         if state["e"] is None:
@@ -244,9 +258,14 @@ def _step_seconds(cfg, model, params, batch, banks, vocab: int, time_fn):
         else:
             state["p"], state["s"], state["e"], aux = step(
                 state["p"], state["s"], b, state["e"])
+        losses.append(aux["loss"].detach())
         return aux["loss"]
 
-    return time_fn(body, batch["tokens"])
+    sec = time_fn(body, batch["tokens"])
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise RuntimeError(f"{cfg.name}: a loss went non-finite over the "
+                           f"{len(losses)} timed steps")
+    return sec
 
 
 def _to(dev, arrays):
@@ -316,22 +335,26 @@ def _flagship_step_seconds(preset: str, dev, time_fn):
     return _step_seconds(cfg, model, params, batch, banks, vocab, time_fn), B
 
 
-def measure(device="cuda", videos: int = VIDEOS, iters: int = 20):
-    """(the bench's line as a dict, the ``serving_10k`` set-up)."""
+def measure(device="cuda", videos: int = VIDEOS, iters: int = 0):
+    """(the bench's line as a dict, the ``serving_10k`` set-up).  ``iters``
+    0 times every row adaptively (the default); a count fixes each long
+    window at that many calls."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         from vfr_tpu_torch.kernels.build import build_all
 
         build_all()
         card = nvidia_smi_line()
-        timing = "cuda events, stream ms/call"
+        clock = "cuda events"
     else:
         card = "cpu"
-        timing = "host clock (cpu)"
-    timing += f": mean of {iters} after {WARMUP}"
+        clock = "host clock (cpu)"
+    windows = []
 
     def time_it(body, x):
-        return device_seconds_per_iter(body, x, iters)
+        sec, n = device_seconds_and_window(body, x, iters)
+        windows.append(n)
+        return sec
 
     def time_inference(body, x):
         with torch.no_grad():
@@ -341,6 +364,7 @@ def measure(device="cuda", videos: int = VIDEOS, iters: int = 20):
     N = s.index.num_rows
     warm_s = warm_select(dev, N)
     sec, st = _serving_ms(s, time_inference)
+    n_head = windows[0]         # the full batch is timed first
     fserve = _flagship_serving_ms(s, dev, time_inference)
     train_s = _fusion_step_seconds(s, dev, time_it)
     fs = {p: _flagship_step_seconds(p, dev, time_it)
@@ -376,12 +400,7 @@ def measure(device="cuda", videos: int = VIDEOS, iters: int = 20):
         "aggregate_scored_per_chip_per_sec": round(Q * N / sec, 1),
         "exact_topk_batch_latency_ms": round(1e3 * sec, 6),
         "select_warmup_ms": ms(warm_s),
-        "stages_ms": {
-            "encode": ms(st["encode"]),
-            "score_direct": ms(t_score),
-            "topk": ms(sec - st["prefix"]),
-            "score_prefix_diff": ms(st["prefix"] - st["encode"]),
-        },
+        "stages_ms": stages_ms(sec, st),
         "roofline": {
             "hbm_peak_gbps": H100_BYTES_PER_S / 1e9,
             "score_stage_hbm_util_pct": pct(
@@ -406,7 +425,10 @@ def measure(device="cuda", videos: int = VIDEOS, iters: int = 20):
             for p, (t, B) in fs.items()
             for key, val in (("step_ms", ms(t)),
                              ("queries_per_sec", round(B / t, 1)))},
-        "timing": timing,
+        "timing": (f"{clock}: median of 3, "
+                   + ("adaptive n (min_signal 0.25 s)" if not iters
+                      else f"n={iters}")
+                   + f", base 2 subtracted; headline n={n_head}"),
     }
     line = {"metric": METRIC, "value": round(rate, 1),
             "unit": "proposals/query/s",
@@ -421,8 +443,11 @@ def main(argv=None) -> int:
                     help="cuda (default; raises without it) or cpu")
     ap.add_argument("--videos", type=int, default=VIDEOS,
                     help="corpus videos of the serving cells (21 rows each)")
-    ap.add_argument("--iters", type=int, default=20,
-                    help="timed calls of each measurement")
+    ap.add_argument("--iters", type=int, default=0,
+                    help="calls of each long window: 0 (default) grows it "
+                         "until it outlasts the 2-call baseline by 0.25 s, "
+                         "as the JAX bench; a count above 2 fixes it, for "
+                         "quick runs on the CPU")
     args = ap.parse_args(argv)
     line, _ = measure(args.device, args.videos, args.iters)
     print(json.dumps(line), flush=True)

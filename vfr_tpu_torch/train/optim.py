@@ -9,7 +9,8 @@ What is optax's and not ``torch.optim``'s:
   ``(g / |g|) * max`` (``clip_grad_norm_`` scales by ``max / (|g| + 1e-6)``);
 * adam: bias-corrected moments, ``eps`` added outside the square root;
 * adamw: decoupled decay ``+ wd * p`` before the lr scaling, masked off
-  ``embeddings`` and ``log_tau`` (``_decay_mask``);
+  ``embeddings`` and ``log_tau`` (``_decay_mask``) unless
+  ``freeze_embeddings=False``, which decays every leaf;
 * sgd: optax's ``trace`` momentum, ``t <- g + momentum * t``.
 Schedules run in f32, as optax's do under jit.
 
@@ -17,7 +18,8 @@ Schedules run in f32, as optax's do under jit.
 ``init(params) -> state`` and ``update(grads, state, params) -> (updates,
 state)``; ``apply_updates(params, updates)`` adds them.  A ``None`` grad
 (the frozen GloVe table) leaves its leaf and its moments untouched, which
-is what optax's zero gradient does to a leaf outside the decay mask.
+is what optax's zero gradient does to a leaf outside the decay mask; where
+adamw decays every leaf it is a zero gradient, as in optax.
 """
 
 from __future__ import annotations
@@ -82,12 +84,14 @@ def global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum((x * x).sum() for x in leaves))
 
 
-def make_optimizer(tcfg: TrainConfig, total_steps: int = 0) -> Optimizer:
+def make_optimizer(tcfg: TrainConfig, total_steps: int = 0,
+                   freeze_embeddings: bool = True) -> Optimizer:
     sched = make_schedule(tcfg, total_steps)
     kind = tcfg.optimizer
     if kind not in ("adam", "adamw", "sgd"):
         raise ValueError(f"unknown optimizer {kind!r}")
     clip = tcfg.grad_clip_norm
+    decay_all = kind == "adamw" and not freeze_embeddings
     slots = ("trace",) if kind == "sgd" else ("mu", "nu")
 
     def init(params):
@@ -98,6 +102,9 @@ def make_optimizer(tcfg: TrainConfig, total_steps: int = 0) -> Optimizer:
 
     def update(grads, state, params):
         paths, gs = flatten(grads)
+        if decay_all:
+            gs = [torch.zeros_like(p) if g is None else g
+                  for g, p in zip(gs, flatten(params)[1])]
         live = [i for i, g in enumerate(gs) if g is not None]
         g = [gs[i] for i in live]
         if clip > 0:
@@ -134,7 +141,7 @@ def make_optimizer(tcfg: TrainConfig, total_steps: int = 0) -> Optimizer:
                 mask = _decay_mask(params)
                 _, ps = flatten(params)
                 upd = [u + tcfg.weight_decay * ps[i]
-                       if mask[paths[i][0]] else u
+                       if decay_all or mask[paths[i][0]] else u
                        for i, u in zip(live, upd)]
             for i, m, v in zip(live, m_new, v_new):
                 mu[i], nu[i] = m, v

@@ -1,18 +1,22 @@
 """Timing on the card, and the card's published peaks.
 
 The counterpart of the JAX package's ``utils/timing.py``
-(``device_seconds_per_iter``).  There the measured body runs inside one
-compiled loop, the loop index perturbs its inputs so that no iteration can
-be elided, and a small-iteration baseline is subtracted to cancel a remote
-runtime's fixed cost.  Here PyTorch runs eagerly: every call launches its
-work, so ``device_seconds_per_iter`` records CUDA events around ``iters``
-back-to-back calls of ``body(i, x)``, each with its own ``i`` (the caller
-perturbs its inputs with it: a different batch every call), and adds no
-host sync of its own between them.  Each result is consumed on the device
-(a running max), as the JAX harness consumes it.  The mean is stream time
-per call over every timed call: where the host cannot keep the card busy,
-or stalls, the gaps count, as a user pays for them.  Events on the card
-have no fixed relay cost, so nothing is subtracted.
+(``device_seconds_per_iter``), with its signature and schedule: two warm
+windows, then windows that grow from 16 calls by x4 until a long window
+outlasts a ``base_iters`` window by ``min_signal`` seconds, then the
+median of ``repeats`` such differences over the extra calls.
+
+What is kept from JAX, and why: the baseline cancels a window's fixed
+cost (here the gap from the start event to the first launch, on a card
+left idle by the previous window's sync), and the median drops a window
+that a stall hit.  The gaps between the calls of a window still count, as
+a user pays for them.  What differs: PyTorch runs eagerly, so every call
+launches its work and a window is ``n`` back-to-back calls of
+``body(i, x, *operands)`` between two CUDA events, with no host sync
+inside it.  ``i`` is distinct on every call of every window (JAX's
+``salt``): the caller perturbs its inputs with it, so no two windows see
+the same batches.  Each call's result (its first tensor) is consumed on
+the device by a running max, as the JAX harness consumes it.
 
 On a CPU tensor it uses ``time.perf_counter``: only when the caller hands
 it one, never as a fallback.
@@ -25,9 +29,10 @@ name and power limit, to stand beside every number kept.
 
 from __future__ import annotations
 
+import itertools
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -35,7 +40,6 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "tf32": 495e12,       # dense tensor-core rate
               "float32": 67e12}     # f32 outside the tensor cores
-WARMUP = 3                          # untimed calls before the timed ones
 
 
 def nvidia_smi_line() -> str:
@@ -80,40 +84,86 @@ def _first(out) -> torch.Tensor:
     return out
 
 
-def device_seconds_per_iter(
-    body: Callable[[int, torch.Tensor], object],
+def device_seconds_and_window(
+    body: Callable[..., object],
     x: torch.Tensor,
-    iters: int = 20,
-) -> float:
-    """Mean seconds per call of ``body(i, x)`` on ``x``'s device:
-    ``WARMUP`` calls, then ``iters`` timed ones, ``i`` running from 0 over
-    all of them; the total time of the timed calls over ``iters``, so a
-    stall inside the window counts.  Each call's result (its first tensor)
-    is consumed on the device.  CUDA: events around the timed calls, no
-    sync among them.  CPU: the host clock, the same calls."""
-    if iters < 1:
-        raise ValueError(f"iters must be >= 1, got {iters}")
+    iters: int = 0,                 # 0 = adaptive
+    base_iters: int = 2,
+    repeats: int = 3,
+    min_signal: float = 0.25,       # seconds the measured diff must reach
+    max_iters: int = 8192,
+    operands: tuple = (),
+) -> Tuple[float, int]:
+    """(seconds per call, the long window's calls ``n``) of
+    ``device_seconds_per_iter``, whose arguments it takes."""
+    if iters < 0 or 0 < iters <= base_iters:
+        raise ValueError(f"iters must be 0 (adaptive) or above base_iters="
+                         f"{base_iters}, got {iters}")
     dev = x.device
     acc = torch.zeros((), dtype=torch.float32, device=dev)
-    calls = iter(range(WARMUP + iters))
+    calls = itertools.count()
 
     def run(n):
         for _ in range(n):
-            out = _first(body(next(calls), x)).detach()
+            out = _first(body(next(calls), x, *operands)).detach()
             torch.maximum(acc, out.float().amax(), out=acc)
 
-    if dev.type != "cuda":
-        run(WARMUP)
-        t0 = time.perf_counter()
-        run(iters)
-        return (time.perf_counter() - t0) / iters
-    with torch.cuda.device(dev):
-        run(WARMUP)
-        torch.cuda.synchronize()
+    if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run(iters)
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
+
+        def window(n):
+            with torch.cuda.device(dev):
+                start.record()
+                run(n)
+                end.record()
+                end.synchronize()
+            return start.elapsed_time(end) / 1e3
+    else:
+        def window(n):
+            t0 = time.perf_counter()
+            run(n)
+            return time.perf_counter() - t0
+
+    window(base_iters)               # warm
+    window(base_iters + 1)
+
+    n = iters if iters else 16
+    while True:
+        t_base = window(base_iters)
+        diff = window(n) - t_base
+        if iters or diff >= min_signal or n >= max_iters:
+            break
+        n = min(n * 4, max_iters)
+
+    diffs = [diff]
+    for _ in range(max(repeats - 1, 0)):
+        t_base = window(base_iters)
+        diffs.append(window(n) - t_base)
+    diffs.sort()
+    med = diffs[len(diffs) // 2]
+    return max(med / (n - base_iters), 1e-12), n
+
+
+def device_seconds_per_iter(
+    body: Callable[..., object],
+    x: torch.Tensor,
+    iters: int = 0,
+    base_iters: int = 2,
+    repeats: int = 3,
+    min_signal: float = 0.25,
+    max_iters: int = 8192,
+    operands: tuple = (),
+) -> float:
+    """Seconds per call of ``body(i, x, *operands)`` on ``x``'s device.
+
+    Two warm windows of ``base_iters`` and ``base_iters + 1`` calls; then
+    ``n = iters or 16`` and one measurement t(n) - t(base_iters), each
+    window timed on its own, ``n`` grown x4 (to at most ``max_iters``)
+    until the difference reaches ``min_signal`` seconds, unless ``iters``
+    was given; ``repeats - 1`` more measurements at that ``n``; the median
+    difference over ``n - base_iters``.  ``iters`` is 0 (adaptive) or
+    above ``base_iters``.  CUDA: events around each window, no sync
+    inside one.  CPU: the host clock, the same calls."""
+    return device_seconds_and_window(body, x, iters, base_iters, repeats,
+                                     min_signal, max_iters, operands)[0]
