@@ -42,8 +42,11 @@ Phases, one JSON line each:
               p50 / p95 request ms, requests/s, time to first result; each
               run beside its plain-version run and held to `serve_queries`'
               records (moments equal outside near-ties, distances within
-              1e-3); depth 1 against 2 at micro-batch 8 in turns; host
-              syncs per pack by line; K2 at one pack of 8 queries; one
+              1e-3); depth 1 against 2 at micro-batch 8 in turns, and the
+              exact backlog with the earlier select (one host sync a pack)
+              patched in beside the current one; host syncs per pack by
+              line, none allowed from ops/topk.py on the exact path; K2 at
+              one pack of 8 queries; one
               `cli serve --follow` subprocess on stdin.
   eval        per-video and corpus eval of didemo_flagship on the flagship
               corpus (40,000 queries): `evaluate` under both protocols on the
@@ -81,7 +84,6 @@ Phases, one JSON line each:
               top-100 a right answer within what the bf16 rounding of the
               two query sets can move a distance, the fused row's K2
               against K2's plain version on the same queries (1e-3); the
-              exact top-k timed alone on the headline batch's scores; the
               headline batch under carrier_dtype "auto" (f32 carrier cast
               back in each product), the same carrier through an f32 GEMM
               (its route before the product followed the operand) and
@@ -90,12 +92,21 @@ Phases, one JSON line each:
               operand under bf16 compute (one cast a call) beside the bf16
               one; the bf16 product held to mm_f32 at the per-stream
               (K=128) and flagship batch (K=256) shapes; the flagship f32
-              row's per-call ms and Python's collections; then the
-              serving_10k batch and its stages by the bench's timing and
-              by the one it had before (the mean of one 20-call window
-              after 3 untimed calls), 6 runs each in turns (P C C P ...),
-              a line each, with each method's median, quartile spread and
-              max / min of the headline.
+              row's per-call ms and Python's collections; one
+              serving_10k batch (encode, score, top-k) under torch's sync
+              debug mode "error": any host sync fails it; the long-row
+              select at the bench's shape (Q=128, 210,000 rows, top-100),
+              the flagship's (Q=256, top-10) and a daemon pack's (Q=8,
+              top-10): the sync-free select, its two routes (the tie pass
+              over the 32-bit total order, the 64-bit key) and the select
+              as it stood before (torch.topk of k + 1 and one host sync),
+              all four equal, stream ms by CUDA events in turns and device
+              ms by torch.profiler; then the serving_10k batch and its
+              top-k stage (the batch less its encode + score prefix) by the
+              bench's timing with that earlier select patched in and with
+              the current one, 6 runs each in turns (P C C P ...), a line
+              each, with each select's median, quartile spread and max /
+              min of the headline and the stage.
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
@@ -165,7 +176,7 @@ Phases, one JSON line each:
               times; a line names the mesh's devices): flagship exact at
               n = 4 and 8 (K1a; held to the unsharded results and to K1a's
               plain version; ms per batch beside unsharded; host syncs per
-              batch: one at 52,500 rows a shard, none at 26,250), coarse at
+              batch: none, at 52,500 rows a shard as at 26,250), coarse at
               n = 4 (blockmax: K4 on every shard, held to its plain version;
               centroid; recall@10; the full quota equal to exact), corpus
               eval at n = 4 (official protocol, GT ranker; exact and coarse
@@ -176,7 +187,7 @@ Phases, one JSON line each:
               operations, held to the unsharded arena and the rebuild, its
               snapshot on one device, the daemon's script over a sharded
               arena; K1b), coarse_2m at n = 4 (full scan held to the
-              unsharded one; blockmax K4).
+              unsharded one, no host sync a batch; blockmax K4).
 Every serving and eval run zeroes the kernels' launch counts just before
 it runs and fails unless each kernel of its path launched; a per-video
 eval at batch 512 fails if K1 ran stepwise.  The sharded coarse runs
@@ -245,8 +256,8 @@ DP_CHUNK_TOL = 5e-3      # DP vs one-device chunk losses over the cut run:
 REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
-                         # top-k's KEY_MAX: its one sync), and 26,250 (none)
-BENCH_TURNS = 3          # bench: rounds of P C C P of the two timings
+                         # top-k's KEY_MAX), and 26,250 (under it)
+BENCH_TURNS = 3          # bench: rounds of P C C P of the two selects
 BENCH_Q_TOL = 2e-3       # bench: queries through K1a / K1b vs plain, the
                          # kernel checks' tolerance (recheck_rows)
 BENCH_STALL_CALLS = 40   # bench: per-call times of the flagship f32 row
@@ -1728,7 +1739,6 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         make_stream_retriever,
     )
     from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
-    from vfr_tpu_torch.ops.topk import KEY_MAX
 
     q_params, model, index, k = (ctx["q_params"], ctx["model"],
                                  ctx["index"], ctx["k"])
@@ -1780,7 +1790,7 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         require(p_mism == 0 and p_ddiff <= 1e-3,
                 f"sharded[exact n={n}] vs plain K1a: {p_mism} rows differ, "
                 f"max |d diff| {p_ddiff}")
-        require(sum(syncs.values()) == (1 if n_loc > KEY_MAX else 0),
+        require(sum(syncs.values()) == 0,
                 f"sharded[exact n={n}]: host syncs {syncs}")
 
     mesh = meshes[4]
@@ -2482,6 +2492,9 @@ def _coarse_2m_sharded(results, w, n: int, d_full, rows_full,
     require(mism == 0 and ddiff <= 1e-3,
             f"sharded[coarse_2m] full scan vs unsharded: {mism} rows "
             f"differ, max |d diff| {ddiff}")
+    require(rec["full_scan_host_syncs"] == 0,
+            f"sharded[coarse_2m] full scan: {rec['full_scan_host_syncs']} "
+            f"host syncs a batch")
     fn = make_sharded_coarse_retriever(model, coarse, k, mesh,
                                        num_candidates=C, mode="blockmax")
     reset_counts()
@@ -2838,33 +2851,6 @@ def _per_call_ms(fn, calls: int):
             [g["collections"] - b for g, b in zip(gc.get_stats(), before)])
 
 
-def _mean_of_20(body, x, iters: int = 20, warmup: int = 3) -> float:
-    """The bench's timing before it took the JAX package's: ``warmup``
-    untimed calls, then one window of ``iters`` calls between two CUDA
-    events, its mean; ``i`` runs over all the calls."""
-    import torch
-
-    acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    calls = iter(range(warmup + iters))
-
-    def run(n):
-        for _ in range(n):
-            out = body(next(calls), x)
-            while isinstance(out, (tuple, list)):
-                out = out[0]
-            torch.maximum(acc, out.detach().float().amax(), out=acc)
-
-    run(warmup)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run(iters)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
-
-
 def _spread(values):
     """median, quartile spread (Q3 - Q1, numpy's linear percentiles) and
     max / min of ``values``."""
@@ -2873,43 +2859,165 @@ def _spread(values):
                 max_over_min=float(max(values) / min(values)))
 
 
-def _timing_turns(s):
-    """The ``serving_10k`` batch and its stages (``bench._serving_ms``) by
-    the bench's timing ("adaptive": ``device_seconds_and_window`` at its
-    defaults) and by the parent's (``_mean_of_20``), ``BENCH_TURNS``
-    rounds of P C C P; a line a run (headline value, batch ms, stages,
-    the headline window's calls) and each method's spread."""
+def _parent_select(x, k: int):
+    """The long-row select as it stood before it went sync-free, rebuilt
+    from the port's helpers: ``torch.topk`` of k + 1 on the floats, three
+    tie flags (the k-th value recurs past the k-th place, a value recurs
+    inside the k, a NaN or a zero stands among the k + 1) read on the host
+    in one ``tolist``, then the tie pass only where a flag asks for it
+    (the select redone on ``ordered_bits`` for a NaN or a zero).  Rows of
+    at most ``KEY_MAX`` take the 64-bit key, as they still do."""
+    import torch
+
+    from vfr_tpu_torch.ops.topk import (
+        KEY_MAX,
+        _key_topk,
+        _lowest_tied,
+        ordered_bits,
+    )
+
+    N = x.shape[-1]
+    k = min(k, N)
+    if N <= KEY_MAX or k == 0:
+        return _key_topk(x, k)
+
+    def queued(v):
+        vals, idx = torch.topk(v, min(k + 1, N), dim=-1)
+        kth = vals[..., k - 1 : k]
+        left = ((vals[..., k:] == kth).any() if N > k
+                else torch.zeros((), dtype=torch.bool, device=v.device))
+        special = ((vals != vals) | (vals == 0)).any()
+        vals, idx = vals[..., :k], idx[..., :k]
+        inside = (vals[..., 1:] == vals[..., :-1]).any()
+        return kth, vals, idx, torch.stack([left, inside, special])
+
+    kth, vals, idx, flags = queued(x)
+    left_out, inside, special = flags.tolist()
+    v = x
+    if special:
+        v = ordered_bits(x)
+        kth, vals, idx, _ = queued(v)
+        left_out = inside = True
+    if left_out:
+        idx = _lowest_tied(v, kth, (vals == kth).sum(
+            -1, keepdim=True, dtype=torch.int32), idx)
+    if left_out or inside:
+        idx, _ = torch.sort(idx, dim=-1)
+        _, order = torch.sort(torch.gather(v, -1, idx), dim=-1,
+                              descending=True, stable=True)
+        idx = torch.gather(idx, -1, order)
+        vals = torch.gather(x, -1, idx)
+    return vals, idx
+
+
+def _parent_many(xs, k: int):
+    """``_parent_select`` of each of ``xs``: the earlier
+    ``topk_lowest_index_many`` (one sync a row, not one for all)."""
+    return [_parent_select(x, k) for x in xs]
+
+
+def _select_candidates(scores, k: int, what: str):
+    """The long-row select on ``scores`` [Q, N]: the port's sync-free
+    ``topk_lowest_index`` (which takes one of the next two by the batch's
+    size), the tie pass over the 32-bit total order (``_tie_topk``), the
+    64-bit key (``_key_topk``) and the earlier select
+    (``_parent_select``), required equal; stream ms of each (``cuda_ms``)
+    in turns P S T K K T S P, and device ms of one call by torch.profiler
+    (``_device_profile``)."""
+    import torch
+
+    from vfr_tpu_torch.ops.topk import _key_topk, _tie_topk, topk_lowest_index
+
+    fns = {"sync_free": lambda: topk_lowest_index(scores, k),
+           "tie_pass": lambda: _tie_topk(scores, k),
+           "int64_key": lambda: _key_topk(scores, k),
+           "parent_synced": lambda: _parent_select(scores, k)}
+    outs = {n: fn() for n, fn in fns.items()}
+    same = all(torch.equal(a, b) for o in outs.values()
+               for a, b in zip(o, outs["sync_free"]))
+    require(same, f"bench: the selects disagree at {what}")
+    stream = {n: [] for n in fns}
+    order = ["parent_synced", "sync_free", "tie_pass", "int64_key"]
+    for n in order + order[::-1]:
+        stream[n].append(cuda_ms(fns[n]))
+    device = {n: _device_profile(f"select_{what}_{n}", fn)[
+        "device_ms_per_iter"] for n, fn in fns.items()}
+    return dict(shape=list(scores.shape), k=k, stream_ms=stream,
+                device_ms=device)
+
+
+def _sync_free_batch(s):
+    """One ``serving_10k`` batch (encode, score, top-k over its 210,000
+    rows) through the bench's retriever under torch's sync debug mode
+    "error", after one warm batch: True, or the error's first line."""
     import torch
 
     from vfr_tpu_torch import bench
+    from vfr_tpu_torch.eval.corpus import make_score_topk
+
+    retr = make_score_topk(s.model, s.index, bench.K,
+                           topk_method=s.cfg.eval.topk_method,
+                           approx_recall=s.cfg.eval.approx_recall)
+    with torch.no_grad():
+        retr(s.q_params, s.tokens, s.lengths)
+        toks = bench.perturb(1, s.tokens)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            retr(s.q_params, toks, s.lengths)
+            ok = True
+        except RuntimeError as e:
+            ok = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return ok
+
+
+def _select_turns(s):
+    """The ``serving_10k`` batch and its top-k stage (the batch less its
+    encode + score prefix, ``bench._serving_ms``) by the bench's timing at
+    its defaults, with the earlier select (``_parent_select``, one host
+    sync a batch) patched into the retriever (P) and with the current one
+    (C), ``BENCH_TURNS`` rounds of P C C P; a line a run (headline value,
+    batch, prefix and top-k ms, the headline window's calls) and each
+    select's spread."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch import bench
+    from vfr_tpu_torch.parallel import sharding as sharding_mod
     from vfr_tpu_torch.utils.timing import device_seconds_and_window
 
-    def adaptive(body, x):
-        sec, n = device_seconds_and_window(body, x)
-        windows.append(n)
-        return sec
-
-    method = {"P": ("mean_of_20", _mean_of_20), "C": ("adaptive", adaptive)}
-    runs = {"mean_of_20": [], "adaptive": []}
+    runs = {"parent_synced": [], "sync_free": []}
     t0 = time.perf_counter()
     for turn in "PCCP" * BENCH_TURNS:
-        name, fn = method[turn]
+        name = "parent_synced" if turn == "P" else "sync_free"
         windows = []
 
         def time_fn(body, x):
             with torch.no_grad():
-                return fn(body, x)
+                sec, n = device_seconds_and_window(body, x)
+            windows.append(n)
+            return sec
 
-        sec, st = bench._serving_ms(s, time_fn)
+        with mock.patch.object(
+                sharding_mod, "topk_lowest_index_many",
+                _parent_many if turn == "P"
+                else sharding_mod.topk_lowest_index_many):
+            sec, st = bench._serving_ms(s, time_fn, prefix_only=True)
         run = dict(value=round(s.index.num_rows / sec, 1),
                    batch_ms=round(1e3 * sec, 6),
-                   stages_ms=bench.stages_ms(sec, st),
-                   headline_n=windows[0] if windows else 20)
-        emit({"phase": "bench_turn", "method": name, **run})
+                   prefix_ms=round(1e3 * st["prefix"], 4),
+                   topk_stage_ms=round(1e3 * (sec - st["prefix"]), 4),
+                   headline_n=windows[0])
+        emit({"phase": "bench_turn", "select": name, **run})
         runs[name].append(run)
     return dict(order="PCCP" * BENCH_TURNS, runs=runs,
                 value={k: _spread([r["value"] for r in v])
                        for k, v in runs.items()},
+                topk_stage_ms={k: _spread([r["topk_stage_ms"] for r in v])
+                               for k, v in runs.items()},
                 seconds=time.perf_counter() - t0)
 
 
@@ -2923,12 +3031,15 @@ def phase_bench(results):
     within BENCH_Q_TOL of the plain recurrence's; each exact row's answer
     held to the plain path's distances (``_exact_rows_vs_plain``); the
     fused row with K2 against K2's plain version on the same queries (rows
-    equal outside near-ties, distances within 1e-3).  The exact top-k timed
-    alone on the headline batch's scores, the carriers' routes
+    equal outside near-ties, distances within 1e-3).  The long-row select's
+    candidates on the headline batch's scores, on a flagship batch of 256
+    and on a pack of 8 (``_select_candidates``), the carriers' routes
     (``_carrier_routes``), the bf16 product against its plain version at
     the per-stream and the flagship batch's shapes (``_product_vs_plain``)
     and the flagship f32 row's per-call times after the bench
-    (``_per_call_ms``); then the two timings in turns (``_timing_turns``)."""
+    (``_per_call_ms``); one headline batch under sync debug "error"
+    (``_sync_free_batch``); then the earlier select against the current
+    one in turns (``_select_turns``)."""
     import math
     from types import SimpleNamespace
     from unittest import mock
@@ -2943,7 +3054,6 @@ def phase_bench(results):
         prep_score_operands,
     )
     from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
-    from vfr_tpu_torch.ops.topk import top_k_select
     from vfr_tpu_torch.parallel.sharding import (
         fuse_index_cat,
         fused_corpus_scores,
@@ -3013,13 +3123,26 @@ def phase_bench(results):
             checks[r.name] = dict(max_query_diff_vs_plain=q_err, **rec)
             if not (ok and q_err <= BENCH_Q_TOL):
                 failed.append(r.name)
-        # the select layer alone on the headline batch's scores (CUDA events)
+        # the select layer alone on the headline batch's scores, on a
+        # flagship batch of 256 (two of the f32 row's batches), top-10,
+        # and on a daemon's pack of 8 of those queries
         m_cat, msq = prep_score_operands(s.index, s.model.compute_dtype)
         q = _embed_query_streams(s.q_params, s.model, s.tokens, s.lengths)
         scores = fused_corpus_scores(q, m_cat, msq, s.index.weights,
                                      s.model.compute_dtype)
-        topk_ms = cuda_ms(lambda: top_k_select(scores, bench.K))
-        del scores
+        select = dict(bench=_select_candidates(scores, bench.K, "bench"))
+        f32 = fl[0]
+        m_cat, msq = prep_score_operands(f32.index, f32.model.compute_dtype)
+        q = _embed_query_streams(
+            f32.q_params, f32.model,
+            torch.cat([f32.tokens, bench.perturb(1, f32.tokens)]),
+            torch.cat([f32.lengths, f32.lengths]))
+        scores = fused_corpus_scores(q, m_cat, msq, f32.index.weights,
+                                     f32.model.compute_dtype)
+        select["flagship"] = _select_candidates(scores, 10, "flagship")
+        select["pack"] = _select_candidates(scores[:8].contiguous(), 10,
+                                            "pack")
+        del scores, m_cat, msq
         carrier = _carrier_routes(s)
         # the bf16 product at the eval ranker's per-stream shape (K = 128,
         # fused_corpus_distances) and at the flagship batch's (K = 256)
@@ -3036,16 +3159,19 @@ def phase_bench(results):
                 query_cat_scaled(q, w), m_cat, msq,
                 query_sq_const(q, w)[:, None], bench.K, "flagship batch"))
         del m_cat, msq
-        f32 = fl[0]
         retr = make_retriever(f32.model, f32.index, bench.K, f32.method)
         per_call, collections = _per_call_ms(
             lambda i: retr(f32.q_params, bench.perturb(i, f32.tokens),
                            f32.lengths), BENCH_STALL_CALLS)
-    turns = _timing_turns(s)
+    sync_free = _sync_free_batch(s)
+    require(sync_free is True, f"bench: a serving_10k batch synchronised "
+            f"with the host: {sync_free}")
+    turns = _select_turns(s)
     rec = dict(phase="bench", timing=detail["timing"],
-               measure_seconds=measure_s, timing_turns=turns,
+               measure_seconds=measure_s, select_turns=turns,
                line_bytes=len(text.encode()), launches=counts,
-               query_tol=BENCH_Q_TOL, vs_plain=checks, topk_alone_ms=topk_ms,
+               query_tol=BENCH_Q_TOL, vs_plain=checks, select=select,
+               batch_sync_free=sync_free,
                carrier=carrier, bf16_product=products,
                f32_row_per_call_ms=[round(t, 3) for t in per_call],
                f32_row_gc_collections=collections)
@@ -4069,10 +4195,13 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
     once; each run beside the same run through the kernels' plain
     versions, its records held to ``serve_queries``' for the same queries.
     Then one ``cli serve --follow`` subprocess on stdin."""
+    from unittest import mock
+
     import torch
 
     from vfr_tpu_torch.eval.coarse import build_coarse_index
     from vfr_tpu_torch.eval.corpus import serve_follow, serve_queries
+    from vfr_tpu_torch.parallel import sharding as sharding_mod
 
     params, model, ds, vocab = (ctx["params"], ctx["model"], ctx["ds"],
                                 ctx["vocab"])
@@ -4131,25 +4260,44 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
                 f"max |d diff| {p_ddiff}")
     # pipeline depth 1 against 2 at micro-batch 8, in turns in this call
     # (the host's speed moves between calls): requests/s of the backlog
-    turns = {}
-    for mode in ("exact", "fused"):
-        order = (1, 2, 2, 1) * 2
-        rates = []
-        for depth in order:
-            _, stats, _ = _drive_follow(
-                lambda lines, depth=depth, kw=modes[mode]: serve_follow(
-                    params, model, ds, vocab, lines, k=k, max_query_len=T,
-                    index=index, micro_batch=8, pipeline_depth=depth, **kw),
-                queries, False)
-            rates.append(stats["requests_per_s"])
-        turns[mode] = dict(depths=list(order), requests_per_s=rates)
-    # host syncs of one pack's dispatch + fetch, by mode (the exact top-k
-    # of a row longer than ops.topk.KEY_MAX syncs once, by design)
+    def backlog_rate(mode, depth):
+        _, stats, _ = _drive_follow(
+            lambda lines: serve_follow(
+                params, model, ds, vocab, lines, k=k, max_query_len=T,
+                index=index, micro_batch=8, pipeline_depth=depth,
+                **modes[mode]),
+            queries, False)
+        return stats["requests_per_s"]
+
+    order = (1, 2, 2, 1) * 2
+    turns = {mode: dict(depths=list(order), requests_per_s=[
+        backlog_rate(mode, depth) for depth in order])
+        for mode in ("exact", "fused")}
+    # the exact path with the earlier select (one host sync a pack) patched
+    # in, beside the current one, alternating which goes first
+    parent = {"depths": list(order), "parent_synced": [], "sync_free": []}
+    for i, depth in enumerate(order):
+        for sel in (("parent_synced", "sync_free") if i % 2 == 0
+                    else ("sync_free", "parent_synced")):
+            with mock.patch.object(
+                    sharding_mod, "topk_lowest_index_many",
+                    _parent_many if sel == "parent_synced"
+                    else sharding_mod.topk_lowest_index_many):
+                parent[sel].append(backlog_rate("exact", depth))
+    turns["exact_vs_parent_select"] = parent
+    # host syncs of one pack's dispatch + fetch, by mode and line; the
+    # exact top-k over the 210,000 rows may make none
     syncs = {f"{mode}_{n // 8}_packs": _sync_warnings(
         lambda kw=kw, n=n: list(serve_follow(
             params, model, ds, vocab, queries[:n], k=k, max_query_len=T,
             index=index, micro_batch=8, pipeline_depth=2, **kw)))
         for mode, kw in modes.items() for n in (8, 16)}
+    topk_syncs = {run: line for run, by in syncs.items()
+                  if run.startswith("exact") for line in by
+                  if line.startswith(os.path.join("vfr_tpu_torch", "ops",
+                                                  "topk.py"))}
+    require(not topk_syncs, f"follow: the exact top-k synchronised with "
+            f"the host: {topk_syncs}")
     # K2 at one pack of 8 queries, as the fused follow path runs it
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q8 = torch.randn(2, 8, index.m.shape[-1], device="cuda", generator=gen)

@@ -6,8 +6,11 @@ JSON line with the JAX bench's top-level keys and metric name, under
 1,500 bytes, whose value is the index rows over the batch seconds and
 whose timing names the method; without CUDA it raises unless ``--device
 cpu`` is given.  The bench runs in a subprocess at its smallest corpus (8
-videos) with long windows of 3 calls.  The harness is held to the JAX
-package's under a scripted clock in ``test_torch_timing.py``."""
+videos) on the smallest schedule of the harness: one warm call and one
+timed call a row (``--iters 1 --base-iters 0 --repeats 1``), so that it
+ends well inside its limit on a loaded CPU and no window difference can go
+negative.  The harness is held to the JAX package's under a scripted clock
+in ``test_torch_timing.py``."""
 
 import json
 import math
@@ -41,7 +44,8 @@ def test_device_seconds_per_iter_calls_each_index_once(iters):
                                          base_iters=base)
     assert sec > 0
     assert seen == list(range(2 * base + 1 + 3 * (base + iters)))
-    for bad in (dict(iters=iters, base_iters=iters), dict(iters=-1)):
+    for bad in (dict(iters=iters, base_iters=iters), dict(iters=-1),
+                dict(iters=iters, base_iters=-1)):
         with pytest.raises(ValueError, match="base_iters"):
             timing.device_seconds_per_iter(body, torch.ones(3), **bad)
 
@@ -61,7 +65,8 @@ def test_bench_line_on_the_cpu():
     env = dict(os.environ, OMP_NUM_THREADS="4")
     r = subprocess.run(
         [sys.executable, "-m", "vfr_tpu_torch.bench", "--device", "cpu",
-         "--videos", "8", "--iters", "3"],
+         "--videos", "8", "--iters", "1", "--base-iters", "0",
+         "--repeats", "1"],
         cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
@@ -82,8 +87,8 @@ def test_bench_line_on_the_cpu():
     assert all(math.isfinite(x) and x > 0 for x in nums)
     assert set(d["stages_ms"]) == {"encode", "score_direct", "topk",
                                    "score_prefix_diff"}
-    assert d["timing"] == ("host clock (cpu): median of 3, n=3, "
-                           "base 2 subtracted; headline n=3")
+    assert d["timing"] == ("host clock (cpu): median of 1, n=1, "
+                           "base 0 subtracted; headline n=1")
 
 
 def test_bench_refuses_missing_cuda(monkeypatch):

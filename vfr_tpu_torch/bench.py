@@ -1,7 +1,7 @@
 """Serving and training throughput of the port on one card: one JSON line.
 
     python -m vfr_tpu_torch.bench [--device cuda|cpu] [--videos N]
-                                  [--iters N]
+                                  [--iters N] [--base-iters N] [--repeats N]
 
 The counterpart of the JAX package's ``bench.py``, on the port's modules,
 with the same inputs (seeded numpy draws in the same order; torch's
@@ -54,6 +54,10 @@ step's loss is kept on the device and all are checked finite after its
 timing.  The line is kept under 1,500 bytes.  The
 kernels build at first use (``kernels/build.py``).  Without CUDA it
 raises unless ``--device cpu`` is given, and then times on the host clock.
+``--base-iters`` and ``--repeats`` set the timing's own parameters (the
+JAX bench's 2 and 3 by default); with ``--iters 1 --base-iters 0
+--repeats 1`` a row makes two calls, one warm and one timed, for a quick
+look at the line's shape on the CPU.
 """
 
 from __future__ import annotations
@@ -152,12 +156,11 @@ def serving_setup(dev, videos: int = VIDEOS) -> SimpleNamespace:
 
 
 def warm_select(dev, rows: int, k: int = K) -> float:
-    """Seconds of the first call of the long-row top-k's tie paths at the
-    retrievers' shape (Q x ``rows``, top-``k``), over a batch of equal
-    scores (ones: neither NaN nor zero, the path of real scores): a tie at
-    the k-th place and inside the k.  A served batch meets them at its
-    first exact tie, and their kernels load then, once per process:
-    set-up, which would otherwise land in a timed call."""
+    """Seconds of the first call of the long-row top-k and its tie pass at
+    the retrievers' shape (Q x ``rows``, top-``k``), over a batch of equal
+    scores (a tie at the k-th place and inside the k).  Their kernels load
+    at the first call, once per process: set-up, which would otherwise
+    land in a timed call."""
     t0 = time.perf_counter()
     topk_lowest_index(torch.ones(Q, rows, device=dev), k)
     if dev.type == "cuda":
@@ -165,9 +168,10 @@ def warm_select(dev, rows: int, k: int = K) -> float:
     return time.perf_counter() - t0
 
 
-def _serving_ms(s, time_fn):
+def _serving_ms(s, time_fn, prefix_only: bool = False):
     """(seconds of the full batch, stage seconds) of the ``serving_10k``
-    retriever and its prefixes."""
+    retriever and its prefixes: encode, encode + score and the score
+    alone, or the encode + score prefix alone."""
     model, index, qp = s.model, s.index, s.q_params
     retr = make_score_topk(model, index, K, topk_method=s.cfg.eval.topk_method,
                            approx_recall=s.cfg.eval.approx_recall)
@@ -182,8 +186,10 @@ def _serving_ms(s, time_fn):
                                    model.compute_dtype)
 
     full = time_fn(lambda i, t: retr(qp, perturb(i, t), s.lengths), s.tokens)
-    encode = time_fn(embed, s.tokens)
     prefix = time_fn(lambda i, t: scores(embed(i, t)), s.tokens)
+    if prefix_only:
+        return full, dict(prefix=prefix)
+    encode = time_fn(embed, s.tokens)
     with torch.no_grad():
         qs = embed(0, s.tokens)
     direct = time_fn(lambda i, q: scores(torch.roll(q, i, dims=1)), qs)
@@ -335,10 +341,13 @@ def _flagship_step_seconds(preset: str, dev, time_fn):
     return _step_seconds(cfg, model, params, batch, banks, vocab, time_fn), B
 
 
-def measure(device="cuda", videos: int = VIDEOS, iters: int = 0):
+def measure(device="cuda", videos: int = VIDEOS, iters: int = 0,
+            base_iters: int = 2, repeats: int = 3):
     """(the bench's line as a dict, the ``serving_10k`` set-up).  ``iters``
     0 times every row adaptively (the default); a count fixes each long
-    window at that many calls."""
+    window at that many calls.  ``base_iters`` and ``repeats`` are the
+    timing's own (``device_seconds_and_window``); their defaults are the
+    JAX bench's."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         from vfr_tpu_torch.kernels.build import build_all
@@ -352,7 +361,8 @@ def measure(device="cuda", videos: int = VIDEOS, iters: int = 0):
     windows = []
 
     def time_it(body, x):
-        sec, n = device_seconds_and_window(body, x, iters)
+        sec, n = device_seconds_and_window(body, x, iters, base_iters,
+                                           repeats)
         windows.append(n)
         return sec
 
@@ -425,10 +435,10 @@ def measure(device="cuda", videos: int = VIDEOS, iters: int = 0):
             for p, (t, B) in fs.items()
             for key, val in (("step_ms", ms(t)),
                              ("queries_per_sec", round(B / t, 1)))},
-        "timing": (f"{clock}: median of 3, "
+        "timing": (f"{clock}: median of {repeats}, "
                    + ("adaptive n (min_signal 0.25 s)" if not iters
                       else f"n={iters}")
-                   + f", base 2 subtracted; headline n={n_head}"),
+                   + f", base {base_iters} subtracted; headline n={n_head}"),
     }
     line = {"metric": METRIC, "value": round(rate, 1),
             "unit": "proposals/query/s",
@@ -445,11 +455,18 @@ def main(argv=None) -> int:
                     help="corpus videos of the serving cells (21 rows each)")
     ap.add_argument("--iters", type=int, default=0,
                     help="calls of each long window: 0 (default) grows it "
-                         "until it outlasts the 2-call baseline by 0.25 s, "
-                         "as the JAX bench; a count above 2 fixes it, for "
-                         "quick runs on the CPU")
+                         "until it outlasts the baseline window by 0.25 s, "
+                         "as the JAX bench; a count above --base-iters "
+                         "fixes it, for quick runs on the CPU")
+    ap.add_argument("--base-iters", type=int, default=2,
+                    help="calls of the baseline window subtracted from "
+                         "each long one (default 2, as the JAX bench)")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="measurements whose median is kept (default 3, as "
+                         "the JAX bench)")
     args = ap.parse_args(argv)
-    line, _ = measure(args.device, args.videos, args.iters)
+    line, _ = measure(args.device, args.videos, args.iters, args.base_iters,
+                      args.repeats)
     print(json.dumps(line), flush=True)
     return 0
 

@@ -644,9 +644,9 @@ def serve_follow(
       copies of its results into pinned buffers and records an event; the
       fetch waits on that event.  When no input waits, in-flight packs are
       flushed at once, so an isolated request never waits on a successor.
-      (The tie-ordered top-k of a row longer than ``ops.topk.KEY_MAX``
-      syncs once inside the dispatch: the exact path over a large corpus
-      cannot overlap two packs.)
+      No path reads a device value on the host inside a dispatch (the
+      exact top-k over a corpus of any size included), so packs overlap
+      as the JAX package's do.
 
     ``live`` (an ``eval.live.LiveIndex``): the corpus changes while the
     daemon runs, through control lines ``!add <delta.npz>``, ``!remove

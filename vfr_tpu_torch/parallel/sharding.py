@@ -180,7 +180,7 @@ def merge_candidates(vals: Shards, rows: Shards, k: int, lead: torch.device):
     them.  A tie goes to the lower position: the lower shard, then the
     lower local rank, i.e. the lowest global row (``lax.top_k``'s order over
     the JAX package's gathered layout).  The row is at most ndev * k long:
-    the sync-free key path of ``topk_lowest_index``."""
+    the 64-bit key path of ``topk_lowest_index``."""
     cand_v = torch.cat([v.to(lead, non_blocking=True) for v in vals], 1)
     cand_r = torch.cat([r.to(lead, non_blocking=True) for r in rows], 1)
     best, pos = topk_lowest_index(cand_v, min(k, cand_v.shape[1]))
@@ -201,10 +201,10 @@ def corpus_topk_shards(
     device: (distances [Q, k], global row ids [Q, k]) on shard 0's device.
     Per shard: the scores of its rows (``fused_corpus_scores``), a local
     top-k of ``min(k, n_loc)``, its global
-    rows; then ``merge_candidates``.  The shards' selections share one
-    host sync (``topk_lowest_index_many``): none at all while a shard holds
-    at most ``ops.topk.KEY_MAX`` rows.  One shard is the single-device
-    retrieval, launch for launch (no merge)."""
+    rows; then ``merge_candidates``.  No selection reads a value on the
+    host (``topk_lowest_index_many``), so shards on separate cards never
+    wait on each other.  One shard is the single-device retrieval, launch
+    for launch (no merge)."""
     check_topk_method(method)        # "approx" is exact, as top_k_select
     n_loc = m_sh[0].shape[0]
     k_loc = min(k, n_loc)            # a shard can hold fewer than k rows

@@ -96,9 +96,9 @@ def device_seconds_and_window(
 ) -> Tuple[float, int]:
     """(seconds per call, the long window's calls ``n``) of
     ``device_seconds_per_iter``, whose arguments it takes."""
-    if iters < 0 or 0 < iters <= base_iters:
+    if base_iters < 0 or iters < 0 or 0 < iters <= base_iters:
         raise ValueError(f"iters must be 0 (adaptive) or above base_iters="
-                         f"{base_iters}, got {iters}")
+                         f"{base_iters} >= 0, got {iters}")
     dev = x.device
     acc = torch.zeros((), dtype=torch.float32, device=dev)
     calls = itertools.count()
