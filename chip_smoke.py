@@ -22,8 +22,13 @@ Phases, one JSON line each:
               save and load the index, serve 1024 queries exact, then with
               length buckets (identical results required), and hold the
               results against the same queries served through the
-              kernels' plain versions.
-  fused       `--topk-method fused` on the same index; recall@10 vs exact.
+              kernels' plain versions; a batch of 256 (top-10) as one
+              graph replay against the eager batch over five token sets
+              (distances bit for bit, rows, launches per replay = per
+              eager call), each graphed answer held to the plain
+              distances (``_exact_rows_vs_plain``).
+  fused       `--topk-method fused` on the same index; recall@10 vs exact;
+              the graphed batch against the eager one, as flagship's.
   coarse      the coarse-to-fine prefilter (d_coarse 32) built on the same
               index, save/load round trip, 1024 queries served with stage 1
               blockmax (K4) and centroid at C=2048, blockmax held against
@@ -43,8 +48,11 @@ Phases, one JSON line each:
               run beside its plain-version run and held to `serve_queries`'
               records (moments equal outside near-ties, distances within
               1e-3); depth 1 against 2 at micro-batch 8 in turns, and the
-              exact backlog with the earlier select (one host sync a pack)
-              patched in beside the current one; host syncs per pack by
+              exact daemon eager (E) against graphed (G) in turns E G G E,
+              50 isolated requests and a backlog of 384 at micro-batch 8
+              and 64, depth 1 and 2, records bit-equal; each run's first
+              request goes alone first (the daemon's graph capture) and is
+              not counted; host syncs per pack by
               line, none allowed from ops/topk.py on the exact path; K2 at
               one pack of 8 queries; one
               `cli serve --follow` subprocess on stdin.
@@ -65,7 +73,9 @@ Phases, one JSON line each:
               1e30 sentinel rows) held against plain, per-video eval with
               pooling="max" (the direct form) and its peak memory; no
               invalid window may be retrieved; K2 timed at this shape.
-  serving_10k last pool, bf16 compute, bf16 index, on a 2,000-video corpus.
+  serving_10k last pool, bf16 compute, bf16 index, on a 2,000-video corpus;
+              its eight batches graphed against eager and held to the
+              plain distances, one capture for the stream.
   coarse_2m   a 2.1M-row bf16 index (100,000 videos, S=2, d=128) drawn on
               the card from a seeded normal, serving_10k weights: coarse
               build seconds, ms per 256-query batch of the exact full scan
@@ -101,12 +111,14 @@ Phases, one JSON line each:
               over the 32-bit total order, the 64-bit key) and the select
               as it stood before (torch.topk of k + 1 and one host sync),
               all four equal, stream ms by CUDA events in turns and device
-              ms by torch.profiler; then the serving_10k batch and its
-              top-k stage (the batch less its encode + score prefix) by the
-              bench's timing with that earlier select patched in and with
-              the current one, 6 runs each in turns (P C C P ...), a line
-              each, with each select's median, quartile spread and max /
-              min of the headline and the stage.
+              ms by torch.profiler; one headline batch's graph replay and
+              its eager batch under sync debug "error", the graph's
+              capture seconds and pool bytes; then the serving_10k batch
+              and its top-k stage (the batch less its encode + score
+              prefix) by the bench's timing eager (E) and graphed (G), 6
+              runs a side in turns (E G G E ...; --turns N rounds), a line
+              each, with each side's median, quartile spread and max / min
+              of the headline, the batch and the stage.
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
@@ -162,8 +174,11 @@ Phases, one JSON line each:
               500, compact, grow to 25,000, save -> load (bit-exact); after
               each, the live retriever held to a from-scratch index over the
               same corpus; the arena written in place until the grow; K1b
-              must launch; seconds of each operation, retrieve ms before and
-              after; the arena bf16 [420,000, 256] + f32 norms, its bytes
+              must launch; each retrieval one graph replay, bit-equal to
+              the eager call, no new capture after an append, a removal or
+              a compaction (and rows of the appended videos returned), one
+              a shape after the grow; seconds of each operation, retrieve
+              ms before and after; the arena bf16 [420,000, 256] + f32 norms, its bytes
               read from the tensors, memory allocated before and after the
               build; the bf16-operand score GEMM against its plain version
               (mm_f32) on the arena at packs of 8 and 256 (rows equal
@@ -188,6 +203,11 @@ Phases, one JSON line each:
               snapshot on one device, the daemon's script over a sharded
               arena; K1b), coarse_2m at n = 4 (full scan held to the
               unsharded one, no host sync a batch; blockmax K4).
+A serving batch on one card is one CUDA graph replay (utils/graphs.py);
+a replay adds the launches its capture counted, so every count below is
+of what ran on the card.  A check that patches a kernel's plain version
+in runs the eager batch (a replay would not see the patch), or a new
+retriever captured under the patch.
 Every serving and eval run zeroes the kernels' launch counts just before
 it runs and fails unless each kernel of its path launched; a per-video
 eval at batch 512 fails if K1 ran stepwise.  The sharded coarse runs
@@ -234,6 +254,7 @@ TRAIN_STEPS_PER_CALL = 5
 FOLLOW_REQUESTS = 200    # follow: a backlog of 200 requests
 FOLLOW_ISOLATED = 50     # and 50 isolated ones (one in flight)
 FOLLOW_CLI = 20          # requests of the `cli serve --follow` subprocess
+FOLLOW_EG = 384          # follow: eager / graphed backlogs (6 packs of 64)
 LIVE_VIDEOS = 10_000     # live: serving_10k, 10,000 videos in an arena of
 LIVE_CAPACITY = 20_000   # 20,000 (420,000 rows), the JAX package's
 LIVE_GROW = 25_000       # scripts/probe_live.py set-up; then grown
@@ -257,7 +278,7 @@ REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX), and 26,250 (under it)
-BENCH_TURNS = 3          # bench: rounds of P C C P of the two selects
+BENCH_TURNS = 3          # bench: rounds of E G G E (eager, graphed)
 BENCH_Q_TOL = 2e-3       # bench: queries through K1a / K1b vs plain, the
                          # kernel checks' tolerance (recheck_rows)
 BENCH_STALL_CALLS = 40   # bench: per-call times of the flagship f32 row
@@ -1255,6 +1276,44 @@ def time_batches(fn, repeats: int = 5) -> float:
     return float(np.median(best)) * 1e3
 
 
+def graph_vs_eager(graphed, eager, batches, what: str, graphs=None):
+    """A graphed batch function (``utils/graphs.py``) held to its eager
+    one over ``batches`` (argument tuples of different tokens): the
+    distances bit for bit and the rows equal on every batch, and each
+    kernel's launches per replay equal to its launches per eager call
+    (counts zeroed around each call).  The first call captures, outside
+    the counted ones.  Returns (the graphed outputs, a record: batches,
+    launches per replay, the wrapper's captures, capture seconds and pool
+    bytes; ``graphs``, the ``BatchGraphs``, defaults to ``graphed``'s)."""
+    import torch
+
+    g = graphs if graphs is not None else graphed.graphs
+    graphed(*batches[0])
+    torch.cuda.synchronize()
+    outs, per_replay = [], None
+    for i, args in enumerate(batches):
+        reset_counts()
+        got = graphed(*args)
+        torch.cuda.synchronize()
+        c_g = read_counts()
+        reset_counts()
+        ref = eager(*args)
+        torch.cuda.synchronize()
+        c_e = read_counts()
+        same = (torch.equal(got[0].view(torch.int32),
+                            ref[0].view(torch.int32))
+                and torch.equal(got[1], ref[1]))
+        require(same, f"{what}: the graphed batch {i} is not bit-equal to "
+                "the eager one")
+        require(c_g == c_e, f"{what}: launches per replay {c_g} != per "
+                f"eager call {c_e}")
+        per_replay = c_g
+        outs.append(got)
+    return outs, dict(batches=len(batches), bit_equal=True,
+                      launches_per_replay=per_replay, captures=g.captures,
+                      capture_s=g.capture_s, pool_bytes=g.pool_bytes())
+
+
 def phase_serving(results, seed: int, num_videos: int, workdir: str,
                   k: int = 10, n_queries: int = 1024):
     from unittest import mock
@@ -1333,6 +1392,23 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     plain_ms_batch = time_batches(
         lambda: r_plain(q_params, toks_d, lens_d)) / len(toks)
     topk = _topk_cost(model, loaded, q_params, toks_d[0], lens_d[0], k)
+    # one replay a batch (Q=256) against the eager batch, over five token
+    # sets (the four batches and the first one rolled by a query), and each
+    # graphed answer held to the plain path's distances
+    r_exact = make_retriever(model, loaded, k, "exact")
+    batches = [(q_params, toks_d[b], lens_d[b]) for b in range(len(toks))]
+    batches.append((q_params, toks_d[0].roll(1, 0), lens_d[0].roll(1, 0)))
+    g_outs, graphed = graph_vs_eager(r_exact, r_exact.eager, batches,
+                                     "flagship[graph]")
+    graphed["vs_plain"] = [
+        _exact_rows_vs_plain(model, loaded, *(corpus_mod._embed_query_streams(
+            q_params, model, a[1], a[2], rnn_kernel=kern)
+            for kern in (None, "plain")), *out)
+        for a, out in zip(batches, g_outs)]
+    graphed["ms_per_batch"] = time_batches(lambda: r_exact(*batches[1]))
+    graphed["eager_ms_per_batch"] = time_batches(
+        lambda: r_exact.eager(*batches[1]))
+    del r_exact, g_outs
     first = exact[0]["results"]
     rec = dict(phase="flagship", videos=num_videos, rows=loaded.num_rows,
                queries=n_queries, batch=batch, k=k, launches=counts,
@@ -1341,7 +1417,7 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
                plain_ms_per_batch=plain_ms_batch, topk=topk,
                rows_differing_from_plain=mism,
                max_distance_diff_vs_plain=ddiff,
-               bucketed_identical=True)
+               bucketed_identical=True, graph=graphed)
     emit(rec)
     require(all(np.isfinite(r["distance"]) for r in first)
             and len(first) == k, "flagship: malformed results")
@@ -1351,6 +1427,9 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     require(mism == 0 and ddiff <= 1e-3,
             f"flagship: kernel vs plain: {mism} rows differ, "
             f"max |d diff| {ddiff}")
+    require(all(_right_answer(c) for c in graphed["vs_plain"]),
+            f"flagship: a graphed batch is not a right answer for the "
+            f"plain distances: {graphed['vs_plain']}")
     results["flagship"] = rec
 
     # --topk-method fused on the same index
@@ -1369,25 +1448,28 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     recall = hit / (k * len(exact))
     require_mma(counts, "select", "fused")
     r_fused = make_retriever(model, loaded, k, "fused")
+    _, f_graphed = graph_vs_eager(r_fused, r_fused.eager, batches,
+                                  "fused[graph]")
 
-    def fused_batches():
-        return [r_fused(q_params, toks_d[b], lens_d[b])
-                for b in range(len(toks))]
+    def fused_batches(fn=r_fused):
+        return [fn(q_params, toks_d[b], lens_d[b]) for b in range(len(toks))]
 
     fused_ms = time_batches(fused_batches) / len(toks)
-    # the same retriever with K2's plain version, and on each kernel variant
-    # in turns
+    f_graphed["eager_ms_per_batch"] = time_batches(
+        lambda: fused_batches(r_fused.eager)) / len(toks)
+    # the same batches eagerly with K2's plain version, and on each kernel
+    # variant in turns (eager: a patch reaches the launch, not a replay)
     d_f, rows_f = (torch.stack(t).cpu().numpy()
                    for t in zip(*fused_batches()))
     with mock.patch.object(corpus_mod, "distance_select",
                            distance_select_plain):
         d_fp, rows_fp = (torch.stack(t).cpu().numpy()
-                         for t in zip(*fused_batches()))
+                         for t in zip(*fused_batches(r_fused.eager)))
     f_mism, f_ddiff = compare_to_plain(d_f, rows_f, d_fp, rows_fp)
-    turns = [t / len(toks) for t in cell_turns(corpus_mod, "distance_select",
-                                               fused_batches)]
+    turns = [t / len(toks) for t in cell_turns(
+        corpus_mod, "distance_select", lambda: fused_batches(r_fused.eager))]
     rec = dict(phase="fused", launches=counts, recall_at_10_vs_exact=recall,
-               ms_per_batch=fused_ms, variant="mma",
+               ms_per_batch=fused_ms, graph=f_graphed, variant="mma",
                ms_per_batch_simt_mma_mma_simt=turns,
                rows_differing_from_plain=f_mism,
                max_distance_diff_vs_plain=f_ddiff)
@@ -2556,6 +2638,7 @@ def phase_gru(results, seed: int, num_videos: int):
 
     from vfr_tpu_torch.eval.corpus import (
         build_moment_index,
+        make_score_topk,
         make_stream_retriever,
         serve_queries,
     )
@@ -2604,8 +2687,13 @@ def phase_gru(results, seed: int, num_videos: int):
         d_p, rows_p = (t.cpu().numpy() for t in r_plain(q_params, toks_d,
                                                         lens_d))
         mism, ddiff = compare_to_plain(d_k, rows_k, d_p, rows_p)
+        body = make_score_topk(pool_model, index, k, "exact")
+        _, graphed = graph_vs_eager(
+            body, body.eager, [(q_params, toks_d[b], lens_d[b])
+                               for b in range(len(toks))], f"gru[{pool}]")
+        del body
         rec[pool] = dict(
-            launches=counts,
+            launches=counts, graph=graphed,
             ms_per_batch=time_batches(lambda: r_kernel(q_params, toks_d,
                                                        lens_d)) / len(toks),
             plain_ms_per_batch=time_batches(lambda: r_plain(
@@ -2625,7 +2713,9 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     import torch
 
     from vfr_tpu_torch.eval.corpus import (
+        _embed_query_streams,
         build_moment_index,
+        make_score_topk,
         make_stream_retriever,
         serve_queries,
     )
@@ -2669,11 +2759,30 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     mism, ddiff = compare_to_plain(d_k, rows_k, d_p, rows_p)
     ms_batch = time_batches(
         lambda: r_kernel(q_params, toks_d, lens_d)) / len(toks)
+    # the stream's batch body: one replay against the eager batch over the
+    # eight batches, each graphed answer held to the plain distances
+    body = make_score_topk(model, index, k, cfg.eval.topk_method)
+    batches = [(q_params, toks_d[b], lens_d[b]) for b in range(len(toks))]
+    g_outs, graphed = graph_vs_eager(body, body.eager, batches,
+                                     "serving_10k[graph]")
+    graphed["vs_plain"] = [
+        _exact_rows_vs_plain(model, index, *(_embed_query_streams(
+            q_params, model, a[1], a[2], rnn_kernel=kern)
+            for kern in (None, "plain")), *o)
+        for a, o in zip(batches, g_outs)]
+    del body, g_outs
     rec = dict(phase="serving_10k", videos=num_videos, rows=index.num_rows,
                queries=len(queries), k=k, launches=counts,
                ms_per_batch=ms_batch, rows_differing_from_plain=mism,
-               max_distance_diff_vs_plain=ddiff)
+               max_distance_diff_vs_plain=ddiff, graph=graphed,
+               stream_captures=r_kernel.graphs.captures)
     emit(rec)
+    require(all(_right_answer(c) for c in graphed["vs_plain"]),
+            f"serving_10k: a graphed batch is not a right answer for the "
+            f"plain distances: {graphed['vs_plain']}")
+    require(r_kernel.graphs.captures == 1, f"serving_10k: the stream "
+            f"retriever captured {r_kernel.graphs.captures} graphs for one "
+            "batch shape")
     require(len(out) == len(queries) and len(out[0]["results"]) == k,
             "serving_10k: malformed results")
     require(mism == 0 and ddiff <= 1e-3,
@@ -2754,6 +2863,13 @@ def _exact_rows_vs_plain(model, index, q_k, q_p, d_k, r_k):
         unsorted=int((d_k.diff(dim=1) < 0).sum()))
 
 
+def _right_answer(rec) -> bool:
+    """``_exact_rows_vs_plain``'s record of a right answer."""
+    return (rec["rows_out_of_band"] == rec["rows_missing"]
+            == rec["duplicate_rows"] == rec["unsorted"] == 0
+            and rec["max_distance_excess"] <= 0)
+
+
 def _carrier_routes(s):
     """The ``serving_10k`` batch of the bench (bf16 index, bf16 compute)
     under ``carrier_dtype="auto"`` (an f32 carrier, rounded back to bf16
@@ -2793,8 +2909,10 @@ def _carrier_routes(s):
 
     model, index, method = s.model, s.index, s.cfg.eval.topk_method
     args = (s.q_params, s.tokens, s.lengths)
+    # eager batches: the "f32_gemm" route is a patch, which a replay of
+    # the "auto" graph would not see
     retr = {c: make_score_topk(model, index, bench.K, method,
-                               carrier_dtype=c)
+                               carrier_dtype=c).eager
             for c in ("auto", "bfloat16")}
     retr["f32_gemm"] = retr["auto"]
     ms = {c: [] for c in retr}
@@ -2910,12 +3028,6 @@ def _parent_select(x, k: int):
     return vals, idx
 
 
-def _parent_many(xs, k: int):
-    """``_parent_select`` of each of ``xs``: the earlier
-    ``topk_lowest_index_many`` (one sync a row, not one for all)."""
-    return [_parent_select(x, k) for x in xs]
-
-
 def _select_candidates(scores, k: int, what: str):
     """The long-row select on ``scores`` [Q, N]: the port's sync-free
     ``topk_lowest_index`` (which takes one of the next two by the batch's
@@ -2949,7 +3061,9 @@ def _select_candidates(scores, k: int, what: str):
 def _sync_free_batch(s):
     """One ``serving_10k`` batch (encode, score, top-k over its 210,000
     rows) through the bench's retriever under torch's sync debug mode
-    "error", after one warm batch: True, or the error's first line."""
+    "error", after one warm batch that captures its graph: the replay and
+    the eager batch, each True or the error's first line; and the
+    retriever's capture seconds and pool bytes."""
     import torch
 
     from vfr_tpu_torch import bench
@@ -2958,41 +3072,42 @@ def _sync_free_batch(s):
     retr = make_score_topk(s.model, s.index, bench.K,
                            topk_method=s.cfg.eval.topk_method,
                            approx_recall=s.cfg.eval.approx_recall)
+    out = {}
     with torch.no_grad():
         retr(s.q_params, s.tokens, s.lengths)
         toks = bench.perturb(1, s.tokens)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            retr(s.q_params, toks, s.lengths)
-            ok = True
-        except RuntimeError as e:
-            ok = str(e).splitlines()[0]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return ok
+        for name, fn in (("replay", retr), ("eager", retr.eager)):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(s.q_params, toks, s.lengths)
+                out[name] = True
+            except RuntimeError as e:
+                out[name] = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    return out, dict(capture_s=retr.graphs.capture_s,
+                     pool_bytes=retr.graphs.pool_bytes())
 
 
-def _select_turns(s):
+def _eg_turns(s, rounds: int):
     """The ``serving_10k`` batch and its top-k stage (the batch less its
     encode + score prefix, ``bench._serving_ms``) by the bench's timing at
-    its defaults, with the earlier select (``_parent_select``, one host
-    sync a batch) patched into the retriever (P) and with the current one
-    (C), ``BENCH_TURNS`` rounds of P C C P; a line a run (headline value,
-    batch, prefix and top-k ms, the headline window's calls) and each
-    select's spread."""
-    from unittest import mock
+    its defaults, eager (E: every ``BatchGraphs`` on its eager function)
+    and graphed (G: one replay a call, the bench's own path), ``rounds``
+    rounds of E G G E; a line a run (headline value, batch, prefix and
+    top-k ms, the headline window's calls) and each side's spread."""
+    import contextlib
 
     import torch
 
     from vfr_tpu_torch import bench
-    from vfr_tpu_torch.parallel import sharding as sharding_mod
     from vfr_tpu_torch.utils.timing import device_seconds_and_window
 
-    runs = {"parent_synced": [], "sync_free": []}
+    runs = {"eager": [], "graphed": []}
     t0 = time.perf_counter()
-    for turn in "PCCP" * BENCH_TURNS:
-        name = "parent_synced" if turn == "P" else "sync_free"
+    for turn in "EGGE" * rounds:
+        name = "eager" if turn == "E" else "graphed"
         windows = []
 
         def time_fn(body, x):
@@ -3001,27 +3116,26 @@ def _select_turns(s):
             windows.append(n)
             return sec
 
-        with mock.patch.object(
-                sharding_mod, "topk_lowest_index_many",
-                _parent_many if turn == "P"
-                else sharding_mod.topk_lowest_index_many):
+        with eager_packs() if turn == "E" else contextlib.nullcontext():
             sec, st = bench._serving_ms(s, time_fn, prefix_only=True)
         run = dict(value=round(s.index.num_rows / sec, 1),
                    batch_ms=round(1e3 * sec, 6),
                    prefix_ms=round(1e3 * st["prefix"], 4),
                    topk_stage_ms=round(1e3 * (sec - st["prefix"]), 4),
                    headline_n=windows[0])
-        emit({"phase": "bench_turn", "select": name, **run})
+        emit({"phase": "bench_turn", "dispatch": name, **run})
         runs[name].append(run)
-    return dict(order="PCCP" * BENCH_TURNS, runs=runs,
+    return dict(order="EGGE" * rounds, runs=runs,
                 value={k: _spread([r["value"] for r in v])
                        for k, v in runs.items()},
+                batch_ms={k: _spread([r["batch_ms"] for r in v])
+                          for k, v in runs.items()},
                 topk_stage_ms={k: _spread([r["topk_stage_ms"] for r in v])
                                for k, v in runs.items()},
                 seconds=time.perf_counter() - t0)
 
 
-def phase_bench(results):
+def phase_bench(results, rounds: int = BENCH_TURNS):
     """``vfr_tpu_torch.bench`` in-process at full size at its defaults: its
     line printed, parsed and checked (under 1,500 bytes, the JAX bench's
     keys and metric, every ms finite and positive, value = N / batch
@@ -3037,9 +3151,10 @@ def phase_bench(results):
     (``_carrier_routes``), the bf16 product against its plain version at
     the per-stream and the flagship batch's shapes (``_product_vs_plain``)
     and the flagship f32 row's per-call times after the bench
-    (``_per_call_ms``); one headline batch under sync debug "error"
-    (``_sync_free_batch``); then the earlier select against the current
-    one in turns (``_select_turns``)."""
+    (``_per_call_ms``); one headline batch under sync debug "error", its
+    graph's replay and the eager batch (``_sync_free_batch``); then the
+    headline eager against graphed in ``rounds`` rounds of E G G E
+    (``_eg_turns``)."""
     import math
     from types import SimpleNamespace
     from unittest import mock
@@ -3083,8 +3198,8 @@ def phase_bench(results):
     require(abs(back["value"] - rate) <= 1e-5 * rate + 0.1,
             f"bench: value {back['value']} is not N / batch seconds {rate}")
     require(detail["timing"].startswith(
-        "cuda events: median of 3, adaptive n (min_signal 0.25 s), base 2 "
-        "subtracted; headline n="),
+        "cuda events, a serving call one graph replay: median of 3, "
+        "adaptive n (min_signal 0.25 s), base 2 subtracted; headline n="),
         f"bench: the timing is not the adaptive one: {detail['timing']}")
     for name in ("lstm_pooled", "lstm_hs", "distance_select"):
         require(counts[name] > 0, f"bench: {name} never launched")
@@ -3106,9 +3221,10 @@ def phase_bench(results):
             retr = make_retriever(r.model, r.index, bench.K, r.method)
             d_k, r_k = retr(r.q_params, r.tokens, r.lengths)
             if r.method == "fused":
+                # eager: the patch reaches the launch, not a replay
                 with mock.patch.object(corpus_mod, "distance_select",
                                        distance_select_plain):
-                    d_p, r_p = retr(r.q_params, r.tokens, r.lengths)
+                    d_p, r_p = retr.eager(r.q_params, r.tokens, r.lengths)
                 mism, ddiff = compare_to_plain(
                     *(t.cpu().numpy() for t in (d_k, r_k, d_p, r_p)))
                 rec = dict(rows_differing_from_plain_k2=mism,
@@ -3117,9 +3233,7 @@ def phase_bench(results):
             else:
                 rec = _exact_rows_vs_plain(r.model, r.index, q_k, q_p, d_k,
                                            r_k)
-                ok = (rec["rows_out_of_band"] == rec["rows_missing"]
-                      == rec["duplicate_rows"] == rec["unsorted"] == 0
-                      and rec["max_distance_excess"] <= 0)
+                ok = _right_answer(rec)
             checks[r.name] = dict(max_query_diff_vs_plain=q_err, **rec)
             if not (ok and q_err <= BENCH_Q_TOL):
                 failed.append(r.name)
@@ -3163,12 +3277,14 @@ def phase_bench(results):
         per_call, collections = _per_call_ms(
             lambda i: retr(f32.q_params, bench.perturb(i, f32.tokens),
                            f32.lengths), BENCH_STALL_CALLS)
-    sync_free = _sync_free_batch(s)
-    require(sync_free is True, f"bench: a serving_10k batch synchronised "
-            f"with the host: {sync_free}")
-    turns = _select_turns(s)
+    sync_free, head_graph = _sync_free_batch(s)
+    require(sync_free == {"replay": True, "eager": True},
+            f"bench: a serving_10k batch synchronised with the host: "
+            f"{sync_free}")
+    turns = _eg_turns(s, rounds)
     rec = dict(phase="bench", timing=detail["timing"],
-               measure_seconds=measure_s, select_turns=turns,
+               measure_seconds=measure_s, eager_graphed_turns=turns,
+               headline_graph=head_graph,
                line_bytes=len(text.encode()), launches=counts,
                query_tol=BENCH_Q_TOL, vs_plain=checks, select=select,
                batch_sync_free=sync_free,
@@ -4083,20 +4199,26 @@ def _plain_everything():
             layer_fn=lstm_kernel.lstm_recurrence_plain))]
 
 
-def _drive_follow(serve, queries, isolated: bool, patches=()):
+def _drive_follow(serve, queries, isolated: bool, patches=(), warm=1):
     """(records, stats, launches) of one ``serve(lines)`` run.  A request's
     ms runs from its line being read off the input to its record coming
     back; ``isolated`` sends each line only after the previous record came
-    back (one request in flight).  Counts are zeroed just before the run
-    and read just after."""
+    back (one request in flight).  The first ``warm`` queries go through
+    the same daemon first, alone, and are not counted: the daemon's first
+    pack captures its graph, as a long-lived daemon does once.  Counts are
+    zeroed just after the warm records and read just after the run."""
     import contextlib
     import threading
 
     import torch
 
-    read_at, back = [], threading.Event()
+    read_at, back, warmed = [], threading.Event(), threading.Event()
 
     def lines():
+        for text in queries[:warm]:
+            yield text
+        if warm:
+            warmed.wait()
         for j, text in enumerate(queries):
             if isolated and j:
                 back.wait()
@@ -4111,8 +4233,16 @@ def _drive_follow(serve, queries, isolated: bool, patches=()):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        first = None
+        first, n_warm = None, 0
         for rec in serve(lines()):
+            if n_warm < warm:
+                n_warm += 1
+                if n_warm == warm:
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    warmed.set()
+                continue
             now = time.perf_counter()
             lat.append((now - read_at[len(recs)]) * 1e3)
             recs.append(rec)
@@ -4187,6 +4317,53 @@ def _k2_at(q, index, k, what):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def eager_packs():
+    """Context: every ``BatchGraphs`` runs its eager function, on the card
+    too: the eager side of an eager / graphed comparison."""
+    from unittest import mock
+
+    from vfr_tpu_torch.utils.graphs import BatchGraphs
+
+    return mock.patch.object(BatchGraphs, "_on_card", lambda self, args: False)
+
+
+def _follow_eg(params, model, ds, vocab, ctx, modes):
+    """The exact daemon eager (E) and graphed (G) in turns E G G E: 50
+    isolated requests (p50 / p95 ms) and a backlog of ``FOLLOW_EG``
+    requests at micro-batch 8 and 64, depth 1 and 2 (requests/s); every
+    run's records equal to the first E run's, bit for bit."""
+    from vfr_tpu_torch.eval.corpus import serve_follow
+
+    queries = ctx["queries"][:FOLLOW_EG]
+    out = {}
+    for run, mb, depth in (("isolated", 8, 1), ("mb8_depth1", 8, 1),
+                           ("mb8_depth2", 8, 2), ("mb64_depth1", 64, 1),
+                           ("mb64_depth2", 64, 2)):
+        iso = run == "isolated"
+        qs = queries[:FOLLOW_ISOLATED] if iso else queries
+
+        def serve(lines, mb=mb, depth=depth):
+            return serve_follow(params, model, ds, vocab, lines, k=ctx["k"],
+                                max_query_len=ctx["T"], index=ctx["index"],
+                                micro_batch=mb, pipeline_depth=depth,
+                                **modes["exact"])
+
+        rec = {"order": "EGGE", "E": [], "G": []}
+        ref = None
+        for side in "EGGE":
+            recs, stats, counts = _drive_follow(
+                serve, qs, iso, [eager_packs()] if side == "E" else ())
+            ref = recs if ref is None else ref
+            require(recs == ref, f"follow[{run}]: the {side} run's records "
+                    "differ from the eager run's")
+            require(counts["lstm_pooled"] > 0,
+                    f"follow[{run}] {side}: K1a never launched")
+            rec[side].append({key: stats[key] for key in (
+                "requests_per_s", "p50_ms", "p95_ms", "first_result_ms")})
+        out[run] = rec
+    return out
+
+
 def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
                  C: int = 2048):
     """Daemon serving (``serve_follow``) on the flagship index: isolated
@@ -4195,13 +4372,10 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
     once; each run beside the same run through the kernels' plain
     versions, its records held to ``serve_queries``' for the same queries.
     Then one ``cli serve --follow`` subprocess on stdin."""
-    from unittest import mock
-
     import torch
 
     from vfr_tpu_torch.eval.coarse import build_coarse_index
     from vfr_tpu_torch.eval.corpus import serve_follow, serve_queries
-    from vfr_tpu_torch.parallel import sharding as sharding_mod
 
     params, model, ds, vocab = (ctx["params"], ctx["model"], ctx["ds"],
                                 ctx["vocab"])
@@ -4235,7 +4409,6 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
                                 max_query_len=T, index=index,
                                 micro_batch=mb, pipeline_depth=depth, **kw)
 
-        list(serve(iter(qs[:mb])))                   # warm the pack shape
         recs, stats, counts = _drive_follow(serve, qs, iso)
         p_recs, p_stats, _ = _drive_follow(serve, qs, iso,
                                            _plain_everything())
@@ -4273,18 +4446,7 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
     turns = {mode: dict(depths=list(order), requests_per_s=[
         backlog_rate(mode, depth) for depth in order])
         for mode in ("exact", "fused")}
-    # the exact path with the earlier select (one host sync a pack) patched
-    # in, beside the current one, alternating which goes first
-    parent = {"depths": list(order), "parent_synced": [], "sync_free": []}
-    for i, depth in enumerate(order):
-        for sel in (("parent_synced", "sync_free") if i % 2 == 0
-                    else ("sync_free", "parent_synced")):
-            with mock.patch.object(
-                    sharding_mod, "topk_lowest_index_many",
-                    _parent_many if sel == "parent_synced"
-                    else sharding_mod.topk_lowest_index_many):
-                parent[sel].append(backlog_rate("exact", depth))
-    turns["exact_vs_parent_select"] = parent
+    eager_vs_graphed = _follow_eg(params, model, ds, vocab, ctx, modes)
     # host syncs of one pack's dispatch + fetch, by mode and line; the
     # exact top-k over the 210,000 rows may make none
     syncs = {f"{mode}_{n // 8}_packs": _sync_warnings(
@@ -4316,7 +4478,8 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
             "follow[cli]: records out of order")
     rec = dict(phase="follow", rows=index.num_rows, k=k,
                requests=FOLLOW_REQUESTS, isolated_requests=FOLLOW_ISOLATED,
-               runs=runs, depth_turns_mb8=turns, host_syncs_per_pack=syncs,
+               runs=runs, depth_turns_mb8=turns,
+               eager_vs_graphed=eager_vs_graphed, host_syncs_per_pack=syncs,
                kernel_distance_select_q8=k2_q8,
                cli=dict(requests=FOLLOW_CLI, seconds=cli_s))
     emit(rec)
@@ -4534,11 +4697,16 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
         return out
 
     held = list(ds.video_ids)          # the corpus the arena should hold
+    graphs = {}                        # the live retriever's graphs
 
-    def check(label):
+    def check(label, new_captures, added=()):
         """Live retrieval (counted) at a pack of 8 and a batch of 256, vs
         the live retriever through K1b's plain version and vs a rebuild
-        over ``held``; retrieve ms of both."""
+        over ``held``; retrieve ms of both.  Each retrieval is one replay,
+        bit-equal to the eager call; ``new_captures`` the graphs it must
+        capture (none after an in-place write, one a shape after a grow;
+        None: at most one a shape); ``added`` the videos just appended, of
+        which some rows must come back."""
         alive = list(held)
         ref, ref_fn = rebuild(alive)
         d_r, r_r = host(ref_fn(q_params, toks, lens))
@@ -4546,10 +4714,18 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
         del ref, ref_fn
         plain = L.make_live_retriever(model, live, k, topk_method=method,
                                       rnn_kernel="plain")
+        before = retrieve.current().graphs.captures
         rec = dict(videos=len(alive))
         for Q in (8, 256):
             tq, lq = toks[:Q], lens[:Q]
             (d_l, r_l), _ = counted(lambda: host(retrieve(q_params, tq, lq)))
+            _, rec[f"graph_q{Q}"] = graph_vs_eager(
+                retrieve, retrieve.eager, [(q_params, tq, lq)],
+                f"live[{label}] Q={Q}", retrieve.current().graphs)
+            if added:
+                found = {live.video_ids[v]
+                         for v in live.video_row[r_l].ravel()}
+                rec[f"q{Q}_added_videos_returned"] = len(found & set(added))
             d_p, r_p = host(plain(q_params, tq, lq))
             p_mism, p_ddiff = compare_to_plain(d_l, r_l, d_p, r_p)
             key_l = _moment_keys(order, live.video_ids, live.video_row,
@@ -4587,9 +4763,20 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
             require(u_mism == 0 and u_ddiff <= 1e-3 and b_mism == 0
                     and b_ddiff <= 1e-3, f"live[sharded {label}] Q={Q}: "
                     f"{checks_s[label][f'q{Q}']}")
+        g = retrieve.current().graphs
+        rec["captures"] = g.captures - before
+        graphs[label] = dict(captures=g.captures - before,
+                             capture_s=g.capture_s[-rec["captures"]:]
+                             if rec["captures"] else [],
+                             pool_bytes=g.pool_bytes())
+        require(rec["captures"] == new_captures if new_captures is not None
+                else rec["captures"] <= 2, f"live[{label}]: "
+                f"{rec['captures']} new captures, expected {new_captures}")
+        require(not added or rec["q256_added_videos_returned"] > 0,
+                f"live[{label}]: no row of the appended videos came back")
         checks[label] = rec
 
-    check("build")
+    check("build", 2)
     appends = []
     for a in range(LIVE_APPENDS):
         lo = a * LIVE_DELTA
@@ -4603,23 +4790,23 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
         if live_s is not None:
             timings_s.setdefault("appends_s", []).append(
                 timings_s.pop("append_s"))
-        check(f"append{a}")
+        check(f"append{a}", 0, added=ids)
     rng = np.random.default_rng(seed + 5)
     gone = [str(v) for v in rng.choice(live.video_ids, LIVE_REMOVE,
                                        replace=False)]
     n_rm = live_op("remove_s", lambda x: L.live_remove(x, gone))
     held = [v for v in held if v not in set(gone)]
-    check("remove")
+    check("remove", 0)
     n_cp = live_op("compact_s", L.live_compact)
     require(n_rm == n_cp == LIVE_REMOVE * ds.num_proposals,
             f"live: removed {n_rm}, reclaimed {n_cp} rows")
-    check("compact")
+    check("compact", 0)
     in_place = live.m_cat.data_ptr() == ptr
     require(in_place, "live: append / remove / compact reallocated the arena")
     live_op("grow_s", lambda x: L.live_grow(x, LIVE_GROW))
     require(live.capacity == LIVE_GROW * ds.num_proposals
             and live.m_cat.data_ptr() != ptr, "live: grow")
-    check("grow")
+    check("grow", 2)
     path = os.path.join(workdir, "live_arena.npz")
     _, timings["save_s"] = _timed(lambda: L.save_arena(live, path,
                                                        params=params,
@@ -4657,7 +4844,9 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
                 f"live[sharded] snapshot on one device: {o_mism} rows "
                 f"differ, max |d diff| {o_ddiff}")
         del one
-    check("reload")
+    # a new retriever: one capture a shape, less any the sharded snapshot's
+    # comparison above made
+    check("reload", None)
     bytes_reload = arena_bytes(live)
 
     # the daemon over this arena: queries between !add, !remove, !compact
@@ -4766,7 +4955,7 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
                           rows_at_build=cap, bytes_after_reload=bytes_reload,
                           rows_after_reload=live.capacity,
                           memory_allocated=allocated),
-               bf16_product=product,
+               bf16_product=product, graphs=graphs,
                launches=launches, checks=checks,
                follow=dict(micro_batch=8, pipeline_depth=2,
                            requests=len(answered), controls=len(acks),
@@ -5126,6 +5315,10 @@ def main(argv=None) -> int:
                            "trace runs the mesh part of the phases "
                            "given and adds host traces to coarse_2m and "
                            "train_dp")
+    ap.add_argument("--turns", type=int, default=BENCH_TURNS,
+                    help="rounds of E G G E (eager, graphed) of the bench "
+                         "phase's headline turns (default %(default)s: "
+                         "six runs a side)")
     ap.add_argument("--resource-usage", action="store_true",
                     help="print ptxas's registers, shared memory and spills "
                          "of every kernel after the build")
@@ -5233,7 +5426,7 @@ def main(argv=None) -> int:
                         trace="trace" in phases)
         settle()
     if "bench" in phases:
-        phase_bench(results)
+        phase_bench(results, args.turns)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if not set(ALL_PHASES) <= phases:
         emit({"partial": sorted(phases)})

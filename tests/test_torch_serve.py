@@ -105,6 +105,38 @@ def test_bucketed_identical_to_unbucketed(query_pool):
                              length_buckets=spec, **kw) == plain
 
 
+@pytest.mark.parametrize("length_buckets", [None, "auto"])
+def test_serve_drops_the_rows_of_an_index_it_built(monkeypatch,
+                                                   length_buckets):
+    """The JAX package's ``serve_queries`` drops the per-stream rows of an
+    index it built once its stream retriever holds the one-matmul operands
+    (``vfr_tpu/eval/corpus.py:900-901``): the port's does too, with the
+    same results as over a caller's index, which keeps its rows."""
+    from vfr_tpu_torch.eval import corpus as tcorpus
+
+    _, tmodel, _, tds, vocab, tree = _world(use_pallas="always")
+    params = params_from_numpy(tree)
+    built, orig = [], tcorpus.build_moment_index
+
+    def build(*a, **kw):
+        built.append(orig(*a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(tcorpus, "build_moment_index", build)
+    qs = _queries(21, seed=5)
+    kw = dict(k=5, batch_size=8, max_query_len=12,
+              length_buckets=length_buckets, topk_method="exact")
+    got = serve_queries(params, tmodel, tds, vocab, qs, **kw)
+    assert len(built) == 1
+    assert built[0].m is None and built[0].m_sq is None
+    assert built[0].video_row is not None and built[0].spans_sec is not None
+    own = orig(params, tmodel, tds, with_fingerprint=False)
+    m, m_sq = own.m, own.m_sq
+    assert serve_queries(params, tmodel, tds, vocab, qs, index=own,
+                         **kw) == got
+    assert own.m is m and own.m_sq is m_sq
+
+
 @pytest.mark.parametrize("spec,want", [
     (None, None), ("", None), ("auto", (8, 16, 24)), ("8,16", (8, 16, 24)),
     ([16, 8], (8, 16, 24)), ("8,99", (8, 24)), ("24", (24,))])

@@ -49,6 +49,9 @@ extra calls):
 Every ms is stream time per call, so where the host cannot keep the card
 busy the gaps between calls count (the JAX bench's is device time inside
 one program; ``detail.timing`` says which, with the headline's window).
+On the card a serving call, and each stage prefix, is one CUDA graph
+replay (``utils/graphs.py``), as the JAX bench's is one jitted program;
+the train rows run eagerly.
 A train row steps its optimizer on every call of every window; each
 step's loss is kept on the device and all are checked finite after its
 timing.  The line is kept under 1,500 bytes.  The
@@ -92,6 +95,7 @@ from vfr_tpu_torch.ops.topk import topk_lowest_index
 from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
 from vfr_tpu_torch.train.optim import make_optimizer
 from vfr_tpu_torch.train.step import make_train_step
+from vfr_tpu_torch.utils.graphs import BatchGraphs
 from vfr_tpu_torch.utils.timing import (
     H100_BYTES_PER_S,
     PEAK_FLOPS,
@@ -172,27 +176,40 @@ def _serving_ms(s, time_fn, prefix_only: bool = False):
     """(seconds of the full batch, stage seconds) of the ``serving_10k``
     retriever and its prefixes: encode, encode + score and the score
     alone, or the encode + score prefix alone."""
-    model, index, qp = s.model, s.index, s.q_params
+    model, index, qp, lens = s.model, s.index, s.q_params, s.lengths
     retr = make_score_topk(model, index, K, topk_method=s.cfg.eval.topk_method,
                            approx_recall=s.cfg.eval.approx_recall)
     m_cat, msq_fused = prep_score_operands(index, model.compute_dtype)
 
-    def embed(i, toks):
-        return embed_queries_multi(qp, model, perturb(i, toks), s.lengths,
-                                   inference=True)
+    @torch.no_grad()
+    def embed(qp, toks, lens):
+        return embed_queries_multi(qp, model, toks, lens, inference=True)
 
-    def scores(qs):
+    @torch.no_grad()
+    def scores(m_cat, msq_fused, qs):
+        # the whole [Q, N] matrix is computed; only its first column is
+        # copied out, as the full batch's scores never leave its graph
         return fused_corpus_scores(qs, m_cat, msq_fused, index.weights,
-                                   model.compute_dtype)
+                                   model.compute_dtype)[:, :1]
 
-    full = time_fn(lambda i, t: retr(qp, perturb(i, t), s.lengths), s.tokens)
-    prefix = time_fn(lambda i, t: scores(embed(i, t)), s.tokens)
+    @torch.no_grad()
+    def prefix(m_cat, msq_fused, qp, toks, lens):
+        return scores(m_cat, msq_fused, embed(qp, toks, lens))
+
+    # the stages go through the retriever's own wrapper (one replay a call
+    # on the card), so that top-k = full - prefix subtracts like from like
+    g_embed = BatchGraphs(embed, (1, 2), "the encode stage")
+    g_prefix = BatchGraphs(prefix, (3, 4), "the encode + score prefix")
+    g_scores = BatchGraphs(scores, (2,), "the score stage")
+    full = time_fn(lambda i, t: retr(qp, perturb(i, t), lens), s.tokens)
+    prefix = time_fn(lambda i, t: g_prefix(m_cat, msq_fused, qp,
+                                           perturb(i, t), lens), s.tokens)
     if prefix_only:
         return full, dict(prefix=prefix)
-    encode = time_fn(embed, s.tokens)
-    with torch.no_grad():
-        qs = embed(0, s.tokens)
-    direct = time_fn(lambda i, q: scores(torch.roll(q, i, dims=1)), qs)
+    encode = time_fn(lambda i, t: g_embed(qp, perturb(i, t), lens), s.tokens)
+    qs = embed(qp, s.tokens, lens)
+    direct = time_fn(lambda i, q: g_scores(m_cat, msq_fused,
+                                           torch.roll(q, i, dims=1)), qs)
     return full, dict(encode=encode, prefix=prefix, score_direct=direct)
 
 
@@ -354,7 +371,7 @@ def measure(device="cuda", videos: int = VIDEOS, iters: int = 0,
 
         build_all()
         card = nvidia_smi_line()
-        clock = "cuda events"
+        clock = "cuda events, a serving call one graph replay"
     else:
         card = "cpu"
         clock = "host clock (cpu)"

@@ -33,6 +33,12 @@ dtype is kept, so a bf16 operand takes 2 bytes an element on the card.
 JAX package's.  The product dtype follows the operand (``parallel.
 sharding.fused_corpus_scores``): bf16 operands multiply into f32 sums.
 
+On one card a retriever serves a batch (encode, score, select) as one
+CUDA graph replay, the counterpart of the JAX package's jitted program
+(``utils/graphs.py::BatchGraphs``, one per retriever: a capture per query
+shape, params tree and operand buffer); sharded and coarse retrieval run
+eagerly.
+
 With a ``mesh`` (``parallel/mesh.py``) the index rows are split over its
 "corpus" axis (``shard_index_operands``; the mining refresh's stream
 retriever over the axis it names) and every retriever, the GT ranker
@@ -74,6 +80,7 @@ from vfr_tpu_torch.parallel.sharding import (
     shard_rows,
     sharded_gt_ranks,
 )
+from vfr_tpu_torch.utils.graphs import BatchGraphs, write_out
 from vfr_tpu_torch.utils.io import atomic_savez, to_numpy, tree_fingerprint
 
 
@@ -309,7 +316,12 @@ def make_retriever(
     one-GEMM score path over the index's stored dtype, as the JAX
     package's (no carrier).  With ``mesh`` the index is split over its
     "corpus" axis once (``shard_index_operands``) and every call runs the
-    sharded top-k ("fused" raises there, as in the JAX package)."""
+    sharded top-k ("fused" raises there, as in the JAX package).
+
+    On one card a batch is one CUDA graph replay (``utils/graphs.py``; the
+    fused graph reads ``index.m`` / ``index.m_sq`` in place): the retriever
+    carries ``eager``, the same batch as eager launches, and ``graphs``,
+    its ``BatchGraphs``.  A mesh's batches run eagerly."""
     _check_distance(model)
     if topk_method != "fused" or mesh is not None:
         ops = (fuse_index_cat(index.m, index.m_sq, index.weights)
@@ -320,15 +332,23 @@ def make_retriever(
     bin_size = fused_bin_size(index.num_rows, k)
 
     @torch.no_grad()
-    def retrieve(params, tokens, lengths):
+    def fused(m, m_sq, params, tokens, lengths):
         qs = _embed_query_streams(params, model, tokens, lengths, rnn_kernel)
-        cand_d, cand_rows = distance_select(qs, index.m, index.m_sq, w,
+        cand_d, cand_rows = distance_select(qs, m, m_sq, w,
                                             bin_size=bin_size)
         # candidates in K2's order, ties to the lowest candidate position,
         # as the JAX package's lax.top_k over the same candidates
         vals, pos = topk_lowest_index(-cand_d, k)
         return -vals, torch.gather(cand_rows, 1, pos)
 
+    graphs = BatchGraphs(fused, batch_args=(3, 4), name="the fused retriever")
+
+    def retrieve(params, tokens, lengths):
+        return graphs(index.m, index.m_sq, params, tokens, lengths)
+
+    retrieve.eager = lambda params, tokens, lengths: fused(
+        index.m, index.m_sq, params, tokens, lengths)
+    retrieve.graphs = graphs
     return retrieve
 
 
@@ -363,6 +383,14 @@ def make_operand_retriever(model: Model, weights, k: int,
     each shard's.  The product dtype follows ``m_cat``'s
     (``parallel.sharding.fused_corpus_scores``).
 
+    Whole operands on the card run a batch as one CUDA graph replay
+    (``utils/graphs.py``: one capture per shape, operand and params tree,
+    the operands read in place, so the live arena's in-place writes are
+    seen and a ``live_grow`` captures once more), the JAX package's one
+    jitted program; shard lists run eagerly.  ``out=`` (a pair of [Q, k]
+    tensors) receives the results; ``eager`` is the eager batch and
+    ``graphs`` the ``BatchGraphs``.
+
     ``topk_method="fused"`` raises, as in the JAX package: the fused
     kernel reads the per-stream index, not these operands."""
     _check_distance(model)
@@ -375,7 +403,7 @@ def make_operand_retriever(model: Model, weights, k: int,
     weights = np.asarray(weights, np.float32)
 
     @torch.no_grad()
-    def retrieve(m_cat, msq_fused, params, toks, lens):
+    def eager(m_cat, msq_fused, params, toks, lens):
         qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
         if isinstance(m_cat, torch.Tensor):
             m_cat, msq_fused = [m_cat], [msq_fused]
@@ -383,6 +411,16 @@ def make_operand_retriever(model: Model, weights, k: int,
                                   model.compute_dtype, topk_method,
                                   approx_recall)
 
+    graphs = BatchGraphs(eager, batch_args=(3, 4),
+                         name="the exact retriever")
+
+    def retrieve(m_cat, msq_fused, params, toks, lens, out=None):
+        if isinstance(m_cat, torch.Tensor):
+            return graphs(m_cat, msq_fused, params, toks, lens, out=out)
+        return write_out(eager(m_cat, msq_fused, params, toks, lens), out)
+
+    retrieve.eager = eager
+    retrieve.graphs = graphs
     return retrieve
 
 
@@ -403,9 +441,12 @@ def _bind_operands(model: Model, index: MomentIndex, k: int, topk_method,
     fn = make_operand_retriever(model, index.weights, k, topk_method,
                                 approx_recall, rnn_kernel)
 
-    def score_topk(params, toks, lens):
-        return fn(m_cat, msq_fused, params, toks, lens)
+    def score_topk(params, toks, lens, out=None):
+        return fn(m_cat, msq_fused, params, toks, lens, out=out)
 
+    score_topk.eager = lambda params, toks, lens: fn.eager(
+        m_cat, msq_fused, params, toks, lens)
+    score_topk.graphs = fn.graphs
     return score_topk
 
 
@@ -437,23 +478,31 @@ def make_stream_retriever(model: Model, index: MomentIndex, k: int,
                           carrier_dtype: str = "auto",
                           mesh=None, axis: str = "corpus"):
     """Throughput serving: ``(params, tokens [M, Q, T], lengths [M, Q]) ->
-    (dists [M, Q, k], rows [M, Q, k])``, the M batches in a Python loop
-    over one set of operands prepared once under ``carrier_dtype`` (the
-    JAX package scans them inside one program).  With ``mesh`` the
-    operands are split over its ``axis`` once, at the stored dtype
-    (``make_score_topk``), and every batch runs the
-    sharded top-k: the JAX package's ``make_sharded_stream_retriever``,
-    the mining refresh's mesh path ("fused" raises there)."""
+    (dists [M, Q, k], rows [M, Q, k])`` over one set of operands prepared
+    once under ``carrier_dtype``.  The JAX package scans the M batches
+    inside one program; here, on one card, one captured graph of a batch
+    (``make_score_topk``'s) is replayed M times, each replay writing its
+    batch's rows of the results.  With ``mesh`` the operands are split
+    over its ``axis`` once, at the stored dtype (``make_score_topk``), and
+    every batch runs the sharded top-k eagerly: the JAX package's
+    ``make_sharded_stream_retriever``, the mining refresh's mesh path
+    ("fused" raises there)."""
     score_topk = make_score_topk(model, index, k, topk_method,
                                  approx_recall, rnn_kernel, carrier_dtype,
                                  mesh, axis)
 
     def retrieve_stream(params, tokens, lengths):
-        outs = [score_topk(params, tokens[b], lengths[b])
-                for b in range(tokens.shape[0])]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        d0, r0 = score_topk(params, tokens[0], lengths[0])
+        M = tokens.shape[0]
+        d_all = d0.new_empty((M, *d0.shape))
+        r_all = r0.new_empty((M, *r0.shape))
+        d_all[0], r_all[0] = d0, r0
+        for b in range(1, M):
+            score_topk(params, tokens[b], lengths[b],
+                       out=(d_all[b], r_all[b]))
+        return d_all, r_all
 
+    retrieve_stream.graphs = score_topk.graphs
     return retrieve_stream
 
 
@@ -519,7 +568,8 @@ def serve_queries(
     or the sharded exact one (``make_retriever(mesh=)``; "fused" raises)."""
     if len(queries) == 0:
         return []
-    if index is None:
+    owns_index = index is None
+    if owns_index:
         index = build_moment_index(params, model, dataset,
                                    num_videos=num_videos,
                                    index_dtype=index_dtype,
@@ -557,6 +607,12 @@ def serve_queries(
                 r = state["stream"] = make_stream_retriever(
                     model, index, k_eff, topk_method=topk_method,
                     approx_recall=approx_recall)
+                # the retriever holds its own one-matmul operands; drop the
+                # per-stream rows of an index this call built, so serving
+                # holds the index once (video_row / spans_sec stay for the
+                # results; a caller's index is left untouched)
+                if owns_index:
+                    index.m = index.m_sq = None
             d, rows = r(params, toks, lens)
             return d.cpu().numpy(), rows.cpu().numpy()
         # one batch at a time: fused, and the sharded exact retriever

@@ -567,7 +567,7 @@ def make_live_retriever(
                          "a sharded live arena uses exact/approx")
     built = {}          # the retriever of the current clamped k
 
-    def retrieve(params, tokens, lengths):
+    def current():
         k_eff = int(min(k_req, live.capacity))
         fn = built.get(k_eff)
         if fn is None:
@@ -575,8 +575,14 @@ def make_live_retriever(
             fn = built[k_eff] = make_operand_retriever(
                 model, live.weights, k_eff, topk_method=topk_method,
                 approx_recall=approx_recall, rnn_kernel=rnn_kernel)
-        return fn(live.m_cat, live.msq_fused, params, tokens, lengths)
+        return fn
 
+    def retrieve(params, tokens, lengths):
+        return current()(live.m_cat, live.msq_fused, params, tokens, lengths)
+
+    retrieve.eager = lambda params, tokens, lengths: current().eager(
+        live.m_cat, live.msq_fused, params, tokens, lengths)
+    retrieve.current = current
     return retrieve
 
 
