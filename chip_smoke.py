@@ -1161,6 +1161,15 @@ def read_counts():
     return out
 
 
+def capture_seconds(g) -> list:
+    """Seconds of each capture the ``BatchGraphs`` ``g`` made: its
+    ``graphs.capture`` set-up spans in the port's recorder."""
+    from vfr_tpu_torch.utils import trace
+
+    return [(b - a) / 1e9 for name, sid, _, a, b in trace.snapshot()["setup"]
+            if name == "graphs.capture" and sid == g.id]
+
+
 def require_persistent(counts, cell: str, what: str) -> None:
     v = counts["variants"][cell]
     require(v["persistent"] > 0 and v["stepwise"] == 0,
@@ -1311,7 +1320,8 @@ def graph_vs_eager(graphed, eager, batches, what: str, graphs=None):
         outs.append(got)
     return outs, dict(batches=len(batches), bit_equal=True,
                       launches_per_replay=per_replay, captures=g.captures,
-                      capture_s=g.capture_s, pool_bytes=g.pool_bytes())
+                      capture_s=capture_seconds(g),
+                      pool_bytes=g.pool_bytes())
 
 
 def phase_serving(results, seed: int, num_videos: int, workdir: str,
@@ -3086,7 +3096,7 @@ def _sync_free_batch(s):
                 out[name] = str(e).splitlines()[0]
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-    return out, dict(capture_s=retr.graphs.capture_s,
+    return out, dict(capture_s=capture_seconds(retr.graphs),
                      pool_bytes=retr.graphs.pool_bytes())
 
 
@@ -4766,7 +4776,7 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
         g = retrieve.current().graphs
         rec["captures"] = g.captures - before
         graphs[label] = dict(captures=g.captures - before,
-                             capture_s=g.capture_s[-rec["captures"]:]
+                             capture_s=capture_seconds(g)[-rec["captures"]:]
                              if rec["captures"] else [],
                              pool_bytes=g.pool_bytes())
         require(rec["captures"] == new_captures if new_captures is not None

@@ -36,7 +36,7 @@ from vfr_tpu.eval import live as jlive
 from vfr_tpu_torch.eval import corpus as tcorpus
 from vfr_tpu_torch.eval import live as tlive
 from vfr_tpu_torch.ops.kernels import lstm_kernel, select_kernel
-from vfr_tpu_torch.utils import graphs
+from vfr_tpu_torch.utils import graphs, trace
 from vfr_tpu_torch.utils.graphs import BatchGraphs, write_out
 from vfr_tpu_torch.utils.tree import tree_map
 
@@ -53,7 +53,7 @@ class _StandIn:
         self.warm, self.outs = warm, outs
 
     def replay(self):
-        counters = graphs._launch_counters()
+        counters = trace.counter_dicts()
         saved = [dict(c) for c in counters]
         res = self.warm()
         for c, s in zip(counters, saved):
@@ -63,8 +63,14 @@ class _StandIn:
 
 
 def _stand_in_capture(self, warm, record):
+    """The capture step on the CPU; the stand-in graph holds no device
+    nodes for the stage marks to count."""
     warm()
-    outs = record()
+    saved, trace._node_count = trace._node_count, lambda: 0
+    try:
+        outs = record()
+    finally:
+        trace._node_count = saved
     return _StandIn(warm, outs), outs
 
 

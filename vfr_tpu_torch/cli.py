@@ -23,9 +23,8 @@ dict and score queries with the f32 scan twin of the recurrence
 ``train`` runs the training loop (``train.loop.train``) and writes step
 checkpoints (``ckpt_<step>.npz``, plus ``best.npz`` with
 ``--best-metric``) that ``eval`` / ``corpus`` / ``index`` / ``serve
---checkpoint-dir`` open (``--best`` for ``best.npz``); ``--trace-dir``
-writes a ``torch.profiler`` trace, ``--debug-nans`` turns on autograd's
-anomaly detection.
+--checkpoint-dir`` open (``--best`` for ``best.npz``); ``--debug-nans``
+turns on autograd's anomaly detection.
 
 ``index --coarse-dim D`` also writes the coarse prefilter to
 ``<out>.coarse.npz``; ``serve --index-path idx.npz --coarse-path
@@ -39,6 +38,32 @@ dispatch and answered one JSON line each, flushed.  With
 ``--live-capacity-videos N`` (or ``--live-arena snapshot.npz``) it serves
 a live index (``eval.live``) that control lines change while it runs.
 ``pack`` writes the packed ``.vfrf`` feature store the loaders prefer.
+
+``train --trace-dir D`` and ``serve --trace-dir D`` (with ``--follow``
+too) run torch.profiler over the training loop or the serving and write
+its Chrome trace (``D/train_trace.json``, ``D/serve_trace.json``), and
+beside it ``D/port_spans.json``: the port's own spans, counters and stage
+maps (``utils/trace.py``) in Chrome trace format on the same time base,
+so that both load into one Perfetto view.  While the profiler runs the
+port records its hot-path spans:
+- ``graphs.call`` (one batch call on the card: a CUDA graph replay) and
+  its parts ``graphs.key``, ``graphs.inputs``, ``graphs.replay``,
+  ``graphs.outputs``;
+- under ``--follow``, a pack's ``pack.tokens`` (tokenizing),
+  ``pack.dispatch`` (copies in, the retrieval, copies out),
+  ``pack.wait`` (waiting on the card) and ``pack.records`` (the JSON
+  records built), and each request's ``request`` (the line read to its
+  record) with its ``queue`` (read to packed), the request's parent
+  being its pack;
+- always, the set-up spans ``kernels.load`` / ``kernels.build`` (a
+  kernel library loaded, compiled first), ``graphs.capture`` /
+  ``graphs.warm`` / ``graphs.record`` (a batch captured as a graph),
+  ``setup.operands`` and ``setup.query_params``.
+The counters (``otherData.counters``) count batch calls, replays,
+captures and evictions (``graphs.*``), each top-k's route
+(``select.key64``, ``select.order32_tie``), the daemon's requests,
+packs, pack sizes and idle flushes (``daemon.*``) and every kernel's
+launches (``<kernel>_kernel.launches.*``).
 
 The flags are the JAX package's for these subcommands, plus ``--device``
 (default ``cuda``; ``--device cpu`` is the only way onto the CPU).  With no
@@ -116,7 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--data-parallel", action="store_true",
                    help="shard the batch over all local devices")
     t.add_argument("--trace-dir", default=None,
-                   help="write a torch.profiler trace of the train loop")
+                   help="write a torch.profiler trace of the train loop "
+                        "and the port's spans beside it")
     t.add_argument("--debug-nans", action="store_true",
                    help="turn on torch.autograd.set_detect_anomaly")
     t.add_argument("--hard-negatives", type=int, default=None,
@@ -197,6 +223,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--micro-batch", type=int, default=8,
                    help="--follow only: most queries packed into one "
                         "dispatch")
+    s.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace of the serving and "
+                        "the port's spans and counters beside it "
+                        "(port_spans.json)")
     s.add_argument("--length-buckets", default=None,
                    help="group queries by token length and run each group "
                         "with the token axis sliced to its bucket: 'auto' "
@@ -360,7 +390,6 @@ def main(argv=None) -> int:
         build_moment_index,
         load_index,
         save_index,
-        serve_queries,
     )
 
     mesh = _corpus_mesh(cfg, args) if args.cmd in ("corpus", "serve") \
@@ -411,8 +440,52 @@ def main(argv=None) -> int:
         from vfr_tpu_torch.eval.coarse import load_coarse
 
         coarse = load_coarse(args.coarse_path, index)
-    if args.follow:
-        return _follow(cfg, args, params, model, bundle, index, coarse, mesh)
+    with _profiled(args, "serve"):
+        if args.follow:
+            return _follow(cfg, args, params, model, bundle, index, coarse,
+                           mesh)
+        return _serve(cfg, args, params, model, bundle, index, coarse, mesh)
+
+
+def _profiled(args, name: str):
+    """Context: with ``--trace-dir``, torch.profiler over the block, then
+    its Chrome trace (``<name>_trace.json``) and the port's recorder
+    (``port_spans.json``, on the trace's time base) written there."""
+    import contextlib
+
+    if not args.trace_dir:
+        return contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def run():
+        import os
+        import re
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from vfr_tpu_torch.utils import trace
+
+        acts = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield
+        os.makedirs(args.trace_dir, exist_ok=True)
+        path = os.path.join(args.trace_dir, f"{name}_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            base = re.search(r'"baseTimeNanoseconds":\s*(\d+)', f.read())
+        trace.export_chrome(os.path.join(args.trace_dir, "port_spans.json"),
+                            int(base.group(1)) if base else 0)
+
+    return run()
+
+
+def _serve(cfg, args, params, model, bundle, index, coarse, mesh) -> int:
+    """``serve`` without ``--follow``: one JSON line per query."""
+    from vfr_tpu_torch.eval.corpus import serve_queries
+
     if args.queries == "-":
         queries = [l.strip() for l in sys.stdin if l.strip()]
     else:
@@ -499,22 +572,9 @@ def _train(cfg, args) -> int:
     with contextlib.ExitStack() as stack:
         if args.debug_nans:
             stack.enter_context(torch.autograd.set_detect_anomaly(True))
-        prof = None
-        if args.trace_dir:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU]
-            if torch.device(args.device).type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            prof = stack.enter_context(profile(activities=acts))
+        stack.enter_context(_profiled(args, "train"))
         _, metrics = train(cfg, resume=args.resume, mesh=mesh,
                            device=args.device)
-    if prof is not None:
-        import os
-
-        os.makedirs(args.trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace_dir,
-                                              "train_trace.json"))
     print({k: round(v, 4) for k, v in metrics.items()})
     return 0
 

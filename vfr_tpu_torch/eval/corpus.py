@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -80,6 +81,7 @@ from vfr_tpu_torch.parallel.sharding import (
     shard_rows,
     sharded_gt_ranks,
 )
+from vfr_tpu_torch.utils import trace
 from vfr_tpu_torch.utils.graphs import BatchGraphs, write_out
 from vfr_tpu_torch.utils.io import atomic_savez, to_numpy, tree_fingerprint
 
@@ -321,11 +323,16 @@ def make_retriever(
     On one card a batch is one CUDA graph replay (``utils/graphs.py``; the
     fused graph reads ``index.m`` / ``index.m_sq`` in place): the retriever
     carries ``eager``, the same batch as eager launches, and ``graphs``,
-    its ``BatchGraphs``.  A mesh's batches run eagerly."""
+    its ``BatchGraphs``.  A mesh's batches run eagerly.  The batch marks
+    its stages for the recorder (``utils/trace.py``): encode, then score
+    (K2 under "fused", else the GEMM), then select."""
     _check_distance(model)
     if topk_method != "fused" or mesh is not None:
-        ops = (fuse_index_cat(index.m, index.m_sq, index.weights)
-               if mesh is None else shard_index_operands(index, mesh))
+        if mesh is None:
+            with trace.setup("setup.operands"):
+                ops = fuse_index_cat(index.m, index.m_sq, index.weights)
+        else:
+            ops = shard_index_operands(index, mesh)
         return _bind_operands(model, index, k, topk_method, approx_recall,
                               rnn_kernel, *ops)
     w = [float(x) for x in model.cfg.stream_weights]
@@ -333,9 +340,12 @@ def make_retriever(
 
     @torch.no_grad()
     def fused(m, m_sq, params, tokens, lengths):
+        trace.stage("encode")
         qs = _embed_query_streams(params, model, tokens, lengths, rnn_kernel)
+        trace.stage("score")
         cand_d, cand_rows = distance_select(qs, m, m_sq, w,
                                             bin_size=bin_size)
+        trace.stage("select")
         # candidates in K2's order, ties to the lowest candidate position,
         # as the JAX package's lax.top_k over the same candidates
         vals, pos = topk_lowest_index(-cand_d, k)
@@ -359,12 +369,13 @@ def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype,
     f32 when compute is bf16: exact, and the product rounds it back to
     bf16 on every call (``parallel.sharding.fused_corpus_scores``).
     Otherwise, and under any other ``carrier_dtype``, the stored dtype is
-    kept."""
-    m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
-    if (carrier_dtype == "auto" and m_cat.dtype == torch.bfloat16
-            and compute_dtype == torch.bfloat16):
-        m_cat = m_cat.float()
-    return m_cat, msq_fused
+    kept.  The set-up span ``setup.operands``."""
+    with trace.setup("setup.operands"):
+        m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
+        if (carrier_dtype == "auto" and m_cat.dtype == torch.bfloat16
+                and compute_dtype == torch.bfloat16):
+            m_cat = m_cat.float()
+        return m_cat, msq_fused
 
 
 def make_operand_retriever(model: Model, weights, k: int,
@@ -404,7 +415,9 @@ def make_operand_retriever(model: Model, weights, k: int,
 
     @torch.no_grad()
     def eager(m_cat, msq_fused, params, toks, lens):
+        trace.stage("encode")
         qs = _embed_query_streams(params, model, toks, lens, rnn_kernel)
+        trace.stage("score")        # corpus_topk_shards marks "select"
         if isinstance(m_cat, torch.Tensor):
             m_cat, msq_fused = [m_cat], [msq_fused]
         return corpus_topk_shards(qs, m_cat, msq_fused, weights, k,
@@ -428,11 +441,12 @@ def shard_index_operands(index: MomentIndex, mesh, axis: str = "corpus"):
     """(m_cat shards, msq_fused shards): the one-GEMM operands at the
     index's stored dtype, padded to the mesh's ``axis`` and split over its
     devices (``parallel.sharding.shard_rows``), once: the sharded operands
-    of ``make_operand_retriever``."""
-    devices = mesh.axis_devices(axis)
-    m, m_sq = pad_index(index.m, index.m_sq, len(devices))
-    m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
-    return shard_rows(m_cat, devices), shard_rows(msq_fused, devices)
+    of ``make_operand_retriever`` (the set-up span ``setup.operands``)."""
+    with trace.setup("setup.operands"):
+        devices = mesh.axis_devices(axis)
+        m, m_sq = pad_index(index.m, index.m_sq, len(devices))
+        m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
+        return shard_rows(m_cat, devices), shard_rows(msq_fused, devices)
 
 
 def _bind_operands(model: Model, index: MomentIndex, k: int, topk_method,
@@ -703,6 +717,12 @@ def serve_follow(
       No path reads a device value on the host inside a dispatch (the
       exact top-k over a corpus of any size included), so packs overlap
       as the JAX package's do.
+    * **Tracing** — while the recorder is on (``utils/trace.py``) each
+      pack records ``pack.tokens``, ``pack.dispatch``, ``pack.wait`` and
+      ``pack.records`` (id ``pack:<n>``), and each request ``request``
+      and its child ``queue`` (id ``request:<n>``, ``n`` the input line's
+      ordinal; parent its pack's id); the ``daemon.*`` counters are always
+      kept.
 
     ``live`` (an ``eval.live.LiveIndex``): the corpus changes while the
     daemon runs, through control lines ``!add <delta.npz>``, ``!remove
@@ -790,9 +810,11 @@ def serve_follow(
     reader_err = []
 
     def _reader():
+        # each item: (text, the line's ordinal, its receipt on the
+        # recorder's clock, 0 while the recorder is off)
         try:
-            for text in lines:
-                q.put(text)
+            for n, text in enumerate(lines):
+                q.put((text, n, time.time_ns() if trace.on() else 0))
         except BaseException as e:   # to the consumer, after its results
             reader_err.append(e)
         finally:
@@ -812,10 +834,10 @@ def serve_follow(
         first = pending.popleft() if pending else q.get()
         if first is _DONE:
             return None
-        if _is_cmd(first):
-            return ("cmd", first)
-        texts = [first]
-        while len(texts) < micro_batch:
+        if _is_cmd(first[0]):
+            return ("cmd", first[0])
+        items = [first]
+        while len(items) < micro_batch:
             if pending:
                 item = pending.popleft()
             else:
@@ -826,11 +848,11 @@ def serve_follow(
             if item is _DONE:
                 pending.append(_DONE)  # re-post EOF for the outer loop
                 break
-            if _is_cmd(item):
+            if _is_cmd(item[0]):
                 pending.append(item)   # keep order; handle next round
                 break
-            texts.append(item)
-        return ("queries", texts)
+            items.append(item)
+        return ("queries", items)
 
     on_cuda = dev.type == "cuda"
 
@@ -842,34 +864,47 @@ def serve_follow(
         h.copy_(t, non_blocking=True)
         return h
 
-    def _dispatch(texts):
-        toks = np.zeros((micro_batch, max_query_len), np.int32)
-        lens = np.ones(micro_batch, np.int32)
-        for i, text in enumerate(texts):
-            toks[i], lens[i] = vocab.encode(tokenize(text), max_query_len)
-        toks_t, lens_t = torch.from_numpy(toks), torch.from_numpy(lens)
-        if on_cuda:
-            toks_t = toks_t.pin_memory().to(dev, non_blocking=True)
-            lens_t = lens_t.pin_memory().to(dev, non_blocking=True)
-        d, rows = retrieve(q_params, toks_t, lens_t)
-        done = None
-        if on_cuda:
-            # the copies run on the stream of the results' device (the
-            # mesh's lead device when sharded)
-            done = torch.cuda.Event()
-            stream = torch.cuda.current_stream(d.device)
-            d, rows = _to_host(d), _to_host(rows)
-            done.record(stream)
-        return texts, d, rows, done
+    packs = 0
+
+    def _dispatch(items):
+        nonlocal packs
+        packed = time.time_ns() if trace.on() else 0
+        pack = f"pack:{packs}" if packed else None
+        packs += 1
+        trace.count("daemon.packs")
+        trace.count("daemon.requests", len(items))
+        trace.count(f"daemon.pack_size.{len(items)}")
+        with trace.span("pack.tokens", pack):
+            toks = np.zeros((micro_batch, max_query_len), np.int32)
+            lens = np.ones(micro_batch, np.int32)
+            for i, (text, _, _) in enumerate(items):
+                toks[i], lens[i] = vocab.encode(tokenize(text),
+                                                max_query_len)
+        with trace.span("pack.dispatch", pack):
+            toks_t, lens_t = torch.from_numpy(toks), torch.from_numpy(lens)
+            if on_cuda:
+                toks_t = toks_t.pin_memory().to(dev, non_blocking=True)
+                lens_t = lens_t.pin_memory().to(dev, non_blocking=True)
+            d, rows = retrieve(q_params, toks_t, lens_t)
+            done = None
+            if on_cuda:
+                # the copies run on the stream of the results' device (the
+                # mesh's lead device when sharded)
+                done = torch.cuda.Event()
+                stream = torch.cuda.current_stream(d.device)
+                d, rows = _to_host(d), _to_host(rows)
+                done.record(stream)
+        return items, pack, packed, d, rows, done
 
     def _fetch(job):
-        texts, d, rows, done = job
-        if done is not None:
-            done.synchronize()
-        d, rows = d.numpy(), rows.numpy()
-        vids, row_vid, spans = _tables()
-        for i, text in enumerate(texts):
-            yield {
+        items, pack, packed, d, rows, done = job
+        with trace.span("pack.wait", pack):
+            if done is not None:
+                done.synchronize()
+        with trace.span("pack.records", pack):
+            d, rows = d.numpy(), rows.numpy()
+            vids, row_vid, spans = _tables()
+            recs = [{
                 "query": text,
                 "results": [
                     {
@@ -880,7 +915,13 @@ def serve_follow(
                     }
                     for j, r in enumerate(rows[i])
                 ],
-            }
+            } for i, (text, _, _) in enumerate(items)]
+        for (_, n, received), rec in zip(items, recs):
+            if received and packed:
+                rid = f"request:{n}"
+                trace.record("request", received, time.time_ns(), rid, pack)
+                trace.record("queue", received, packed, rid, rid)
+            yield rec
 
     inflight: deque = deque()
     while True:
@@ -901,6 +942,8 @@ def serve_follow(
         if q.empty() and not pending:
             # nothing waiting: flush now so an isolated request never
             # waits on a successor that may not come
+            if inflight:
+                trace.count("daemon.idle_flushes")
             while inflight:
                 yield from _fetch(inflight.popleft())
     while inflight:

@@ -29,6 +29,8 @@ import subprocess
 import threading
 from typing import Dict, List
 
+from vfr_tpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -150,13 +152,18 @@ def build_all(names: List[str] = None,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name``, built on first use."""
+    """The loaded library of kernel source ``name``, built on first use
+    (the set-up spans ``kernels.load`` and its child ``kernels.build``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(library_path(name))
+        with trace.setup("kernels.load", name):
+            job = _start(name)
+            if job is not None:
+                with trace.setup("kernels.build"):
+                    _finish(name, job)
+            lib = ctypes.CDLL(library_path(name))
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes

@@ -36,6 +36,7 @@ from vfr_tpu_torch.ops.lstm import (
     lstm_forward_fused,
     masked_mean_pool,
 )
+from vfr_tpu_torch.utils import trace
 
 
 class Model(NamedTuple):
@@ -132,7 +133,7 @@ def prepare_query_params(params: Dict, model: Model,
     device decide, as in ``_query_hidden``).  Results are those of the
     unprepared tree: the kernel and its plain version round to bf16
     themselves.  Every other path (the f32 scan twin, training) needs the
-    original tree."""
+    original tree.  The cast is the set-up span ``setup.query_params``."""
     from vfr_tpu_torch.ops.kernels.rnn_plan import prepare_rnn_weights
 
     cfg = model.cfg
@@ -142,8 +143,9 @@ def prepare_query_params(params: Dict, model: Model,
         want = rnn_kernel in ("pallas", "plain") and cfg.use_pallas != "never"
     if not want:
         return params
-    return {**params,
-            "lstm": prepare_rnn_weights(params["lstm"], torch.bfloat16)}
+    with trace.setup("setup.query_params"):
+        return {**params,
+                "lstm": prepare_rnn_weights(params["lstm"], torch.bfloat16)}
 
 
 def _query_hidden(

@@ -18,6 +18,9 @@ to one.  Nothing falls back: a variant that cannot run raises.
 ``LAUNCHES`` counts kernel launches under "coarse_blockmax",
 ``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` the same launches by variant
 and by device, and ``LAST_PLAN`` is the plan of the last one.
+The three dicts are registered with the port's recorder
+(``utils/trace.py``), so a graph replay adds the launches its capture
+counted.
 """
 
 from __future__ import annotations
@@ -35,15 +38,20 @@ from vfr_tpu_torch.ops.kernels.select_plan import (
     hold_to_variant,
     plan_coarse_blockmax,
 )
+from vfr_tpu_torch.utils import trace
 
 # The row alignment a coarse index is padded to at build time
 # (``eval.coarse._row_alignment``); it is written into every coarse file, so
 # it stays even though the CUDA kernel's tiling does not need it.
 KERNEL_BLOCK_N = 16384
 
-LAUNCHES = {"coarse_blockmax": 0}
-VARIANT_LAUNCHES = {"mma": 0, "simt": 0}
-DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
+LAUNCHES = trace.register("coarse_kernel.launches",
+                          {"coarse_blockmax": 0})
+VARIANT_LAUNCHES = trace.register("coarse_kernel.variant_launches",
+                                  {"mma": 0, "simt": 0})
+# the same launches by device
+DEVICE_LAUNCHES: Dict[str, int] = trace.register(
+    "coarse_kernel.device_launches", {})
 LAST_PLAN: Optional[CoarsePlan] = None
 
 _QT = 64                        # queries per CTA (csrc/coarse_blockmax.cu)

@@ -16,6 +16,9 @@ per chunk and layer of a chunked batch), keyed "gru_pooled" (K3a) and
 "gru_hs" (K3b); ``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` count the
 same launches by variant and by device, and ``LAST_PLAN`` is the plan of
 the last one.
+The three dicts are registered with the port's recorder
+(``utils/trace.py``), so a graph replay adds the launches its capture
+counted.
 """
 
 from __future__ import annotations
@@ -33,10 +36,15 @@ from vfr_tpu_torch.ops.kernels.rnn_plan import (
     device_plan,
 )
 from vfr_tpu_torch.ops.lstm import gru_cell_update
+from vfr_tpu_torch.utils import trace
 
-LAUNCHES = {"gru_pooled": 0, "gru_hs": 0}
-VARIANT_LAUNCHES = {"persistent": 0, "stepwise": 0}
-DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
+LAUNCHES = trace.register("gru_kernel.launches",
+                          {"gru_pooled": 0, "gru_hs": 0})
+VARIANT_LAUNCHES = trace.register("gru_kernel.variant_launches",
+                                  {"persistent": 0, "stepwise": 0})
+# the same launches by device
+DEVICE_LAUNCHES: Dict[str, int] = trace.register(
+    "gru_kernel.device_launches", {})
 LAST_PLAN: Optional[RecurrencePlan] = None
 
 

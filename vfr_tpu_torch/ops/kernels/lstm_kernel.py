@@ -17,6 +17,9 @@ per chunk and layer of a chunked batch), keyed "lstm_pooled" (K1a) and
 "lstm_hs" (K1b); ``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` count the
 same launches by variant and by device, and ``LAST_PLAN`` is the plan of
 the last one.
+The three dicts are registered with the port's recorder
+(``utils/trace.py``), so a graph replay adds the launches its capture
+counted.
 """
 
 from __future__ import annotations
@@ -34,10 +37,15 @@ from vfr_tpu_torch.ops.kernels.rnn_plan import (
     device_plan,
 )
 from vfr_tpu_torch.ops.lstm import cell_update
+from vfr_tpu_torch.utils import trace
 
-LAUNCHES = {"lstm_pooled": 0, "lstm_hs": 0}
-VARIANT_LAUNCHES = {"persistent": 0, "stepwise": 0}
-DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
+LAUNCHES = trace.register("lstm_kernel.launches",
+                          {"lstm_pooled": 0, "lstm_hs": 0})
+VARIANT_LAUNCHES = trace.register("lstm_kernel.variant_launches",
+                                  {"persistent": 0, "stepwise": 0})
+# the same launches by device
+DEVICE_LAUNCHES: Dict[str, int] = trace.register(
+    "lstm_kernel.device_launches", {})
 LAST_PLAN: Optional[RecurrencePlan] = None
 
 

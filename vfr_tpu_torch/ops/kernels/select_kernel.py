@@ -21,6 +21,9 @@ variant that cannot run raises.
 ``VARIANT_LAUNCHES`` and ``DEVICE_LAUNCHES`` the same launches by variant
 and by device, and ``LAST_PLAN`` is the plan of the last one.  ``distance_select_split_tf32`` is the plain-PyTorch
 emulation of the arithmetic the ``mma`` variant uses on an f32 index.
+The three dicts are registered with the port's recorder
+(``utils/trace.py``), so a graph replay adds the launches its capture
+counted.
 """
 
 from __future__ import annotations
@@ -38,10 +41,15 @@ from vfr_tpu_torch.ops.kernels.select_plan import (
     hold_to_variant,
     plan_distance_select,
 )
+from vfr_tpu_torch.utils import trace
 
-LAUNCHES = {"distance_select": 0}
-VARIANT_LAUNCHES = {"mma": 0, "simt": 0}
-DEVICE_LAUNCHES: Dict[str, int] = {}   # the same launches by device
+LAUNCHES = trace.register("select_kernel.launches",
+                          {"distance_select": 0})
+VARIANT_LAUNCHES = trace.register("select_kernel.variant_launches",
+                                  {"mma": 0, "simt": 0})
+# the same launches by device
+DEVICE_LAUNCHES: Dict[str, int] = trace.register(
+    "select_kernel.device_launches", {})
 LAST_PLAN: Optional[SelectPlan] = None
 
 

@@ -17,6 +17,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from vfr_tpu_torch.utils import trace
+
 # rows up to this long (candidate lists, coarse blocks: 16,512 at 2.1M
 # rows) select by one torch.topk over a 64-bit (value, -index) key: a few
 # launches, no tie pass
@@ -46,11 +48,14 @@ def topk_lowest_index(x: torch.Tensor, k: int
     A larger batch of longer rows selects by ``torch.topk`` over
     ``ordered_bits`` alone, which holds the total order but not the index
     order of equal values, then always runs the tie pass
-    (``_tie_topk``)."""
+    (``_tie_topk``).  Each call counts its route in the recorder
+    (``select.key64`` or ``select.order32_tie``)."""
     N = x.shape[-1]
     k = min(k, N)
     if N <= KEY_MAX or k == 0 or x.numel() <= KEY_BATCH * KEY_MAX:
+        trace.count("select.key64")
         return _key_topk(x, k)
+    trace.count("select.order32_tie")
     return _tie_topk(x, k)
 
 

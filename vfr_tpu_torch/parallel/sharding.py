@@ -36,6 +36,7 @@ from vfr_tpu_torch.ops.topk import (
     topk_lowest_index,
     topk_lowest_index_many,
 )
+from vfr_tpu_torch.utils import trace
 
 Weights = Union[torch.Tensor, Sequence[float]]
 
@@ -204,13 +205,15 @@ def corpus_topk_shards(
     rows; then ``merge_candidates``.  No selection reads a value on the
     host (``topk_lowest_index_many``), so shards on separate cards never
     wait on each other.  One shard is the single-device retrieval, launch
-    for launch (no merge)."""
+    for launch (no merge).  The select starts at the stage mark
+    ``select`` (``utils/trace.py``)."""
     check_topk_method(method)        # "approx" is exact, as top_k_select
     n_loc = m_sh[0].shape[0]
     k_loc = min(k, n_loc)            # a shard can hold fewer than k rows
     scores = [fused_corpus_scores(q.to(mc.device, non_blocking=True), mc, ms,
                                   weights, compute_dtype)
               for mc, ms in zip(m_sh, sq_sh)]
+    trace.stage("select")
     local = topk_lowest_index_many(scores, k_loc)
     lead = m_sh[0].device
     if len(local) == 1:

@@ -34,10 +34,19 @@ replays one captured graph per key.
   any other replay is queued, so no graph's outputs are alive while
   another graph reuses the pool's memory (the torch docs' condition for
   sharing a pool).  The static inputs are allocated outside the pool.
-* **Launch counts**: the kernel modules count launches in Python
-  (``LAUNCHES``, ``VARIANT_LAUNCHES``, ``DEVICE_LAUNCHES``), which a
-  replay does not run.  The capture's change of every counter is recorded
-  and taken back (nothing ran), and each replay adds it.
+* **Counts and spans** (``utils/trace.py``): the kernel modules count
+  launches in Python (``LAUNCHES``, ``VARIANT_LAUNCHES``,
+  ``DEVICE_LAUNCHES``) and the select its route, in counters registered
+  with the recorder, which a replay does not run.  The capture's change
+  of every registered counter is recorded and taken back (nothing ran),
+  and each replay adds it.  A call on the card counts ``graphs.calls`` and
+  ``graphs.replays`` (``graphs.captures``, ``graphs.evictions`` as they
+  happen) and, while the recorder is on, records the span ``graphs.call``
+  with its children ``graphs.key``, ``graphs.inputs``, ``graphs.replay``
+  and ``graphs.outputs``.  A capture is the set-up span
+  ``graphs.capture`` (``graphs.warm``, ``graphs.record``), and the stage
+  marks of the wrapped function give the graph's stage map
+  (``_Graph.stages``).
 
 On CPU tensors the eager function runs unchanged.  A capture that fails
 raises, naming the wrapped function and the error of the operation that
@@ -49,27 +58,15 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import time
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from vfr_tpu_torch.utils import trace
+
 MAX_GRAPHS = 8   # a few length buckets of one retriever, with room to spare
-
-
-def _launch_counters() -> List[Dict]:
-    """Every launch counter of the kernel modules."""
-    from vfr_tpu_torch.ops.kernels import (
-        coarse_kernel,
-        gru_kernel,
-        lstm_kernel,
-        select_kernel,
-    )
-
-    return [d for mod in (lstm_kernel, gru_kernel, select_kernel,
-                          coarse_kernel)
-            for d in (mod.LAUNCHES, mod.VARIANT_LAUNCHES,
-                      mod.DEVICE_LAUNCHES)]
+_wrappers = itertools.count(1)
 
 
 def _arg_key(a, in_place: bool):
@@ -99,14 +96,15 @@ def write_out(res, out):
 
 
 class _Graph:
-    """One key's capture: the graph, its static inputs and outputs, and
-    the launch counts one replay stands for."""
+    """One key's capture: the graph, its static inputs and outputs, the
+    counts one replay stands for, and its stage map."""
 
-    def __init__(self, graph, static, outs, delta):
+    def __init__(self, graph, static, outs, delta, stages):
         self.graph = graph
         self.static = static      # {argument position: static input}
         self.outs = outs
-        self.delta = delta        # [(counter dict, {key: launches})]
+        self.delta = delta        # [(counter dict, {key: count})]
+        self.stages = stages      # [(stage, device nodes)], node order
 
 
 class BatchGraphs:
@@ -115,35 +113,43 @@ class BatchGraphs:
     ``batch_args``: the positions of the per-batch inputs (copied into
     static buffers every call); every other tensor argument is read in
     place.  ``name`` names the function in a capture error.  ``captures``
-    and ``capture_s`` count the captures made and their seconds."""
+    counts the captures made; ``id`` is the wrapper's id in the recorder
+    (its ``graphs.capture`` spans and stage maps)."""
 
     def __init__(self, fn: Callable, batch_args: Sequence[int], name: str):
         self.eager = fn
         self.batch_args = tuple(batch_args)
         self.name = name
+        self.id = f"graphs:{next(_wrappers)}"
         self._graphs: "collections.OrderedDict" = collections.OrderedDict()
         self._pool = None
         self.captures = 0
-        self.capture_s: List[float] = []
 
     def __call__(self, *args, out=None):
         if not self._on_card(args):
             return write_out(self.eager(*args), out)
-        key = self.key(args)
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._capture(key, args)
-        else:
-            self._graphs.move_to_end(key)
-        with self._device(args):
-            for i, t in entry.static.items():
-                t.copy_(args[i])
-            entry.graph.replay()
-            for counts, d in entry.delta:
-                for k, n in d.items():
-                    counts[k] = counts.get(k, 0) + n
-            return write_out(entry.outs, out) if out is not None \
-                else _clone(entry.outs)
+        trace.count("graphs.calls")
+        with trace.span("graphs.call", trace.NEW):
+            with trace.span("graphs.key"):
+                key = self.key(args)
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(key, args)
+            else:
+                self._graphs.move_to_end(key)
+            with self._device(args):
+                with trace.span("graphs.inputs"):
+                    for i, t in entry.static.items():
+                        t.copy_(args[i])
+                with trace.span("graphs.replay"):
+                    entry.graph.replay()
+                trace.count("graphs.replays")
+                for counts, d in entry.delta:
+                    for k, n in d.items():
+                        counts[k] = counts.get(k, 0) + n
+                with trace.span("graphs.outputs"):
+                    return write_out(entry.outs, out) if out is not None \
+                        else _clone(entry.outs)
 
     def key(self, args) -> tuple:
         return tuple(_arg_key(a, i not in self.batch_args)
@@ -190,22 +196,29 @@ class BatchGraphs:
     def _capture(self, key, args) -> _Graph:
         while len(self._graphs) >= MAX_GRAPHS:
             self._graphs.popitem(last=False)
-        t0 = time.perf_counter()
-        with self._device(args):
+            trace.count("graphs.evictions")
+        with trace.setup("graphs.capture", self.id), self._device(args):
             static = {i: args[i].clone() for i in self.batch_args}
             call = [static.get(i, a) for i, a in enumerate(args)]
-            counters = _launch_counters()
+            counters = trace.counter_dicts()
             snap: Optional[List[Dict]] = None
+            stages: List = []
+
+            def warm():
+                with trace.setup("graphs.warm"):
+                    return self.eager(*call)
 
             def record():
-                nonlocal snap
-                # the counts the capture moves are taken back: nothing ran
-                snap = [dict(c) for c in counters]
-                return self.eager(*call)
+                nonlocal snap, stages
+                with trace.setup("graphs.record"):
+                    # the counts the capture moves are taken back: nothing
+                    # ran
+                    snap = [dict(c) for c in counters]
+                    with trace.capturing(self.id, self.name) as stages:
+                        return self.eager(*call)
 
             try:
-                graph, outs = self._warm_and_record(
-                    lambda: self.eager(*call), record)
+                graph, outs = self._warm_and_record(warm, record)
             except Exception as e:
                 raise RuntimeError(
                     f"capturing {self.name} as a CUDA graph failed: {e}"
@@ -220,7 +233,7 @@ class BatchGraphs:
                         c.update(before)
                         if d:
                             delta.append((c, d))
-        entry = self._graphs[key] = _Graph(graph, static, outs, delta)
+        entry = self._graphs[key] = _Graph(graph, static, outs, delta, stages)
         self.captures += 1
-        self.capture_s.append(time.perf_counter() - t0)
+        trace.count("graphs.captures")
         return entry
