@@ -15,7 +15,12 @@ Phases, one JSON line each:
               batch chunks (the reference's rule; 256 and 152 rows), one
               persistent launch a chunk and none stepwise, the first
               chunk bit-equal to a run alone; B=512 chunked against
-              stepwise in turns.
+              stepwise in turns.  The long-row top-k (row_topk) against
+              its plain version and the library select, bit for bit, on
+              six kinds of rows at four lengths, four k and three
+              batches; timed at the cells' and a pack's shapes beside
+              its bound and the library select; a retriever's graph
+              replays counting its launches.
   flagship    didemo_flagship at full width (E=300, H=1024, F=2048, joint
               128, two streams, cosine, mean pool), seeded weights, a
               synthetic 10,000-video corpus (210,000 index rows): build,
@@ -217,7 +222,7 @@ Then one {"kernels": [...]} line, the nvidia-smi line, and as the last line
 Without a CUDA device it exits 2 and prints no result.
 
 Not in the default run (``--phases``): ``rnn`` (the K1 / K3 checks alone),
-``select`` (K2's), ``coarse_kernel`` (K4's),
+``select`` (K2's), ``coarse_kernel`` (K4's), ``row_topk`` (the top-k's),
 ``profile`` (device time by kernel name), ``steps`` (the persistent
 kernels' per-step time split), ``wgmma_rate`` (the tensor cores' own time
 for a step's products), ``trace`` (with ``coarse_2m`` and ``train_dp``,
@@ -796,6 +801,212 @@ def phase_coarse_kernel(results, seed: int):
     results["coarse_blockmax"] = recs
 
 
+# row_topk: the rows the checks select over (KEY_MAX + 1, a shard of four
+# cards, the cells' rows, a ragged row), k and batches
+ROW_TOPK_NS = (32_769, 52_500, 210_000, 210_003)
+ROW_TOPK_KS = (1, 10, 100, 256)
+ROW_TOPK_QS = (1, 8, 256)
+ROW_TOPK_KINDS = ("gauss", "repeated", "slice_ties", "specials", "ascending",
+                  "descending")
+# f32 bits: +-0, +-inf, NaNs of both signs (two payloads), +-1
+ROW_TOPK_SPECIALS = (0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                     0x7FC00000, 0xFFC00000, 0x7FC00001, 0x3F800000,
+                     0xBF800000)
+
+
+def _row_topk_rows(kind: str, Q: int, N: int, k: int, plan, gen, dev):
+    """[Q, N] f32 rows of one kind: normals; one repeated value; normals
+    with a tie of 9.0 over 2 (k // 2 + 1) columns straddling every slice
+    boundary of ``plan`` (the row's middle with one slice), so the k-th
+    place falls inside the ties; the specials mixed with 30% normals;
+    ascending (every value passes the filter) or descending integers."""
+    import torch
+
+    if kind == "gauss":
+        return torch.randn(Q, N, generator=gen, device=dev)
+    if kind == "repeated":
+        return torch.full((Q, N), 0.25, device=dev)
+    if kind in ("ascending", "descending"):
+        x = torch.arange(N, dtype=torch.float32, device=dev)
+        return (x if kind == "ascending" else x.flip(0)).repeat(Q, 1)
+    if kind == "slice_ties":
+        x = torch.randn(Q, N, generator=gen, device=dev)
+        w = k // 2 + 1
+        edges = [s * plan.slice_len for s in range(1, plan.slices)]
+        for e in edges or [N // 2]:
+            x[:, max(0, e - w):e + w] = 9.0
+        return x
+    pool = torch.from_numpy(np.asarray(ROW_TOPK_SPECIALS, np.uint32)
+                            .view(np.float32)).to(dev)
+    x = pool[torch.randint(len(pool), (Q, N), generator=gen, device=dev)]
+    mix = torch.rand(Q, N, generator=gen, device=dev) < 0.3
+    return torch.where(mix, torch.randn(Q, N, generator=gen, device=dev), x)
+
+
+def _library_topk(x, k):
+    """The library select these rows take off the kernel's route: the
+    64-bit key for a batch of at most ``KEY_BATCH * KEY_MAX`` values, else
+    the 32-bit order and the tie pass."""
+    from vfr_tpu_torch.ops import topk
+
+    if x.numel() <= topk.KEY_BATCH * topk.KEY_MAX:
+        return topk._key_topk(x, k)
+    return topk._tie_topk(x, k)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
+def _row_topk_graph(seed: int, Q: int = 256, k: int = 100,
+                    videos: int = 10_000, replays: int = 5):
+    """A flagship-shaped exact retriever over a seeded unit-row index of
+    ``videos`` x 21 rows: its graph replays count one ``select.kernel`` a
+    batch, the kernel's launches under ``topk_kernel.launches`` and no
+    ``select.order32_tie``; the replayed answers equal, bit for bit, the
+    eager batch with the kernel route turned off (the library select)."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch.config import get_preset
+    from vfr_tpu_torch.eval.corpus import MomentIndex, make_retriever
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import (
+        init_model_params,
+        prepare_query_params,
+    )
+    from vfr_tpu_torch.ops import topk
+    from vfr_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    cfg = get_preset("didemo_flagship")
+    model = build_model(cfg)
+    rng = np.random.default_rng(seed)
+    glove = rng.standard_normal((1000, cfg.data.glove_dim)).astype(np.float32)
+    params = init_model_params(torch.Generator().manual_seed(seed), model,
+                               glove, cfg.data.feature_dim, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    P, S, d = 21, 2, cfg.model.joint_dim
+    m = torch.randn(S, videos * P, d, generator=gen, device=dev)
+    m = m / (m.norm(dim=-1, keepdim=True) + 1e-8)
+    index = MomentIndex(
+        m=m, m_sq=(m * m).sum(-1),
+        video_row=np.repeat(np.arange(videos, dtype=np.int32), P),
+        prop_idx=np.tile(np.arange(P, dtype=np.int32), videos),
+        spans_sec=np.zeros((videos * P, 2), np.float32),
+        weights=np.ones(S, np.float32))
+    T = cfg.data.max_query_len
+    toks = torch.randint(2, 1000, (Q, T), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens = torch.randint(1, T + 1, (Q,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    qp = prepare_query_params(params, model)
+    retrieve = make_retriever(model, index, k, "exact")
+    retrieve(qp, toks, lens)                  # the capture
+    torch.cuda.synchronize()
+    before = trace.counters()
+    for _ in range(replays):
+        got = retrieve(qp, toks, lens)
+    torch.cuda.synchronize()
+    delta = {n: c - before.get(n, 0) for n, c in trace.counters().items()
+             if c != before.get(n, 0)}
+    real = topk.select_route
+    with mock.patch.object(topk, "select_route",
+                           lambda device_type, *a: real("none", *a)):
+        ref = retrieve.eager(qp, toks, lens)     # the library select
+    torch.cuda.synchronize()
+    rec = dict(Q=Q, N=videos * P, k=k, replays=replays, counted=delta,
+               bit_equal_to_library_route=_same_bits(got, ref))
+    require(delta.get("graphs.replays") == replays
+            and delta.get("select.kernel") == replays
+            and "select.order32_tie" not in delta
+            and delta.get("topk_kernel.launches.row_topk_filter") == replays
+            and delta.get("topk_kernel.launches.row_topk_merge") == replays,
+            f"row_topk graph: counted {delta}")
+    require(rec["bit_equal_to_library_route"], "row_topk graph: replayed "
+            "answers differ from the library select")
+    return rec
+
+
+def phase_row_topk(results, seed: int):
+    """The long-row top-k kernel (``csrc/row_topk.cu``) against its plain
+    version (``row_topk_plain``, the same slices) and against the library
+    select (``_library_topk``), bit for bit, over every kind of
+    ``_row_topk_rows`` x ``ROW_TOPK_NS`` x ``ROW_TOPK_KS`` x
+    ``ROW_TOPK_QS``.  Then its time at the cells' shapes ([256, 210,000],
+    k = 100 and 10) and a daemon pack's (Q = 8 and 1, k = 100 and 10):
+    stream ms through the wrapper (``cuda_ms``: host-bound at a pack) and
+    the kernels' own device ms (torch.profiler), beside its bound (the
+    rows read once, the k values and rows written once), the plain version
+    and the library select (the yardstick); then a retriever's graph
+    replays (``_row_topk_graph``)."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import topk_kernel
+    from vfr_tpu_torch.ops.kernels.select_plan import device_limits
+
+    dev = torch.device("cuda")
+    sms = device_limits(dev)[1]
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    failures, n_cases = [], 0
+    for N in ROW_TOPK_NS:
+        for Q in ROW_TOPK_QS:
+            for k in ROW_TOPK_KS:
+                plan = topk_kernel.plan_row_topk(Q, N, k, sms)
+                for kind in ROW_TOPK_KINDS:
+                    x = _row_topk_rows(kind, Q, N, k, plan, gen, dev)
+                    got = topk_kernel.row_topk(x, k)
+                    torch.cuda.synchronize()
+                    plain = topk_kernel.row_topk_plain(x, k, plan)
+                    library = _library_topk(x, k)
+                    n_cases += 1
+                    for what, ref in (("plain", plain), ("library", library)):
+                        if not _same_bits(got, ref):
+                            bad = (got[1] != ref[1]).any(-1).nonzero()
+                            failures.append(dict(
+                                kind=kind, Q=Q, N=N, k=k, against=what,
+                                slices=plan.slices, rows_differing=len(bad),
+                                first_row=int(bad[0]) if len(bad) else None))
+                    del x, got, plain, library
+    emit({"phase": "kernel_row_topk_checks", "cases": n_cases,
+          "failures": failures[:20], "n_failures": len(failures)})
+    require(not failures, f"row_topk: {len(failures)} of {n_cases} cases "
+            "differ (kernel_row_topk_checks)")
+    recs = []
+    N = 210_000
+    for Q, k in ((256, 100), (256, 10), (8, 100), (8, 10), (1, 100),
+                 (1, 10)):
+        x = torch.randn(Q, N, generator=gen, device=dev)
+        plan = topk_kernel.plan_row_topk(Q, N, k, sms)
+        ms = cuda_ms(lambda: topk_kernel.row_topk(x, k))
+        device_ms = _device_profile(
+            f"row_topk_Q{Q}_k{k}", lambda: topk_kernel.row_topk(x, k),
+            iters=20)["device_ms_per_iter"]
+        plain_ms = cuda_ms(lambda: topk_kernel.row_topk_plain(x, k, plan),
+                           iters=5)
+        library_ms = cuda_ms(lambda: _library_topk(x, k), iters=5)
+        bound_ms, bound_by = bound(Q * N * 4 + Q * k * (4 + 8), 0.0,
+                                   "float32")
+        rec = dict(name="row_topk", shape=dict(Q=Q, N=N, k=k),
+                   slices=plan.slices, slice_len=plan.slice_len, ms=ms,
+                   device_ms=device_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   library=("torch.topk 32-bit + tie pass"
+                            if Q * N > 512 * 32768 else "torch.topk key64"),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   roofline=bound_ms / device_ms)
+        emit({"phase": "kernel_row_topk", **rec})
+        recs.append(rec)
+        del x
+    graph = _row_topk_graph(seed)
+    emit({"phase": "kernel_row_topk_graph", **graph})
+    results["row_topk"] = dict(times=recs, graph=graph, cases=n_cases)
+
+
 def _k2_library(q, m, m_sq, w, bin_size, block_n):
     """One PyTorch formulation of the same selection (timing yardstick,
     never used by the port): batched matmul, then amin over the strided
@@ -1104,10 +1315,20 @@ def _count_dicts():
         gru_kernel,
         lstm_kernel,
         select_kernel,
+        topk_kernel,
     )
 
     return (lstm_kernel.LAUNCHES, gru_kernel.LAUNCHES, select_kernel.LAUNCHES,
-            coarse_kernel.LAUNCHES)
+            coarse_kernel.LAUNCHES, topk_kernel.LAUNCHES)
+
+
+def _route_counts():
+    """The recorder's own counters, where ``ops/topk.py`` counts each
+    select's route (``select.kernel``, ``select.key64``,
+    ``select.order32_tie``)."""
+    from vfr_tpu_torch.utils import trace
+
+    return trace.counter_dicts()[0]
 
 
 def _variant_dicts():
@@ -1130,12 +1351,14 @@ def _device_dicts():
         gru_kernel,
         lstm_kernel,
         select_kernel,
+        topk_kernel,
     )
 
     return {"lstm": lstm_kernel.DEVICE_LAUNCHES,
             "gru": gru_kernel.DEVICE_LAUNCHES,
             "select": select_kernel.DEVICE_LAUNCHES,
-            "coarse": coarse_kernel.DEVICE_LAUNCHES}
+            "coarse": coarse_kernel.DEVICE_LAUNCHES,
+            "row_topk": topk_kernel.DEVICE_LAUNCHES}
 
 
 def reset_counts():
@@ -1144,6 +1367,10 @@ def reset_counts():
             counts[k] = 0
     for counts in _device_dicts().values():
         counts.clear()
+    routes = _route_counts()
+    for k in routes:
+        if k.startswith("select."):
+            routes[k] = 0
 
 
 def read_device_counts():
@@ -1152,11 +1379,14 @@ def read_device_counts():
 
 
 def read_counts():
-    """Launches by kernel since ``reset_counts``, and under "variants" the
-    launches of each kernel family by kernel variant."""
+    """Launches by kernel since ``reset_counts``, the selects by route
+    (``select.*``), and under "variants" the launches of each kernel family
+    by kernel variant."""
     out = {}
     for counts in _count_dicts():
         out.update(counts)
+    out.update((k, n) for k, n in _route_counts().items()
+               if k.startswith("select.") and n)
     out["variants"] = {cell: dict(v) for cell, v in _variant_dicts().items()}
     return out
 
@@ -1175,6 +1405,21 @@ def require_persistent(counts, cell: str, what: str) -> None:
     require(v["persistent"] > 0 and v["stepwise"] == 0,
             f"{what}: the {cell} recurrence ran {v}, expected the "
             "persistent variant only")
+
+
+def require_row_topk(counts, selects, what: str) -> None:
+    """The long-row select ran on the kernel ``selects`` times since
+    ``reset_counts`` (None: any number but 0): as many ``select.kernel``
+    routes, one filter and one merge launch each, and never the 32-bit
+    order and its tie pass."""
+    n = counts["row_topk_filter"]
+    require((n > 0 if selects is None else n == selects)
+            and counts["row_topk_merge"] == n
+            and counts.get("select.kernel", 0) == n
+            and not counts.get("select.order32_tie"),
+            f"{what}: wanted {selects or 'some'} long-row selects on the "
+            f"kernel, counted filter {n}, merge {counts['row_topk_merge']}, "
+            f"routes { {k: c for k, c in counts.items() if k[:7] == 'select.'} }")
 
 
 def require_mma(counts, family: str, what: str) -> None:
@@ -1380,6 +1625,8 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     require(counts["lstm_pooled"] > 0, "flagship: K1a (lstm_pooled) never "
             "launched on the serving path")
     require_persistent(counts, "lstm", "flagship")
+    # one select a batch, as one K1a a batch
+    require_row_topk(counts, counts["lstm_pooled"], "flagship")
     bucketed = serve_queries(params, model, ds, vocab, queries,
                              length_buckets="auto", **kw)
     require(bucketed == exact, "flagship: bucketed results differ from "
@@ -1686,8 +1933,8 @@ def phase_devices(results, ctx, workdir: str, d_coarse: int = 32,
     params and the index on cuda:1 while cuda:0 stays current, exact
     (K1a), fused (K1a + K2) and coarse blockmax (K1a + K4), each held to
     the same batch on cuda:0 (rows equal outside near-ties, distances
-    within 1e-3); each kernel must have launched on cuda:1 and on no other
-    card; then ``cli serve --device cuda:1`` as a subprocess.  With one
+    within 1e-3); each kernel (the exact select's ``row_topk`` too) must
+    have launched on cuda:1 and on no other card; then ``cli serve --device cuda:1`` as a subprocess.  With one
     card it prints one line saying it did not run and why."""
     import torch
 
@@ -1721,7 +1968,7 @@ def phase_devices(results, ctx, workdir: str, d_coarse: int = 32,
     toks0, lens0 = ctx["toks"][0], ctx["lens"][0]
     toks1, lens1 = toks0.to(d1), lens0.to(d1)
     cells = (
-        ("exact", ("lstm",), lambda idx, crs: make_retriever(
+        ("exact", ("lstm", "row_topk"), lambda idx, crs: make_retriever(
             model, idx, k, "exact")),
         ("fused", ("lstm", "select"), lambda idx, crs: make_retriever(
             model, idx, k, "fused")),
@@ -1831,6 +2078,7 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         make_stream_retriever,
     )
     from vfr_tpu_torch.ops.kernels.coarse_kernel import coarse_blockmax_plain
+    from vfr_tpu_torch.ops.topk import KEY_MAX
 
     q_params, model, index, k = (ctx["q_params"], ctx["model"],
                                  ctx["index"], ctx["k"])
@@ -1857,6 +2105,19 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         require(counts["lstm_pooled"] > 0,
                 f"sharded[exact n={n}]: K1a never launched")
         require_persistent(counts, "lstm", f"sharded[exact n={n}]")
+        # a shard's rows past KEY_MAX select on the kernel, once a batch on
+        # its own card; shorter shards take the 64-bit key
+        devs = [str(d) for d in mesh.axis_devices("corpus")]
+        on_kernel = -(-index.num_rows // n) > KEY_MAX
+        if on_kernel:
+            require_row_topk(counts, n * M, f"sharded[exact n={n}]")
+        else:
+            require(counts["row_topk_filter"] == 0,
+                    f"sharded[exact n={n}]: the kernel ran on short shards")
+        by_dev = read_device_counts()["row_topk"]
+        want = {d: M * devs.count(d) for d in set(devs)} if on_kernel else {}
+        require(by_dev == want, f"sharded[exact n={n}]: row_topk launched "
+                f"{by_dev} by device, wanted {want}")
         mism, ddiff = compare_to_plain(d_s, r_s, d_ref, r_ref)
         plain = make_retriever(model, index, k, rnn_kernel="plain",
                                mesh=mesh)
@@ -3040,10 +3301,10 @@ def _parent_select(x, k: int):
 
 def _select_candidates(scores, k: int, what: str):
     """The long-row select on ``scores`` [Q, N]: the port's sync-free
-    ``topk_lowest_index`` (which takes one of the next two by the batch's
-    size), the tie pass over the 32-bit total order (``_tie_topk``), the
-    64-bit key (``_key_topk``) and the earlier select
-    (``_parent_select``), required equal; stream ms of each (``cuda_ms``)
+    ``topk_lowest_index`` (the kernel, ``csrc/row_topk.cu``, for these
+    contiguous f32 rows on the card), the tie pass over the 32-bit total
+    order (``_tie_topk``), the 64-bit key (``_key_topk``) and the earlier
+    select (``_parent_select``), required equal; stream ms of each (``cuda_ms``)
     in turns P S T K K T S P, and device ms of one call by torch.profiler
     (``_device_profile``)."""
     import torch
@@ -3215,6 +3476,7 @@ def phase_bench(results, rounds: int = BENCH_TURNS):
         require(counts[name] > 0, f"bench: {name} never launched")
     require_persistent(counts, "lstm", "bench")
     require_mma(counts, "select", "bench")
+    require_row_topk(counts, None, "bench")
 
     head = SimpleNamespace(
         name="serving_10k", model=s.model, index=s.index,
@@ -4435,6 +4697,9 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
         for name in kernels[mode]:
             require(counts[name] > 0,
                     f"follow[{tag}]: {name} never launched")
+        if mode == "exact":
+            # one select a pack, as one K1a a pack
+            require_row_topk(counts, counts["lstm_pooled"], f"follow[{tag}]")
         require(mism == 0 and ddiff <= 1e-3,
                 f"follow[{tag}]: vs serve_queries: {mism} moments differ, "
                 f"max |d diff| {ddiff}")
@@ -5298,6 +5563,25 @@ def kernels_line(results):
                     other_shapes=[dict(shape=o["shape"],
                                        **{key: o[key] for key in keys_v})
                                   for o in others]))
+    # the long-row top-k replaces no Pallas kernel: jax.lax.top_k's select
+    if "row_topk" in results:
+        r = results["row_topk"]
+        name = "row_topk_filter"         # each comes with one merge
+        out.append(dict(name="row_topk", route="cuda",
+                        source="vfr_tpu_torch/csrc/row_topk.cu",
+                        replaces="jax.lax.top_k (XLA)", checked=r["cases"],
+                        launches=served("flagship", "launches", name),
+                        eval_launches=eval_launches(name),
+                        train_launches=train_launches(name),
+                        **new_paths(name),
+                        graph_launches=r["graph"]["counted"],
+                        times=[{key: t[key] for key in ("shape", "ms",
+                                                        "device_ms",
+                                                        "plain_ms",
+                                                        "library_ms",
+                                                        "bound_ms",
+                                                        "bound_by")}
+                               for t in r["times"]]))
     return {"kernels": out}
 
 
@@ -5319,7 +5603,8 @@ def main(argv=None) -> int:
                            "default runs all but profile and is the only "
                            "one that ends with the ok line; rnn runs the "
                            "K1 / K3 kernel checks alone, select the K2 and "
-                           "coarse_kernel the K4 checks, steps prints the "
+                           "coarse_kernel the K4 checks, row_topk the "
+                           "long-row top-k's, steps prints the "
                            "persistent kernels' per-step time split, "
                            "wgmma_rate the tensor cores' own time for it, "
                            "trace runs the mesh part of the phases "
@@ -5385,6 +5670,9 @@ def main(argv=None) -> int:
         settle()
     if phases & {"kernels", "coarse_kernel"}:
         phase_coarse_kernel(results, SEED)
+        settle()
+    if phases & {"kernels", "row_topk"}:
+        phase_row_topk(results, SEED)
         settle()
     with tempfile.TemporaryDirectory() as workdir:
         if "flagship" in phases:

@@ -14,7 +14,7 @@ cloned and ``out=`` outputs and the launch bookkeeping run as on the card.
   first; a dropped retriever frees its graphs.
 * The counters a capture moves are taken back, and every replay adds them;
   a failed capture raises, names the function, caches nothing and leaves
-  the counters as they were.
+  the counters as they were; the record runs on the warm-up's stream.
 * Every graphed retriever (exact, stream, live, fused), on the wrapper's
   CPU path and through the stand-in capture over several batches, returns
   bit for bit what its eager function returns, and what the JAX package
@@ -22,6 +22,7 @@ cloned and ``out=`` outputs and the launch bookkeeping run as on the card.
   atol 1e-6, as ``test_torch_live.py`` states.
 """
 
+import contextlib
 import gc
 import weakref
 
@@ -240,6 +241,39 @@ def test_failed_capture_raises_and_caches_nothing(monkeypatch):
     assert len(g) == 0 and g.captures == 0
     # the warm-up's launches ran and stay counted; the capture's do not
     assert (np.array(_counts()) - c0 == np.array([1, 1, 1, 2])).all()
+
+
+def test_capture_records_on_the_warm_up_stream(monkeypatch):
+    """The record runs on the side stream the warm-up made on the current
+    card, not on torch's default capture stream (one a process, on the
+    card of its first capture, where a capture for another card fails)."""
+    ran_on, captured_on = [], []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Capture:
+        def __init__(self, graph, pool=None, stream=None):
+            captured_on.append(stream)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: ran_on.append(s) or contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    g = BatchGraphs(lambda x: x, (0,), "f")
+    assert g._warm_and_record(lambda: None, lambda: "outs") == ("graph",
+                                                                 "outs")
+    assert len(ran_on) == 1 and captured_on == ran_on
 
 
 def test_out_receives_the_results(graph_path):

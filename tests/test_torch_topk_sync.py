@@ -5,8 +5,10 @@ While the selects run, ``torch.Tensor``'s ways to a host value (``tolist``,
 ``__index__``) raise; on a card each of them would stall the stream until
 the select is done.  Checked on rows of 40,000 (past ``KEY_MAX``) with no
 tie, a tie at the k-th place, ties inside the k, NaNs of both signs and
-signed zeros, by the 64-bit key and by the tie pass (``KEY_BATCH`` set
-to 0), through ``topk_lowest_index`` (one row and a [2, N] batch),
+signed zeros, by the 64-bit key, by the tie pass (``KEY_BATCH`` set
+to 0) and by the kernel's route with its plain version in the kernel's
+place (``torch_kernel_route``), through ``topk_lowest_index`` (one row
+and a [2, N] batch),
 ``topk_lowest_index_many`` (two and three rows), ``top_k_select`` and
 ``hierarchical_top_k``; each result equals ``jax.lax.top_k``'s indices,
 and its values bit for bit.
@@ -32,6 +34,7 @@ from vfr_tpu_torch.ops import topk as ttopk
 from vfr_tpu_torch.parallel.mesh import make_mesh
 
 from test_torch_train_loss import _models
+from torch_kernel_route import route_to_the_plain_kernel
 
 N = 40_000
 HOST_READS = ("tolist", "item", "numpy", "__bool__", "__int__", "__float__",
@@ -85,13 +88,17 @@ def _assert_lax(v, i, row, k):
                                   np.asarray(jv).view(np.int32))
 
 
-@pytest.fixture(params=["key", "tie_pass"])
+@pytest.fixture(params=["key", "tie_pass", "kernel_plain"])
 def long_path(request, monkeypatch):
-    """The two selects of a long row: the 64-bit key (a small batch, as
-    here) and the tie pass (``KEY_BATCH`` 0: every batch of rows longer
-    than ``KEY_MAX``, as a corpus scored for many queries)."""
+    """The three selects of a long row: the 64-bit key (a small batch, as
+    here), the tie pass (``KEY_BATCH`` 0: every batch of rows longer than
+    ``KEY_MAX``, as a corpus scored for many queries) and the kernel's
+    route, the CPU standing for the card and the kernel's plain version,
+    slice by slice, in the kernel's place."""
     if request.param == "tie_pass":
         monkeypatch.setattr(ttopk, "KEY_BATCH", 0)
+    if request.param == "kernel_plain":
+        route_to_the_plain_kernel(monkeypatch)
     return request.param
 
 

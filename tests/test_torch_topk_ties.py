@@ -39,6 +39,7 @@ from vfr_tpu_torch.ops.topk import (
 )
 
 from test_torch_train_loss import _models
+from torch_kernel_route import plain_row_topk
 
 
 def test_three_tied_rows_come_back_lowest_index_first():
@@ -239,10 +240,13 @@ def _tied_row(n):
 
 def _rows(path, x):
     """The rows one call of ``path`` selects: ``x``, with its reverse
-    (``many``) or with a tied row free of NaNs and zeros (``many_mixed``,
-    and ``batch``: both rows of one [2, n] tensor)."""
+    (``many``), with a tied row free of NaNs and zeros (``many_mixed``,
+    and ``batch``: both rows of one [2, n] tensor) or with itself less its
+    last column, a row of no multiple of 4 (``kernel_plain``)."""
     if path == "many":
         return [x, x[::-1].copy()]
+    if path == "kernel_plain":
+        return [x, x[:-1].copy()]
     if path in ("many_mixed", "batch"):
         return [x, _tied_row(x.shape[-1])]
     return [x]
@@ -261,6 +265,8 @@ def _select(path, x, k):
     if path == "batch":
         v, i = topk_lowest_index(torch.stack(rows), k)
         return list(zip(v, i))
+    if path == "kernel_plain":
+        return [plain_row_topk(r, k) for r in rows]
     return [hierarchical_top_k(rows[0], k, chunk=64)]
 
 
@@ -268,7 +274,7 @@ def _select(path, x, k):
 @pytest.mark.parametrize("path,name,k",
                          [(p, name, k) for p in ("single", "many",
                                                  "many_mixed", "batch",
-                                                 "select")
+                                                 "select", "kernel_plain")
                           for name, k in _SPECIAL]
                          + [("hierarchical", name, 60) for name in
                             ("signed_zeros", "neg_nan", "pos_nans",
@@ -278,7 +284,8 @@ def test_total_order_matches_lax_top_k(path, name, k, n):
     chunk 64, k = 60 then selects over 37,500 candidates); rows of 1,000
     the 64-bit key: both give ``jax.lax.top_k``'s indices and its values
     bit for bit, a row free of NaNs and zeros beside one that holds them
-    included."""
+    included.  ``kernel_plain`` runs the long-row kernel's plain version
+    (nine slices at 40,000 and 39,999 columns, one at 1,000 and 999)."""
     x = _special_row(name, n)
     for (v, i), row in zip(_select(path, x, k), _rows(path, x)):
         jv, ji = jax.lax.top_k(jnp.asarray(row), k)

@@ -24,6 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from test_torch_graphs import _StandIn
+from torch_kernel_route import route_to_the_plain_kernel
 from torch_live_world import world
 from vfr_tpu_torch.eval import corpus as tcorpus
 from vfr_tpu_torch.kernels import build
@@ -33,6 +34,7 @@ from vfr_tpu_torch.ops.kernels import (
     gru_kernel,
     lstm_kernel,
     select_kernel,
+    topk_kernel,
 )
 from vfr_tpu_torch.utils import trace
 from vfr_tpu_torch.utils.graphs import BatchGraphs
@@ -171,9 +173,13 @@ def test_registry_holds_the_launch_dicts():
     for mod in (lstm_kernel, gru_kernel, select_kernel, coarse_kernel):
         for d in (mod.LAUNCHES, mod.VARIANT_LAUNCHES, mod.DEVICE_LAUNCHES):
             assert any(d is h for h in held)
+    assert any(topk_kernel.LAUNCHES is h for h in held)
+    assert any(topk_kernel.DEVICE_LAUNCHES is h for h in held)
     names = trace.counters()
     assert "lstm_kernel.launches.lstm_pooled" in names
     assert "select_kernel.variant_launches.mma" in names
+    assert "topk_kernel.launches.row_topk_filter" in names
+    assert "topk_kernel.launches.row_topk_merge" in names
 
 
 @pytest.mark.parametrize("n, route", [(100, "select.key64"),
@@ -185,6 +191,17 @@ def test_the_select_counts_its_route(monkeypatch, n, route):
     assert trace.counters() == {**trace.counters(), route: 1}
     other = ({"select.key64", "select.order32_tie"} - {route}).pop()
     assert other not in trace.counters()
+
+
+def test_the_kernel_route_is_counted(monkeypatch):
+    """Long f32 rows on the card count ``select.kernel`` (here the CPU
+    stands for the card, the kernel's plain version in its place)."""
+    route_to_the_plain_kernel(monkeypatch)
+    topk.topk_lowest_index(torch.randn(2, topk.KEY_MAX + 1), 3)
+    counted = trace.counters()
+    assert counted["select.kernel"] == 1
+    assert "select.key64" not in counted
+    assert "select.order32_tie" not in counted
 
 
 def _stand_in(graph):

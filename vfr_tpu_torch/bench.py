@@ -160,11 +160,12 @@ def serving_setup(dev, videos: int = VIDEOS) -> SimpleNamespace:
 
 
 def warm_select(dev, rows: int, k: int = K) -> float:
-    """Seconds of the first call of the long-row top-k and its tie pass at
-    the retrievers' shape (Q x ``rows``, top-``k``), over a batch of equal
-    scores (a tie at the k-th place and inside the k).  Their kernels load
-    at the first call, once per process: set-up, which would otherwise
-    land in a timed call."""
+    """Seconds of the first call of the long-row top-k at the retrievers'
+    shape (Q x ``rows``, top-``k``), over a batch of equal scores (a tie
+    at the k-th place and inside the k).  Its kernels load at the first
+    call, once per process (on the card the hand-written select's library,
+    ``ops/kernels/topk_kernel.py``): set-up, which would otherwise land in
+    a timed call."""
     t0 = time.perf_counter()
     topk_lowest_index(torch.ones(Q, rows, device=dev), k)
     if dev.type == "cuda":

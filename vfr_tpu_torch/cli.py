@@ -61,9 +61,9 @@ port records its hot-path spans:
   ``setup.operands`` and ``setup.query_params``.
 The counters (``otherData.counters``) count batch calls, replays,
 captures and evictions (``graphs.*``), each top-k's route
-(``select.key64``, ``select.order32_tie``), the daemon's requests,
-packs, pack sizes and idle flushes (``daemon.*``) and every kernel's
-launches (``<kernel>_kernel.launches.*``).
+(``select.kernel``, ``select.key64``, ``select.order32_tie``), the
+daemon's requests, packs, pack sizes and idle flushes (``daemon.*``) and
+every kernel's launches (``<kernel>_kernel.launches.*``).
 
 The flags are the JAX package's for these subcommands, plus ``--device``
 (default ``cuda``; ``--device cpu`` is the only way onto the CPU).  With no

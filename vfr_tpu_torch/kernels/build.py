@@ -61,6 +61,9 @@ SIGNATURES = {
         "vfr_coarse_blockmax": [_P] * 4 + [_I] * 5 + [_P],
         "vfr_coarse_blockmax_mma": [_P] * 4 + [_I] * 7 + [_P],
     },
+    "row_topk": {
+        "vfr_row_topk": [_P] * 4 + [_I] * 5 + [_P],
+    },
 }
 
 # host libraries (csrc/host/<name>.cc), built with g++

@@ -5,6 +5,11 @@ compare in the total order of their f32 bits (``ordered_bits``), as
 ``jax.lax.top_k`` sorts them: -NaN below -inf, -0.0 below +0.0, +NaN
 above +inf, and NaNs with the same bits equal.
 
+On the card a long f32 row selects through the hand-written kernel
+(``ops/kernels/topk_kernel.py``, ``csrc/row_topk.cu``), whose unique
+64-bit keys give that order with no tie pass; ``select_route`` says which
+input goes where.
+
 ``"approx"`` is exact too: that is what the JAX package's
 ``lax.approx_max_k`` does off the TPU, and the port has no counterpart of
 the TPU's PartialReduce yet (a known difference, recorded in ROADMAP.md).
@@ -17,6 +22,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from vfr_tpu_torch.ops.kernels.topk_kernel import K_MAX, row_topk
 from vfr_tpu_torch.utils import trace
 
 # rows up to this long (candidate lists, coarse blocks: 16,512 at 2.1M
@@ -36,26 +42,48 @@ KEY_BATCH = 512
 TIE_CHUNK = 128
 
 
+def select_route(device_type: str, dtype: torch.dtype, contiguous: bool,
+                 N: int, k: int, numel: int) -> str:
+    """Which select ``topk_lowest_index`` runs for rows of ``N`` (``numel``
+    values in all) and ``k <= N``: "kernel" for contiguous f32 rows longer
+    than ``KEY_MAX`` on a CUDA card with ``1 <= k <= K_MAX``
+    (``topk_kernel.row_topk``); else "key64" for rows of at most
+    ``KEY_MAX``, ``k`` 0 or at most ``KEY_BATCH * KEY_MAX`` values
+    (``_key_topk``); else "order32_tie" (``_tie_topk``)."""
+    if (device_type == "cuda" and dtype == torch.float32
+            and contiguous and N > KEY_MAX and 1 <= k <= K_MAX):
+        return "kernel"
+    if N <= KEY_MAX or k == 0 or numel <= KEY_BATCH * KEY_MAX:
+        return "key64"
+    return "order32_tie"
+
+
 def topk_lowest_index(x: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Largest-k along the last axis: (values, indices), ordered by (value
     descending, index ascending), the tied rows at the k-th place taken
     lowest index first.  No value is read on the host, at any size.
 
-    A row of at most ``KEY_MAX``, or a batch of at most ``KEY_BATCH *
-    KEY_MAX`` values, selects by ``torch.topk`` over a unique int64 key,
-    the value's ``ordered_bits`` above the reversed index (``_key_topk``).
-    A larger batch of longer rows selects by ``torch.topk`` over
-    ``ordered_bits`` alone, which holds the total order but not the index
-    order of equal values, then always runs the tie pass
+    ``select_route`` picks the select.  On the card, contiguous f32 rows
+    longer than ``KEY_MAX`` with ``k <= K_MAX`` go to the hand-written
+    kernel (``topk_kernel.row_topk``), which reads each value once.
+    Otherwise a row of at most ``KEY_MAX``, or a batch of at most
+    ``KEY_BATCH * KEY_MAX`` values, selects by ``torch.topk`` over a
+    unique int64 key, the value's ``ordered_bits`` above the reversed index
+    (``_key_topk``).  A larger batch of longer rows selects by
+    ``torch.topk`` over ``ordered_bits`` alone, which holds the total order
+    but not the index order of equal values, then always runs the tie pass
     (``_tie_topk``).  Each call counts its route in the recorder
-    (``select.key64`` or ``select.order32_tie``)."""
+    (``select.kernel``, ``select.key64`` or ``select.order32_tie``)."""
     N = x.shape[-1]
     k = min(k, N)
-    if N <= KEY_MAX or k == 0 or x.numel() <= KEY_BATCH * KEY_MAX:
-        trace.count("select.key64")
+    route = select_route(x.device.type, x.dtype, x.is_contiguous(), N, k,
+                         x.numel())
+    trace.count("select." + route)
+    if route == "kernel":
+        return row_topk(x, k)
+    if route == "key64":
         return _key_topk(x, k)
-    trace.count("select.order32_tie")
     return _tie_topk(x, k)
 
 

@@ -178,8 +178,11 @@ class BatchGraphs:
                 else contextlib.nullcontext())
 
     def _warm_and_record(self, warm: Callable, record: Callable):
-        """(graph, outputs): ``warm`` run on a side stream, then ``record``
-        captured into the wrapper's pool."""
+        """(graph, outputs): ``warm`` run on a side stream of the current
+        card, then ``record`` captured on that stream into the wrapper's
+        pool.  Not on torch's default capture stream: that is one a
+        process, made on the card of the process's first capture, so a
+        capture on another card would record onto it and fail."""
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(cur)
@@ -189,7 +192,7 @@ class BatchGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
             outs = record()
         return graph, outs
 

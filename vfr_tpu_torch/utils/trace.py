@@ -45,8 +45,8 @@ span's id as its parent, and shares that id when it is given none.
 
 **Counters** (``count``) are always on: ``graphs.calls``,
 ``graphs.replays``, ``graphs.captures``, ``graphs.evictions``;
-``select.key64`` / ``select.order32_tie`` (``ops/topk.py``: the route of
-each top-k); ``daemon.requests``, ``daemon.packs``,
+``select.kernel`` / ``select.key64`` / ``select.order32_tie``
+(``ops/topk.py``: the route of each top-k); ``daemon.requests``, ``daemon.packs``,
 ``daemon.pack_size.<n>``, ``daemon.idle_flushes`` (packs fetched at once
 because no input waited).  The kernel modules' launch dicts register
 theirs (``register``).  A graph replay runs no Python: ``BatchGraphs``
