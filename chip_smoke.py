@@ -20,7 +20,15 @@ Phases, one JSON line each:
               six kinds of rows at four lengths, four k and three
               batches; timed at the cells' and a pack's shapes beside
               its bound and the library select; a retriever's graph
-              replays counting its launches.
+              replays counting its launches.  The f32 score GEMM
+              (score_gemm, 3 x TF32) at [Q, 256] x [210,000, 256], Q = 1,
+              8, 64, 256: its worst error against an f64 product beside
+              torch.matmul's in f32 (TF32 off; the kernel's at most 4x),
+              its device ms beside its bound, its plain version's and
+              torch.matmul's ms, one launch a call; with two cards or
+              more a 52,500-row shard on cuda:1 (cuda:0 current), eager
+              and as a captured graph's replay, bit-equal, launched on
+              cuda:1 only.
   flagship    didemo_flagship at full width (E=300, H=1024, F=2048, joint
               128, two streams, cosine, mean pool), seeded weights, a
               synthetic 10,000-video corpus (210,000 index rows): build,
@@ -41,7 +49,8 @@ Phases, one JSON line each:
               exact.
   devices     with two cards or more: one flagship batch served with the
               params and index on cuda:1 while cuda:0 stays current, exact
-              (K1a), fused (K1a + K2) and coarse blockmax (K1a + K4), each
+              (K1a, the long-row top-k, the score GEMM), fused (K1a + K2)
+              and coarse blockmax (K1a + K4), each
               held to the same batch on cuda:0, every kernel launched on
               cuda:1 only; `cli serve --device cuda:1` as a subprocess.
               With one card a line says it did not run and why.
@@ -223,6 +232,7 @@ Without a CUDA device it exits 2 and prints no result.
 
 Not in the default run (``--phases``): ``rnn`` (the K1 / K3 checks alone),
 ``select`` (K2's), ``coarse_kernel`` (K4's), ``row_topk`` (the top-k's),
+``score_gemm`` (the score GEMM's),
 ``profile`` (device time by kernel name), ``steps`` (the persistent
 kernels' per-step time split), ``wgmma_rate`` (the tensor cores' own time
 for a step's products), ``trace`` (with ``coarse_2m`` and ``train_dp``,
@@ -1007,6 +1017,136 @@ def phase_row_topk(results, seed: int):
     results["row_topk"] = dict(times=recs, graph=graph, cases=n_cases)
 
 
+# score_gemm: the queries of a batch, a pack and a one-query call against
+# the flagship's rows, and a shard of four cards
+SCORE_QS = (1, 8, 64, 256)
+SCORE_N = 210_000
+SCORE_SHARD = 52_500
+SCORE_ERR_RATIO = 4.0    # the kernel's worst error / torch.matmul's, at most
+
+
+def _score_operands(Q: int, N: int, gen, dev, K: int = 256):
+    """The flagship's score operands in shape: unit-norm rows of two
+    128-wide streams, concatenated (the queries of query_cat_scaled at
+    weights 0.5, the index's m_cat)."""
+    import torch
+
+    def unit(n):
+        x = torch.randn(2, n, K // 2, generator=gen, device=dev)
+        x = x / x.norm(dim=-1, keepdim=True)
+        return torch.cat([x[0], x[1]], -1).contiguous()
+
+    return unit(Q), unit(N)
+
+
+def _score_case(a, m, what: str):
+    """The score kernel on ``a [Q, K]`` x ``m [N, K]`` (on their card):
+    its worst difference from its plain version, its worst error against
+    an f64 product beside torch.matmul's (f32, TF32 off) and the plain
+    version's, one launch a call; its stream ms
+    (CUDA events) and device ms (torch.profiler) beside the bound, the
+    plain version's and torch.matmul's ms."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import score_kernel
+
+    Q, K = a.shape
+    N = m.shape[0]
+    with torch.cuda.device(a.device):
+        before = score_kernel.LAUNCHES["score_gemm"]
+        got = score_kernel.score_gemm(a, m)
+        torch.cuda.synchronize()
+        launches = score_kernel.LAUNCHES["score_gemm"] - before
+        exact = a.double() @ m.double().T
+        err = (got.double() - exact).abs().max().item()
+        plain = score_kernel.score_gemm_plain(a, m)
+        err_plain = (plain.double() - exact).abs().max().item()
+        diff_plain = (got - plain).abs().max().item()
+        lib = torch.matmul(a, m.T)
+        err_library = (lib.double() - exact).abs().max().item()
+        del exact, plain, lib
+        ms = cuda_ms(lambda: score_kernel.score_gemm(a, m))
+        device_ms = _device_profile(
+            f"score_gemm_{what}", lambda: score_kernel.score_gemm(a, m),
+            iters=20)["device_ms_per_iter"]
+        plain_ms = cuda_ms(lambda: score_kernel.score_gemm_plain(a, m),
+                           iters=10)
+        library_ms = cuda_ms(lambda: torch.matmul(a, m.T), iters=10)
+    bound_ms, bound_by = bound(N * K * 4 + Q * K * 4 + Q * N * 4,
+                               2.0 * Q * N * K, "float32")
+    rec = dict(name="score_gemm", what=what, shape=dict(Q=Q, N=N, K=K),
+               device=str(a.device), launches_per_call=launches,
+               max_abs_err_vs_f64=err, max_abs_diff_vs_plain=diff_plain,
+               plain_err_vs_f64=err_plain,
+               library_err_vs_f64=err_library,
+               err_ratio=err / err_library, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by, roofline=bound_ms / device_ms)
+    emit({"phase": "kernel_score_gemm", **rec})
+    require(launches == 1, f"score_gemm {what}: {launches} launches a call")
+    require(err <= SCORE_ERR_RATIO * err_library,
+            f"score_gemm {what}: worst error {err} against f64, more than "
+            f"{SCORE_ERR_RATIO} x torch.matmul's {err_library}")
+    return rec, got
+
+
+def _score_second_card(gen0):
+    """A 52,500-row shard on cuda:1 while cuda:0 stays current: the
+    kernel eager and as a captured graph's replay (on a side stream of
+    cuda:1), bit-equal, launched on cuda:1 only."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import score_kernel
+
+    dev1 = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev1).manual_seed(int(gen0.initial_seed()))
+    a, m = _score_operands(256, SCORE_SHARD, gen, dev1)
+    before = dict(score_kernel.DEVICE_LAUNCHES)
+    rec, eager = _score_case(a, m, "shard_cuda1")
+    with torch.cuda.device(dev1):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            score_kernel.score_gemm(a, m)           # the warm-up
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = score_kernel.score_gemm(a, m)
+        graph.replay()
+        torch.cuda.synchronize()
+    grown = {d: n - before.get(d, 0)
+             for d, n in score_kernel.DEVICE_LAUNCHES.items()
+             if n != before.get(d, 0)}
+    rec.update(graph_bit_equal=bool(torch.equal(out, eager)),
+               launches_by_device=grown)
+    require(rec["graph_bit_equal"], "score_gemm on cuda:1: the graph's "
+            "replay differs from the eager call")
+    require(set(grown) == {"cuda:1"}, f"score_gemm on cuda:1 launched on "
+            f"{grown}")
+    return rec
+
+
+def phase_score_gemm(results, seed: int):
+    """The f32 score GEMM (``csrc/score_gemm.cu``) on the flagship's
+    operands at Q = 1, 8, 64 and 256 (``_score_case``: held to an f64
+    product, its error at most ``SCORE_ERR_RATIO`` x torch.matmul's), and
+    with two cards or more a shard on cuda:1 (``_score_second_card``)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    recs = []
+    for Q in SCORE_QS:
+        a, m = _score_operands(Q, SCORE_N, gen, dev)
+        recs.append(_score_case(a, m, f"Q{Q}")[0])
+        del a, m
+    if torch.cuda.device_count() > 1:
+        second = _score_second_card(gen)
+    else:
+        second = dict(ran=False, why="one card: the cuda:1 shard needs two")
+        emit({"phase": "kernel_score_gemm_second_card", **second})
+    results["score_gemm"] = dict(times=recs, second_card=second)
+
+
 def _k2_library(q, m, m_sq, w, bin_size, block_n):
     """One PyTorch formulation of the same selection (timing yardstick,
     never used by the port): batched matmul, then amin over the strided
@@ -1314,18 +1454,24 @@ def _count_dicts():
         coarse_kernel,
         gru_kernel,
         lstm_kernel,
+        score_kernel,
         select_kernel,
         topk_kernel,
     )
 
     return (lstm_kernel.LAUNCHES, gru_kernel.LAUNCHES, select_kernel.LAUNCHES,
-            coarse_kernel.LAUNCHES, topk_kernel.LAUNCHES)
+            coarse_kernel.LAUNCHES, topk_kernel.LAUNCHES,
+            score_kernel.LAUNCHES)
+
+
+ROUTES = ("select.", "score.")
 
 
 def _route_counts():
     """The recorder's own counters, where ``ops/topk.py`` counts each
     select's route (``select.kernel``, ``select.key64``,
-    ``select.order32_tie``)."""
+    ``select.order32_tie``) and ``parallel/sharding.py`` each score
+    product's off the CPU (``score.kernel``, ``score.library``)."""
     from vfr_tpu_torch.utils import trace
 
     return trace.counter_dicts()[0]
@@ -1350,6 +1496,7 @@ def _device_dicts():
         coarse_kernel,
         gru_kernel,
         lstm_kernel,
+        score_kernel,
         select_kernel,
         topk_kernel,
     )
@@ -1358,7 +1505,8 @@ def _device_dicts():
             "gru": gru_kernel.DEVICE_LAUNCHES,
             "select": select_kernel.DEVICE_LAUNCHES,
             "coarse": coarse_kernel.DEVICE_LAUNCHES,
-            "row_topk": topk_kernel.DEVICE_LAUNCHES}
+            "row_topk": topk_kernel.DEVICE_LAUNCHES,
+            "score": score_kernel.DEVICE_LAUNCHES}
 
 
 def reset_counts():
@@ -1369,7 +1517,7 @@ def reset_counts():
         counts.clear()
     routes = _route_counts()
     for k in routes:
-        if k.startswith("select."):
+        if k.startswith(ROUTES):
             routes[k] = 0
 
 
@@ -1379,14 +1527,14 @@ def read_device_counts():
 
 
 def read_counts():
-    """Launches by kernel since ``reset_counts``, the selects by route
-    (``select.*``), and under "variants" the launches of each kernel family
-    by kernel variant."""
+    """Launches by kernel since ``reset_counts``, the selects and score
+    products by route (``select.*``, ``score.*``), and under "variants" the
+    launches of each kernel family by kernel variant."""
     out = {}
     for counts in _count_dicts():
         out.update(counts)
     out.update((k, n) for k, n in _route_counts().items()
-               if k.startswith("select.") and n)
+               if k.startswith(ROUTES) and n)
     out["variants"] = {cell: dict(v) for cell, v in _variant_dicts().items()}
     return out
 
@@ -1420,6 +1568,19 @@ def require_row_topk(counts, selects, what: str) -> None:
             f"{what}: wanted {selects or 'some'} long-row selects on the "
             f"kernel, counted filter {n}, merge {counts['row_topk_merge']}, "
             f"routes { {k: c for k, c in counts.items() if k[:7] == 'select.'} }")
+
+
+def require_score_gemm(counts, products, what: str) -> None:
+    """The f32 score product ran on the kernel ``products`` times since
+    ``reset_counts`` (None: any number but 0): as many ``score.kernel``
+    routes and launches, and none on the library's route."""
+    n = counts["score_gemm"]
+    require((n > 0 if products is None else n == products)
+            and counts.get("score.kernel", 0) == n
+            and not counts.get("score.library"),
+            f"{what}: wanted {products or 'some'} f32 score products on the "
+            f"kernel, counted {n} launches, routes "
+            f"{ {k: c for k, c in counts.items() if k[:6] == 'score.'} }")
 
 
 def require_mma(counts, family: str, what: str) -> None:
@@ -1625,8 +1786,9 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     require(counts["lstm_pooled"] > 0, "flagship: K1a (lstm_pooled) never "
             "launched on the serving path")
     require_persistent(counts, "lstm", "flagship")
-    # one select a batch, as one K1a a batch
+    # one select and one f32 score product a batch, as one K1a a batch
     require_row_topk(counts, counts["lstm_pooled"], "flagship")
+    require_score_gemm(counts, counts["lstm_pooled"], "flagship")
     bucketed = serve_queries(params, model, ds, vocab, queries,
                              length_buckets="auto", **kw)
     require(bucketed == exact, "flagship: bucketed results differ from "
@@ -1968,8 +2130,8 @@ def phase_devices(results, ctx, workdir: str, d_coarse: int = 32,
     toks0, lens0 = ctx["toks"][0], ctx["lens"][0]
     toks1, lens1 = toks0.to(d1), lens0.to(d1)
     cells = (
-        ("exact", ("lstm", "row_topk"), lambda idx, crs: make_retriever(
-            model, idx, k, "exact")),
+        ("exact", ("lstm", "row_topk", "score"),
+         lambda idx, crs: make_retriever(model, idx, k, "exact")),
         ("fused", ("lstm", "select"), lambda idx, crs: make_retriever(
             model, idx, k, "fused")),
         ("coarse_blockmax", ("lstm", "coarse"),
@@ -2109,6 +2271,7 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         # its own card; shorter shards take the 64-bit key
         devs = [str(d) for d in mesh.axis_devices("corpus")]
         on_kernel = -(-index.num_rows // n) > KEY_MAX
+        require_score_gemm(counts, n * M, f"sharded[exact n={n}]")
         if on_kernel:
             require_row_topk(counts, n * M, f"sharded[exact n={n}]")
         else:
@@ -3477,6 +3640,13 @@ def phase_bench(results, rounds: int = BENCH_TURNS):
     require_persistent(counts, "lstm", "bench")
     require_mma(counts, "select", "bench")
     require_row_topk(counts, None, "bench")
+    # the bench's line is the serving_10k batch: bf16 products, the
+    # library's route, never the f32 kernel
+    require(counts["score_gemm"] == 0 and not counts.get("score.kernel")
+            and counts.get("score.library", 0) > 0,
+            f"bench: the bf16 score products took "
+            f"{ {k: c for k, c in counts.items() if k[:6] == 'score.'} }, "
+            f"{counts['score_gemm']} f32 kernel launches")
 
     head = SimpleNamespace(
         name="serving_10k", model=s.model, index=s.index,
@@ -4698,8 +4868,10 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
             require(counts[name] > 0,
                     f"follow[{tag}]: {name} never launched")
         if mode == "exact":
-            # one select a pack, as one K1a a pack
+            # one select and one f32 score product a pack, as one K1a a pack
             require_row_topk(counts, counts["lstm_pooled"], f"follow[{tag}]")
+            require_score_gemm(counts, counts["lstm_pooled"],
+                               f"follow[{tag}]")
         require(mism == 0 and ddiff <= 1e-3,
                 f"follow[{tag}]: vs serve_queries: {mism} moments differ, "
                 f"max |d diff| {ddiff}")
@@ -5582,6 +5754,23 @@ def kernels_line(results):
                                                         "bound_ms",
                                                         "bound_by")}
                                for t in r["times"]]))
+    # the score GEMM replaces no Pallas kernel: XLA's dot of the score
+    if "score_gemm" in results:
+        r = results["score_gemm"]
+        name = "score_gemm"
+        out.append(dict(name=name, route="cuda",
+                        source="vfr_tpu_torch/csrc/score_gemm.cu",
+                        replaces="XLA's dot (parallel/sharding.py)",
+                        launches=served("flagship", "launches", name),
+                        eval_launches=eval_launches(name),
+                        train_launches=train_launches(name),
+                        **new_paths(name),
+                        second_card=r["second_card"],
+                        times=[{key: t[key] for key in (
+                            "shape", "max_abs_err_vs_f64",
+                            "library_err_vs_f64", "ms", "device_ms",
+                            "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")} for t in r["times"]]))
     return {"kernels": out}
 
 
@@ -5604,7 +5793,8 @@ def main(argv=None) -> int:
                            "one that ends with the ok line; rnn runs the "
                            "K1 / K3 kernel checks alone, select the K2 and "
                            "coarse_kernel the K4 checks, row_topk the "
-                           "long-row top-k's, steps prints the "
+                           "long-row top-k's, score_gemm the score "
+                           "GEMM's, steps prints the "
                            "persistent kernels' per-step time split, "
                            "wgmma_rate the tensor cores' own time for it, "
                            "trace runs the mesh part of the phases "
@@ -5673,6 +5863,9 @@ def main(argv=None) -> int:
         settle()
     if phases & {"kernels", "row_topk"}:
         phase_row_topk(results, SEED)
+        settle()
+    if phases & {"kernels", "score_gemm"}:
+        phase_score_gemm(results, SEED)
         settle()
     with tempfile.TemporaryDirectory() as workdir:
         if "flagship" in phases:

@@ -20,6 +20,9 @@ cloned and ``out=`` outputs and the launch bookkeeping run as on the card.
   bit for bit what its eager function returns, and what the JAX package
   returns on the same inputs: rows equal, distances within rtol 1e-5,
   atol 1e-6, as ``test_torch_live.py`` states.
+* A captured exact batch over an f32 index, the CPU standing for the card
+  (the score kernel's plain version in its place), counts its score's
+  route (``score.kernel``) and the kernel's launch once a replay.
 """
 
 import contextlib
@@ -31,12 +34,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_kernel_route import route_scores_to_the_plain_kernel
 from torch_live_world import world
 from vfr_tpu.eval import corpus as jcorpus
 from vfr_tpu.eval import live as jlive
 from vfr_tpu_torch.eval import corpus as tcorpus
 from vfr_tpu_torch.eval import live as tlive
-from vfr_tpu_torch.ops.kernels import lstm_kernel, select_kernel
+from vfr_tpu_torch.ops.kernels import lstm_kernel, score_kernel, select_kernel
 from vfr_tpu_torch.utils import graphs, trace
 from vfr_tpu_torch.utils.graphs import BatchGraphs, write_out
 from vfr_tpu_torch.utils.tree import tree_map
@@ -346,3 +350,28 @@ def test_graphed_retrievers_match_eager_and_jax(w, monkeypatch, kind, path):
                          jnp.asarray(lens[b]))
         np.testing.assert_array_equal(r[b].numpy(), np.asarray(r_j))
         np.testing.assert_allclose(d[b].numpy(), np.asarray(d_j), **TOL)
+
+
+def test_a_captured_f32_batch_counts_the_score_route(w, monkeypatch):
+    """A graphed exact batch over an f32 index takes the score kernel's
+    route, the CPU standing for the card: one ``score.kernel`` and one
+    ``score_kernel`` launch a replay, plus the warm-up's, none on the
+    library's route; the answers are the eager batch's, bit for bit."""
+    route_scores_to_the_plain_kernel(monkeypatch)
+    monkeypatch.setattr(BatchGraphs, "_on_card", lambda self, a: True)
+    monkeypatch.setattr(BatchGraphs, "_warm_and_record", _stand_in_capture)
+    trace.reset()
+    launches = score_kernel.LAUNCHES["score_gemm"]
+    toks, lens = _batches(w)
+    tt, tl = torch.from_numpy(toks), torch.from_numpy(lens)
+    retr = tcorpus.make_retriever(w.tmodel, _index(w), K)
+    outs = [retr(w.tparams, tt[b], tl[b]) for b in range(len(toks))]
+    n = len(toks) + 1                   # the replays and the warm-up
+    counted = trace.counters()
+    assert counted["score.kernel"] == n
+    assert "score.library" not in counted
+    assert score_kernel.LAUNCHES["score_gemm"] - launches == n
+    assert retr.graphs.captures == 1
+    for b, (d, r) in enumerate(outs):
+        e_d, e_r = retr.eager(w.tparams, tt[b], tl[b])
+        assert torch.equal(d, e_d) and torch.equal(r, e_r)

@@ -24,7 +24,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from test_torch_graphs import _StandIn
-from torch_kernel_route import route_to_the_plain_kernel
+from torch_kernel_route import (
+    route_scores_to_the_plain_kernel,
+    route_to_the_plain_kernel,
+)
 from torch_live_world import world
 from vfr_tpu_torch.eval import corpus as tcorpus
 from vfr_tpu_torch.kernels import build
@@ -33,9 +36,11 @@ from vfr_tpu_torch.ops.kernels import (
     coarse_kernel,
     gru_kernel,
     lstm_kernel,
+    score_kernel,
     select_kernel,
     topk_kernel,
 )
+from vfr_tpu_torch.parallel import sharding
 from vfr_tpu_torch.utils import trace
 from vfr_tpu_torch.utils.graphs import BatchGraphs
 
@@ -173,13 +178,15 @@ def test_registry_holds_the_launch_dicts():
     for mod in (lstm_kernel, gru_kernel, select_kernel, coarse_kernel):
         for d in (mod.LAUNCHES, mod.VARIANT_LAUNCHES, mod.DEVICE_LAUNCHES):
             assert any(d is h for h in held)
-    assert any(topk_kernel.LAUNCHES is h for h in held)
-    assert any(topk_kernel.DEVICE_LAUNCHES is h for h in held)
+    for mod in (topk_kernel, score_kernel):
+        assert any(mod.LAUNCHES is h for h in held)
+        assert any(mod.DEVICE_LAUNCHES is h for h in held)
     names = trace.counters()
     assert "lstm_kernel.launches.lstm_pooled" in names
     assert "select_kernel.variant_launches.mma" in names
     assert "topk_kernel.launches.row_topk_filter" in names
     assert "topk_kernel.launches.row_topk_merge" in names
+    assert "score_kernel.launches.score_gemm" in names
 
 
 @pytest.mark.parametrize("n, route", [(100, "select.key64"),
@@ -202,6 +209,28 @@ def test_the_kernel_route_is_counted(monkeypatch):
     assert counted["select.kernel"] == 1
     assert "select.key64" not in counted
     assert "select.order32_tie" not in counted
+
+
+@pytest.mark.parametrize("device, dtype, route", [
+    ("card", torch.float32, "score.kernel"),
+    ("meta", torch.bfloat16, "score.library"),
+    ("cpu", torch.float32, None),
+    ("cpu", torch.bfloat16, None),
+])
+def test_the_score_counts_its_route(monkeypatch, device, dtype, route):
+    """An f32 product on the card counts ``score.kernel`` (here the CPU
+    stands for the card, the kernel's plain version in its place), a bf16
+    one off the CPU ``score.library``; the CPU's plain product counts
+    neither."""
+    a, b = torch.randn(4, 16), torch.randn(30, 16).T    # index rows, as
+    if device == "card":                                # fused_corpus_scores
+        route_scores_to_the_plain_kernel(monkeypatch)
+    elif device == "meta":
+        a, b = a.to("meta"), b.to("meta")
+    sharding.score_mm(a, b, dtype)
+    counted = {k: n for k, n in trace.counters().items()
+               if k.startswith("score.")}
+    assert counted == ({route: 1} if route else {})
 
 
 def _stand_in(graph):

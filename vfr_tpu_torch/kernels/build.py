@@ -64,6 +64,9 @@ SIGNATURES = {
     "row_topk": {
         "vfr_row_topk": [_P] * 4 + [_I] * 5 + [_P],
     },
+    "score_gemm": {
+        "vfr_score_gemm": [_P] * 3 + [_I] * 8 + [_P],
+    },
 }
 
 # host libraries (csrc/host/<name>.cc), built with g++

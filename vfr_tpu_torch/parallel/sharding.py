@@ -1,14 +1,16 @@
 """Query x corpus scoring, on one device and sharded over a mesh.
 
-The score GEMM is a library GEMM: the JAX package leaves this product to
-XLA outside any Pallas kernel.  Its product dtype follows the JAX
-package's rule: the operand's dtype when it is bf16, else the compute
-dtype.  A bf16 product multiplies bf16 operands into f32 sums, as JAX's
+The JAX package leaves the score GEMM to XLA outside any Pallas kernel.
+Its product dtype follows the JAX package's rule: the operand's dtype when
+it is bf16, else the compute dtype.  ``score_route`` says what runs it
+(``score_mm``).  An f32 product on the card is the hand-written 3 x TF32
+kernel (``ops/kernels/score_kernel.py``, ``csrc/score_gemm.cu``), at f32
+accuracy.  A bf16 product multiplies bf16 operands into f32 sums, as JAX's
 ``preferred_element_type=float32``, never a bf16 ``matmul`` output: on
-CUDA tensors one bf16 GEMM with f32 outputs (``aten::mm.dtype``,
-``score_mm``), on the CPU and as its plain version both operands rounded
-and upcast to f32 (``device.mm_f32``).  The products are exact either way;
-only the order of the sums differs.
+CUDA tensors one bf16 GEMM with f32 outputs (``aten::mm.dtype``).  On the
+CPU, and as the plain version of both, both operands are rounded to the
+product dtype and multiplied in f32 (``device.mm_f32``).  The products are
+exact or f32-accurate either way; only the order of the sums differs.
 
 Sharded (``corpus_topk_shards``, its mesh forms ``sharded_corpus_topk
 (_cat)``, and ``sharded_gt_ranks``): the index rows are split over the
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from vfr_tpu_torch.device import mm_f32
+from vfr_tpu_torch.ops.kernels.score_kernel import refusal, score_gemm
 from vfr_tpu_torch.ops.topk import (
     check_topk_method,
     topk_lowest_index,
@@ -97,14 +100,43 @@ def query_sq_const(q: torch.Tensor, weights: Weights) -> torch.Tensor:
     return _weighted_sum(_w(weights), (q * q).sum(-1))
 
 
+def score_route(device_type: str, in_dtype: torch.dtype, a: torch.Tensor,
+                b: torch.Tensor) -> str:
+    """Which product ``score_mm`` runs for ``a [Q, K] @ b [K, N]`` on a
+    device of ``device_type``: "plain" (``device.mm_f32``) on the CPU;
+    "library" (``aten::mm.dtype``) for a bf16 product elsewhere; "kernel"
+    (``score_kernel.score_gemm``) for an f32 product on the card of f32
+    operands whose rows the kernel takes (``score_kernel.refusal``: ``b``
+    the transpose of rows of 8k <= 256 contiguous values, 16-byte aligned).
+    Any other input raises: nothing falls back to another product."""
+    if device_type == "cpu":
+        return "plain"
+    if in_dtype == torch.bfloat16:
+        return "library"
+    if device_type != "cuda" or in_dtype != torch.float32:
+        raise ValueError(f"no score product for {in_dtype} operands on "
+                         f"{device_type}")
+    why = refusal(a, b.T)
+    if why is not None:
+        raise ValueError(why)
+    return "kernel"
+
+
 def score_mm(a: torch.Tensor, b: torch.Tensor, in_dtype: torch.dtype
              ) -> torch.Tensor:
     """``a @ b`` with both operands at ``in_dtype`` and f32 products and
-    sums.  A bf16 product of CUDA tensors is one bf16 GEMM into f32 outputs
-    (``aten::mm.dtype``); a torch without it raises.  CPU tensors, and
-    every other product dtype, take ``device.mm_f32``: the plain version."""
-    if in_dtype != torch.bfloat16 or a.device.type == "cpu":
+    sums, by ``score_route``; each call off the CPU counts its route in
+    the recorder (``score.kernel``, ``score.library``).  An f32 product
+    on the card is the 3 x TF32 kernel (``score_gemm``); a bf16 product
+    of CUDA tensors one bf16 GEMM into f32 outputs (``aten::mm.dtype``),
+    and a torch without it raises.  CPU tensors take ``device.mm_f32``:
+    the plain version."""
+    route = score_route(a.device.type, in_dtype, a, b)
+    if route == "plain":
         return mm_f32(a, b, in_dtype)
+    trace.count("score." + route)
+    if route == "kernel":
+        return score_gemm(a, b.T)
     a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
     try:
         return torch.mm(a, b, out_dtype=torch.float32)
