@@ -39,7 +39,11 @@ Phases, one JSON line each:
               graph replay against the eager batch over five token sets
               (distances bit for bit, rows, launches per replay = per
               eager call), each graphed answer held to the plain
-              distances (``_exact_rows_vs_plain``).
+              distances (``_exact_rows_vs_plain``); the same index under
+              bf16 compute (K1a, the f32 operand rounded in each
+              product), one batch at full length and one at the T = 8
+              bucket, its queries within QUERY_TOL of the plain
+              recurrence's and each answer held to the plain distances.
   fused       `--topk-method fused` on the same index; recall@10 vs exact;
               the graphed batch against the eager one, as flagship's.
   coarse      the coarse-to-fine prefilter (d_coarse 32) built on the same
@@ -94,45 +98,6 @@ Phases, one JSON line each:
               the card from a seeded normal, serving_10k weights: coarse
               build seconds, ms per 256-query batch of the exact full scan
               and of blockmax / centroid at C in {1024, 2048}.
-  bench       `vfr_tpu_torch.bench` in-process at full size (210,000 rows,
-              its every cell), timed at its defaults (adaptive windows, a
-              2-call baseline subtracted, the median of 3): its JSON
-              line printed on a line of its own and held to its contract
-              (under 1,500 bytes, the JAX bench's five top-level keys and
-              metric, every ms finite and positive, value = rows / batch
-              seconds, the method named); K1a, K1b and K2 must launch,
-              persistent / mma only; every serving row on its base batch
-              held to its plain version: queries through K1a (B=128, T=24
-              and T=8) and K1b
-              within 2e-3 of the plain recurrence's, each exact row's
-              top-100 a right answer within what the bf16 rounding of the
-              two query sets can move a distance, the fused row's K2
-              against K2's plain version on the same queries (1e-3); the
-              headline batch under carrier_dtype "auto" (f32 carrier cast
-              back in each product), the same carrier through an f32 GEMM
-              (its route before the product followed the operand) and
-              "bfloat16" (the bf16 operand's GEMM) in turns, the answers
-              held to the bf16 operand's, the operand's bytes, and an f32
-              operand under bf16 compute (one cast a call) beside the bf16
-              one; the bf16 product held to mm_f32 at the per-stream
-              (K=128) and flagship batch (K=256) shapes; the flagship f32
-              row's per-call ms and Python's collections; one
-              serving_10k batch (encode, score, top-k) under torch's sync
-              debug mode "error": any host sync fails it; the long-row
-              select at the bench's shape (Q=128, 210,000 rows, top-100),
-              the flagship's (Q=256, top-10) and a daemon pack's (Q=8,
-              top-10): the sync-free select, its two routes (the tie pass
-              over the 32-bit total order, the 64-bit key) and the select
-              as it stood before (torch.topk of k + 1 and one host sync),
-              all four equal, stream ms by CUDA events in turns and device
-              ms by torch.profiler; one headline batch's graph replay and
-              its eager batch under sync debug "error", the graph's
-              capture seconds and pool bytes; then the serving_10k batch
-              and its top-k stage (the batch less its encode + score
-              prefix) by the bench's timing eager (E) and graphed (G), 6
-              runs a side in turns (E G G E ...; --turns N rounds), a line
-              each, with each side's median, quartile spread and max / min
-              of the headline, the batch and the stage.
   gru         didemo_flagship with rnn_cell="gru" on a 2,000-video corpus:
               mean pool (K3a) and last pool (K3b), each held against the
               kernels' plain versions.
@@ -149,7 +114,11 @@ Phases, one JSON line each:
               the chunks), the step's forward / backward / optimizer / EMA
               split by CUDA events, the device's busy share of a step,
               mining refresh and eval seconds; a step that synchronises
-              with the host fails it.
+              with the host fails it.  Then didemo_fusion at full width
+              (rgb + flow, the margin loss, B=64) on a 256-video fixture,
+              the clip features in the batch and no feature banks: 40
+              steps, every loss finite, and one batch's fused-layer
+              gradients held to the scan twin's as above.
   train_charades `cli train --preset charades_flagship` at full width (B=64,
               InfoNCE tau 0.02, EMA 0.999, 8 mined negatives from epoch
               3) on eval_charades' 2,000-video fixture (one val query per
@@ -183,7 +152,15 @@ Phases, one JSON line each:
               on the npz and on the .vfrf-only directory (equal metric
               dicts); the native reader must serve the store; gather GB/s
               of the native and the memmap reader.
-  live        the live index of serving_10k: 10,000 videos in a 20,000-video
+  live        first a fixed index of serving_10k over 10,000 videos
+              (210,000 rows): one batch of 256 through make_retriever as
+              the benchmark's s10k-batch cell runs it, the replay
+              bit-equal to the eager batch on the library select (the
+              long-row select on real scores), the replay and the eager
+              batch under torch's sync debug mode "error" (any host sync
+              fails it), the bf16 product held to mm_f32 at the per-stream
+              shape (K = 128).  Then the live index of serving_10k: the
+              same 10,000 videos in a 20,000-video
               arena (420,000 rows), 4 appends of 128 videos, a removal of
               500, compact, grow to 25,000, save -> load (bit-exact); after
               each, the live retriever held to a from-scratch index over the
@@ -197,7 +174,9 @@ Phases, one JSON line each:
               build; the bf16-operand score GEMM against its plain version
               (mm_f32) on the arena at packs of 8 and 256 (rows equal
               outside near-ties, distances within 1e-3, ms of both and the
-              bound); a `cli serve --follow
+              bound); the arena upcast to f32 under the same bf16 compute
+              (rounded in each product) giving the bf16 arena's answers
+              bit for bit; a `cli serve --follow
               --live-capacity-videos` subprocess running a script of queries
               and control lines, and a second booted from its `!save`.
   sharded     the corpus index row-sharded over a "corpus" mesh of n
@@ -266,6 +245,8 @@ VIDEOS_TRAIN = 2_000     # train: synthetic didemo_flagship fixture
 TRAIN_STEPS_PER_EPOCH = 20
 TRAIN_EPOCHS = 4         # the preset mines from epoch 3: one refresh
 TRAIN_STEPS_PER_CALL = 5
+FUSION_VIDEOS = 256      # train: didemo_fusion's fixture (rgb + flow, B=64)
+FUSION_STEPS = 40        # its steps, one batch each
 FOLLOW_REQUESTS = 200    # follow: a backlog of 200 requests
 FOLLOW_ISOLATED = 50     # and 50 isolated ones (one in flight)
 FOLLOW_CLI = 20          # requests of the `cli serve --follow` subprocess
@@ -293,10 +274,8 @@ REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX), and 26,250 (under it)
-BENCH_TURNS = 3          # bench: rounds of E G G E (eager, graphed)
-BENCH_Q_TOL = 2e-3       # bench: queries through K1a / K1b vs plain, the
-                         # kernel checks' tolerance (recheck_rows)
-BENCH_STALL_CALLS = 40   # bench: per-call times of the flagship f32 row
+QUERY_TOL = 2e-3         # flagship bf16 compute: queries through K1a vs
+                         # plain, the kernel checks' tolerance (recheck_rows)
 
 KERNEL_SOURCES = {
     "lstm_pooled": ("vfr_tpu_torch/csrc/lstm_recurrence.cu",
@@ -1828,6 +1807,8 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     graphed["eager_ms_per_batch"] = time_batches(
         lambda: r_exact.eager(*batches[1]))
     del r_exact, g_outs
+    bf16_compute, bf16_counts = _bf16_compute_rows(cfg, params, loaded,
+                                                   toks_d[0], lens_d[0], k)
     first = exact[0]["results"]
     rec = dict(phase="flagship", videos=num_videos, rows=loaded.num_rows,
                queries=n_queries, batch=batch, k=k, launches=counts,
@@ -1836,7 +1817,8 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
                plain_ms_per_batch=plain_ms_batch, topk=topk,
                rows_differing_from_plain=mism,
                max_distance_diff_vs_plain=ddiff,
-               bucketed_identical=True, graph=graphed)
+               bucketed_identical=True, graph=graphed,
+               bf16_compute=bf16_compute)
     emit(rec)
     require(all(np.isfinite(r["distance"]) for r in first)
             and len(first) == k, "flagship: malformed results")
@@ -1849,6 +1831,11 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     require(all(_right_answer(c) for c in graphed["vs_plain"]),
             f"flagship: a graphed batch is not a right answer for the "
             f"plain distances: {graphed['vs_plain']}")
+    require_persistent(bf16_counts, "lstm", "flagship[bf16 compute]")
+    require(all(_right_answer(c) and c["max_query_diff_vs_plain"] <= QUERY_TOL
+                for c in bf16_compute.values()),
+            f"flagship[bf16 compute]: not a right answer for the plain "
+            f"path: {bf16_compute}")
     results["flagship"] = rec
 
     # --topk-method fused on the same index
@@ -1903,6 +1890,39 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
                 exact_rows=rows_k, exact_d=d_k, k=k, batch=batch, T=T)
 
 
+def _bf16_compute_rows(cfg, params, index, toks, lens, k):
+    """The flagship index under bf16 compute (K1a; the f32 operand
+    rounded to bf16 in each product), one graphed batch at full length
+    and one at the T = 8 length bucket: the queries through K1a against
+    the plain recurrence's (max |diff|) and the answer held to the plain
+    path's distances (``_exact_rows_vs_plain``).  Returns the records by
+    length and the launch counts of the two batches and their
+    embeddings."""
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import _embed_query_streams, make_retriever
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import prepare_query_params
+
+    model = build_model(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16")))
+    q_params = prepare_query_params(params, model)
+    retrieve = make_retriever(model, index, k, "exact")
+    out = {}
+    reset_counts()
+    with torch.no_grad():
+        for T in (toks.shape[1], 8):
+            t, n = toks[:, :T].contiguous(), torch.clamp(lens, max=T)
+            d, r = retrieve(q_params, t, n)
+            q_k, q_p = (_embed_query_streams(q_params, model, t, n,
+                                             rnn_kernel=kern)
+                        for kern in (None, "plain"))
+            out[f"T{T}"] = dict(
+                max_query_diff_vs_plain=float((q_k - q_p).abs().max()),
+                **_exact_rows_vs_plain(model, index, q_k, q_p, d, r))
+    return out, read_counts()
+
+
 def _topk_cost(model, index, params, toks, lens, k):
     """ms of the exact path's top-k on one batch's score matrix [Q, N]:
     the tie-ordered ``top_k_select`` against a bare ``torch.topk`` (which
@@ -1917,7 +1937,7 @@ def _topk_cost(model, index, params, toks, lens, k):
     from vfr_tpu_torch.ops.topk import top_k_select
     from vfr_tpu_torch.parallel.sharding import fused_corpus_scores
 
-    m_cat, msq = prep_score_operands(index, model.compute_dtype)
+    m_cat, msq = prep_score_operands(index)
     with torch.no_grad():
         qs = _embed_query_streams(params, model, toks, lens)
         scores = fused_corpus_scores(qs, m_cat, msq, index.weights,
@@ -3180,6 +3200,13 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     require(counts["lstm_hs"] > 0, "serving_10k: K1b (lstm_hs) never "
             "launched on the serving path")
     require_persistent(counts, "lstm", "serving_10k")
+    require_row_topk(counts, None, "serving_10k")
+    # bf16 operands: the library's bf16 GEMM, never the f32 kernel
+    require(counts["score_gemm"] == 0 and not counts.get("score.kernel")
+            and counts.get("score.library", 0) > 0,
+            f"serving_10k: the bf16 score products took "
+            f"{ {n: c for n, c in counts.items() if n[:6] == 'score.'} }, "
+            f"{counts['score_gemm']} f32 kernel launches")
     toks, lens = encode(vocab, queries, batch, T)
     toks_d = torch.from_numpy(toks).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
@@ -3223,17 +3250,6 @@ def phase_serving_10k(results, seed: int, num_videos: int):
             f"serving_10k: kernel vs plain: {mism} rows differ, "
             f"max |d diff| {ddiff}")
     results["serving_10k"] = rec
-
-
-def _ms_values(tree, in_ms: bool = False, path: str = ""):
-    """(path, value) of every time in ms of the bench's nested detail: a
-    key naming ms, or any key under one (``stages_ms``)."""
-    for key, val in tree.items():
-        where = f"{path}.{key}"
-        if isinstance(val, dict):
-            yield from _ms_values(val, "_ms" in key, where)
-        elif in_ms or "_ms" in key:
-            yield where, val
 
 
 def _exact_rows_vs_plain(model, index, q_k, q_p, d_k, r_k):
@@ -3302,441 +3318,6 @@ def _right_answer(rec) -> bool:
     return (rec["rows_out_of_band"] == rec["rows_missing"]
             == rec["duplicate_rows"] == rec["unsorted"] == 0
             and rec["max_distance_excess"] <= 0)
-
-
-def _carrier_routes(s):
-    """The ``serving_10k`` batch of the bench (bf16 index, bf16 compute)
-    under ``carrier_dtype="auto"`` (an f32 carrier, rounded back to bf16
-    in every product, one bf16 GEMM into f32 sums) and ``"bfloat16"`` (the
-    stored bf16 operand, the same GEMM), and the "auto" carrier through
-    the route it took before the product followed the operand
-    (``f32_gemm``: the queries rounded to bf16, an f32 GEMM on the carrier
-    as it is); ms by CUDA events in turns (auto, f32_gemm, bf16, bf16,
-    f32_gemm, auto, twice), the operand's bytes from its tensor, and the
-    answers held to the bf16 operand's (rows equal outside near-ties,
-    distances within 1e-3).  Then the one case that casts on every call,
-    an f32 operand under bf16 compute (an f32 live arena of a
-    bf16-compute model), beside the bf16 operand through one retriever
-    (the answers equal) and the cast alone."""
-    import contextlib
-    from unittest import mock
-
-    import torch
-
-    from vfr_tpu_torch import bench
-    from vfr_tpu_torch.eval.corpus import (
-        make_operand_retriever,
-        make_score_topk,
-        prep_score_operands,
-    )
-    from vfr_tpu_torch.parallel import sharding
-    from vfr_tpu_torch.parallel.sharding import query_cat_scaled
-
-    def f32_gemm_scores(q, m_cat, msq_fused, weights, compute_dtype):
-        qc = query_cat_scaled(q, weights).to(torch.bfloat16).float()
-        return torch.matmul(qc, m_cat.T) - msq_fused[None, :]
-
-    def route(c):
-        return (mock.patch.object(sharding, "fused_corpus_scores",
-                                  f32_gemm_scores)
-                if c == "f32_gemm" else contextlib.nullcontext())
-
-    model, index, method = s.model, s.index, s.cfg.eval.topk_method
-    args = (s.q_params, s.tokens, s.lengths)
-    # eager batches: the "f32_gemm" route is a patch, which a replay of
-    # the "auto" graph would not see
-    retr = {c: make_score_topk(model, index, bench.K, method,
-                               carrier_dtype=c).eager
-            for c in ("auto", "bfloat16")}
-    retr["f32_gemm"] = retr["auto"]
-    ms = {c: [] for c in retr}
-    outs = {}
-    for c in ("auto", "f32_gemm", "bfloat16", "bfloat16", "f32_gemm",
-              "auto") * 2:
-        with route(c):
-            ms[c].append(cuda_ms(lambda: retr[c](*args)))
-            outs[c] = [t.cpu().numpy() for t in retr[c](*args)]
-    vs_bf16 = {c: compare_to_plain(*outs["bfloat16"], *outs[c])
-               for c in ("auto", "f32_gemm")}
-    operand_bytes = {}
-    for c in ("auto", "bfloat16"):
-        m_cat = prep_score_operands(index, model.compute_dtype, c)[0]
-        operand_bytes[c] = m_cat.numel() * m_cat.element_size()
-    del retr, m_cat
-    m16, msq = prep_score_operands(index, model.compute_dtype, "bfloat16")
-    m32 = m16.float()
-    op = make_operand_retriever(model, index.weights, bench.K, method)
-    cast = dict(
-        f32_operand_ms=cuda_ms(lambda: op(m32, msq, *args)),
-        bf16_operand_ms=cuda_ms(lambda: op(m16, msq, *args)),
-        cast_alone_ms=cuda_ms(lambda: m32.to(torch.bfloat16)))
-    same = all(torch.equal(a, b) for a, b in zip(op(m32, msq, *args),
-                                                 op(m16, msq, *args)))
-    rec = dict(shape=[int(s.tokens.shape[0]), *m16.shape],
-               auto_ms=ms["auto"], auto_f32_gemm_ms=ms["f32_gemm"],
-               bfloat16_ms=ms["bfloat16"], operand_bytes=operand_bytes,
-               vs_bfloat16={c: dict(rows_differing=m, max_distance_diff=d)
-                            for c, (m, d) in vs_bf16.items()},
-               f32_operand_under_bf16_compute=dict(cast, answers_equal=same))
-    require(all(m == 0 and d <= 1e-3 for m, d in vs_bf16.values()) and same
-            and operand_bytes["bfloat16"] * 2 == operand_bytes["auto"],
-            f"bench: the carriers disagree: {rec}")
-    return rec
-
-
-def _per_call_ms(fn, calls: int):
-    """(ms of each of ``calls`` back-to-back calls ``fn(i)`` by CUDA events
-    recorded between them, no sync among them; Python's collections of
-    each generation meanwhile)."""
-    import gc
-
-    import torch
-
-    before = [g["collections"] for g in gc.get_stats()]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
-    ev[0].record()
-    for i in range(calls):
-        fn(i)
-        ev[i + 1].record()
-    ev[-1].synchronize()
-    return ([a.elapsed_time(b) for a, b in zip(ev, ev[1:])],
-            [g["collections"] - b for g, b in zip(gc.get_stats(), before)])
-
-
-def _spread(values):
-    """median, quartile spread (Q3 - Q1, numpy's linear percentiles) and
-    max / min of ``values``."""
-    q1, med, q3 = np.percentile(values, [25, 50, 75])
-    return dict(median=float(med), quartile_spread=float(q3 - q1),
-                max_over_min=float(max(values) / min(values)))
-
-
-def _parent_select(x, k: int):
-    """The long-row select as it stood before it went sync-free, rebuilt
-    from the port's helpers: ``torch.topk`` of k + 1 on the floats, three
-    tie flags (the k-th value recurs past the k-th place, a value recurs
-    inside the k, a NaN or a zero stands among the k + 1) read on the host
-    in one ``tolist``, then the tie pass only where a flag asks for it
-    (the select redone on ``ordered_bits`` for a NaN or a zero).  Rows of
-    at most ``KEY_MAX`` take the 64-bit key, as they still do."""
-    import torch
-
-    from vfr_tpu_torch.ops.topk import (
-        KEY_MAX,
-        _key_topk,
-        _lowest_tied,
-        ordered_bits,
-    )
-
-    N = x.shape[-1]
-    k = min(k, N)
-    if N <= KEY_MAX or k == 0:
-        return _key_topk(x, k)
-
-    def queued(v):
-        vals, idx = torch.topk(v, min(k + 1, N), dim=-1)
-        kth = vals[..., k - 1 : k]
-        left = ((vals[..., k:] == kth).any() if N > k
-                else torch.zeros((), dtype=torch.bool, device=v.device))
-        special = ((vals != vals) | (vals == 0)).any()
-        vals, idx = vals[..., :k], idx[..., :k]
-        inside = (vals[..., 1:] == vals[..., :-1]).any()
-        return kth, vals, idx, torch.stack([left, inside, special])
-
-    kth, vals, idx, flags = queued(x)
-    left_out, inside, special = flags.tolist()
-    v = x
-    if special:
-        v = ordered_bits(x)
-        kth, vals, idx, _ = queued(v)
-        left_out = inside = True
-    if left_out:
-        idx = _lowest_tied(v, kth, (vals == kth).sum(
-            -1, keepdim=True, dtype=torch.int32), idx)
-    if left_out or inside:
-        idx, _ = torch.sort(idx, dim=-1)
-        _, order = torch.sort(torch.gather(v, -1, idx), dim=-1,
-                              descending=True, stable=True)
-        idx = torch.gather(idx, -1, order)
-        vals = torch.gather(x, -1, idx)
-    return vals, idx
-
-
-def _select_candidates(scores, k: int, what: str):
-    """The long-row select on ``scores`` [Q, N]: the port's sync-free
-    ``topk_lowest_index`` (the kernel, ``csrc/row_topk.cu``, for these
-    contiguous f32 rows on the card), the tie pass over the 32-bit total
-    order (``_tie_topk``), the 64-bit key (``_key_topk``) and the earlier
-    select (``_parent_select``), required equal; stream ms of each (``cuda_ms``)
-    in turns P S T K K T S P, and device ms of one call by torch.profiler
-    (``_device_profile``)."""
-    import torch
-
-    from vfr_tpu_torch.ops.topk import _key_topk, _tie_topk, topk_lowest_index
-
-    fns = {"sync_free": lambda: topk_lowest_index(scores, k),
-           "tie_pass": lambda: _tie_topk(scores, k),
-           "int64_key": lambda: _key_topk(scores, k),
-           "parent_synced": lambda: _parent_select(scores, k)}
-    outs = {n: fn() for n, fn in fns.items()}
-    same = all(torch.equal(a, b) for o in outs.values()
-               for a, b in zip(o, outs["sync_free"]))
-    require(same, f"bench: the selects disagree at {what}")
-    stream = {n: [] for n in fns}
-    order = ["parent_synced", "sync_free", "tie_pass", "int64_key"]
-    for n in order + order[::-1]:
-        stream[n].append(cuda_ms(fns[n]))
-    device = {n: _device_profile(f"select_{what}_{n}", fn)[
-        "device_ms_per_iter"] for n, fn in fns.items()}
-    return dict(shape=list(scores.shape), k=k, stream_ms=stream,
-                device_ms=device)
-
-
-def _sync_free_batch(s):
-    """One ``serving_10k`` batch (encode, score, top-k over its 210,000
-    rows) through the bench's retriever under torch's sync debug mode
-    "error", after one warm batch that captures its graph: the replay and
-    the eager batch, each True or the error's first line; and the
-    retriever's capture seconds and pool bytes."""
-    import torch
-
-    from vfr_tpu_torch import bench
-    from vfr_tpu_torch.eval.corpus import make_score_topk
-
-    retr = make_score_topk(s.model, s.index, bench.K,
-                           topk_method=s.cfg.eval.topk_method,
-                           approx_recall=s.cfg.eval.approx_recall)
-    out = {}
-    with torch.no_grad():
-        retr(s.q_params, s.tokens, s.lengths)
-        toks = bench.perturb(1, s.tokens)
-        for name, fn in (("replay", retr), ("eager", retr.eager)):
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                fn(s.q_params, toks, s.lengths)
-                out[name] = True
-            except RuntimeError as e:
-                out[name] = str(e).splitlines()[0]
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-    return out, dict(capture_s=capture_seconds(retr.graphs),
-                     pool_bytes=retr.graphs.pool_bytes())
-
-
-def _eg_turns(s, rounds: int):
-    """The ``serving_10k`` batch and its top-k stage (the batch less its
-    encode + score prefix, ``bench._serving_ms``) by the bench's timing at
-    its defaults, eager (E: every ``BatchGraphs`` on its eager function)
-    and graphed (G: one replay a call, the bench's own path), ``rounds``
-    rounds of E G G E; a line a run (headline value, batch, prefix and
-    top-k ms, the headline window's calls) and each side's spread."""
-    import contextlib
-
-    import torch
-
-    from vfr_tpu_torch import bench
-    from vfr_tpu_torch.utils.timing import device_seconds_and_window
-
-    runs = {"eager": [], "graphed": []}
-    t0 = time.perf_counter()
-    for turn in "EGGE" * rounds:
-        name = "eager" if turn == "E" else "graphed"
-        windows = []
-
-        def time_fn(body, x):
-            with torch.no_grad():
-                sec, n = device_seconds_and_window(body, x)
-            windows.append(n)
-            return sec
-
-        with eager_packs() if turn == "E" else contextlib.nullcontext():
-            sec, st = bench._serving_ms(s, time_fn, prefix_only=True)
-        run = dict(value=round(s.index.num_rows / sec, 1),
-                   batch_ms=round(1e3 * sec, 6),
-                   prefix_ms=round(1e3 * st["prefix"], 4),
-                   topk_stage_ms=round(1e3 * (sec - st["prefix"]), 4),
-                   headline_n=windows[0])
-        emit({"phase": "bench_turn", "dispatch": name, **run})
-        runs[name].append(run)
-    return dict(order="EGGE" * rounds, runs=runs,
-                value={k: _spread([r["value"] for r in v])
-                       for k, v in runs.items()},
-                batch_ms={k: _spread([r["batch_ms"] for r in v])
-                          for k, v in runs.items()},
-                topk_stage_ms={k: _spread([r["topk_stage_ms"] for r in v])
-                               for k, v in runs.items()},
-                seconds=time.perf_counter() - t0)
-
-
-def phase_bench(results, rounds: int = BENCH_TURNS):
-    """``vfr_tpu_torch.bench`` in-process at full size at its defaults: its
-    line printed, parsed and checked (under 1,500 bytes, the JAX bench's
-    keys and metric, every ms finite and positive, value = N / batch
-    seconds, the timing named); K1a, K1b and K2 launched, on their
-    persistent / mma variants.  Then every serving row of the bench on its
-    base batch, against its plain version: the queries through K1a / K1b
-    within BENCH_Q_TOL of the plain recurrence's; each exact row's answer
-    held to the plain path's distances (``_exact_rows_vs_plain``); the
-    fused row with K2 against K2's plain version on the same queries (rows
-    equal outside near-ties, distances within 1e-3).  The long-row select's
-    candidates on the headline batch's scores, on a flagship batch of 256
-    and on a pack of 8 (``_select_candidates``), the carriers' routes
-    (``_carrier_routes``), the bf16 product against its plain version at
-    the per-stream and the flagship batch's shapes (``_product_vs_plain``)
-    and the flagship f32 row's per-call times after the bench
-    (``_per_call_ms``); one headline batch under sync debug "error", its
-    graph's replay and the eager batch (``_sync_free_batch``); then the
-    headline eager against graphed in ``rounds`` rounds of E G G E
-    (``_eg_turns``)."""
-    import math
-    from types import SimpleNamespace
-    from unittest import mock
-
-    import torch
-
-    from vfr_tpu_torch import bench
-    from vfr_tpu_torch.eval import corpus as corpus_mod
-    from vfr_tpu_torch.eval.corpus import (
-        _embed_query_streams,
-        make_retriever,
-        prep_score_operands,
-    )
-    from vfr_tpu_torch.ops.kernels.select_kernel import distance_select_plain
-    from vfr_tpu_torch.parallel.sharding import (
-        fuse_index_cat,
-        fused_corpus_scores,
-        query_cat_scaled,
-        query_sq_const,
-    )
-
-    t0 = time.perf_counter()
-    reset_counts()
-    line, s = bench.measure("cuda")
-    counts = read_counts()
-    measure_s = time.perf_counter() - t0
-    text = json.dumps(line)
-    print(text, flush=True)
-    back = json.loads(text)
-    detail = back["detail"]
-    require(len(text.encode()) < 1500,
-            f"bench: the line has {len(text.encode())} bytes, not < 1,500")
-    require(set(back) == {"metric", "value", "unit", "vs_baseline",
-                          "detail"} and back["metric"] == bench.METRIC,
-            f"bench: top-level keys {sorted(back)}, metric {back['metric']}")
-    bad = [(k, v) for k, v in _ms_values(detail)
-           if not (isinstance(v, (int, float)) and math.isfinite(v)
-                   and v > 0)]
-    require(not bad, f"bench: times not finite and positive: {bad}")
-    rate = detail["index_rows"] / (detail["batch_latency_ms"] / 1e3)
-    require(abs(back["value"] - rate) <= 1e-5 * rate + 0.1,
-            f"bench: value {back['value']} is not N / batch seconds {rate}")
-    require(detail["timing"].startswith(
-        "cuda events, a serving call one graph replay: median of 3, "
-        "adaptive n (min_signal 0.25 s), base 2 subtracted; headline n="),
-        f"bench: the timing is not the adaptive one: {detail['timing']}")
-    for name in ("lstm_pooled", "lstm_hs", "distance_select"):
-        require(counts[name] > 0, f"bench: {name} never launched")
-    require_persistent(counts, "lstm", "bench")
-    require_mma(counts, "select", "bench")
-    require_row_topk(counts, None, "bench")
-    # the bench's line is the serving_10k batch: bf16 products, the
-    # library's route, never the f32 kernel
-    require(counts["score_gemm"] == 0 and not counts.get("score.kernel")
-            and counts.get("score.library", 0) > 0,
-            f"bench: the bf16 score products took "
-            f"{ {k: c for k, c in counts.items() if k[:6] == 'score.'} }, "
-            f"{counts['score_gemm']} f32 kernel launches")
-
-    head = SimpleNamespace(
-        name="serving_10k", model=s.model, index=s.index,
-        q_params=s.q_params, method=s.cfg.eval.topk_method, tokens=s.tokens,
-        lengths=s.lengths)
-    fl = bench.flagship_rows(s, s.tokens.device)
-    checks, failed = {}, []
-    with torch.no_grad():
-        for r in [head, *fl]:
-            q_k, q_p = (_embed_query_streams(r.q_params, r.model, r.tokens,
-                                             r.lengths, rnn_kernel=kern)
-                        for kern in (None, "plain"))
-            q_err = float((q_k - q_p).abs().max())
-            retr = make_retriever(r.model, r.index, bench.K, r.method)
-            d_k, r_k = retr(r.q_params, r.tokens, r.lengths)
-            if r.method == "fused":
-                # eager: the patch reaches the launch, not a replay
-                with mock.patch.object(corpus_mod, "distance_select",
-                                       distance_select_plain):
-                    d_p, r_p = retr.eager(r.q_params, r.tokens, r.lengths)
-                mism, ddiff = compare_to_plain(
-                    *(t.cpu().numpy() for t in (d_k, r_k, d_p, r_p)))
-                rec = dict(rows_differing_from_plain_k2=mism,
-                           max_distance_diff_vs_plain_k2=ddiff)
-                ok = mism == 0 and ddiff <= 1e-3
-            else:
-                rec = _exact_rows_vs_plain(r.model, r.index, q_k, q_p, d_k,
-                                           r_k)
-                ok = _right_answer(rec)
-            checks[r.name] = dict(max_query_diff_vs_plain=q_err, **rec)
-            if not (ok and q_err <= BENCH_Q_TOL):
-                failed.append(r.name)
-        # the select layer alone on the headline batch's scores, on a
-        # flagship batch of 256 (two of the f32 row's batches), top-10,
-        # and on a daemon's pack of 8 of those queries
-        m_cat, msq = prep_score_operands(s.index, s.model.compute_dtype)
-        q = _embed_query_streams(s.q_params, s.model, s.tokens, s.lengths)
-        scores = fused_corpus_scores(q, m_cat, msq, s.index.weights,
-                                     s.model.compute_dtype)
-        select = dict(bench=_select_candidates(scores, bench.K, "bench"))
-        f32 = fl[0]
-        m_cat, msq = prep_score_operands(f32.index, f32.model.compute_dtype)
-        q = _embed_query_streams(
-            f32.q_params, f32.model,
-            torch.cat([f32.tokens, bench.perturb(1, f32.tokens)]),
-            torch.cat([f32.lengths, f32.lengths]))
-        scores = fused_corpus_scores(q, m_cat, msq, f32.index.weights,
-                                     f32.model.compute_dtype)
-        select["flagship"] = _select_candidates(scores, 10, "flagship")
-        select["pack"] = _select_candidates(scores[:8].contiguous(), 10,
-                                            "pack")
-        del scores, m_cat, msq
-        carrier = _carrier_routes(s)
-        # the bf16 product at the eval ranker's per-stream shape (K = 128,
-        # fused_corpus_distances) and at the flagship batch's (K = 256)
-        bf = fl[1]
-        q = _embed_query_streams(bf.q_params, bf.model, bf.tokens,
-                                 bf.lengths)
-        w = bf.index.weights
-        m_cat, msq = fuse_index_cat(bf.index.m, bf.index.m_sq, w)
-        products = dict(
-            per_stream=_product_vs_plain(
-                2.0 * q[0], bf.index.m[0], bf.index.m_sq[0],
-                (q[0] * q[0]).sum(-1)[:, None], bench.K, "per-stream"),
-            flagship_batch=_product_vs_plain(
-                query_cat_scaled(q, w), m_cat, msq,
-                query_sq_const(q, w)[:, None], bench.K, "flagship batch"))
-        del m_cat, msq
-        retr = make_retriever(f32.model, f32.index, bench.K, f32.method)
-        per_call, collections = _per_call_ms(
-            lambda i: retr(f32.q_params, bench.perturb(i, f32.tokens),
-                           f32.lengths), BENCH_STALL_CALLS)
-    sync_free, head_graph = _sync_free_batch(s)
-    require(sync_free == {"replay": True, "eager": True},
-            f"bench: a serving_10k batch synchronised with the host: "
-            f"{sync_free}")
-    turns = _eg_turns(s, rounds)
-    rec = dict(phase="bench", timing=detail["timing"],
-               measure_seconds=measure_s, eager_graphed_turns=turns,
-               headline_graph=head_graph,
-               line_bytes=len(text.encode()), launches=counts,
-               query_tol=BENCH_Q_TOL, vs_plain=checks, select=select,
-               batch_sync_free=sync_free,
-               carrier=carrier, bf16_product=products,
-               f32_row_per_call_ms=[round(t, 3) for t in per_call],
-               f32_row_gc_collections=collections)
-    emit(rec)
-    require(not failed, f"bench: {failed} disagree with their plain "
-            f"versions: {[checks[n] for n in failed]}")
-    results["bench"] = rec
 
 
 # ----------------------------------------------------------------- train
@@ -4021,6 +3602,80 @@ def _one_step_checks(model, tcfg, opt, params, opt_state, ema, batch,
     return sync_free
 
 
+def _fusion_steps(seed: int, workdir: str):
+    """didemo_fusion at full width (F=2048, rgb + flow, TEF, the margin
+    loss) at its B=64 on a synthetic FUSION_VIDEOS-video fixture, the clip
+    features carried in the batch (no feature banks): FUSION_STEPS steps
+    of ``make_train_step``, one batch each.  Fails on a non-finite loss,
+    on any recurrence launched stepwise, or on fused-layer gradients more
+    than GRAD_TOL of max |grad| per leaf from autograd through the scan
+    twin on the first batch.  The phase's record of it."""
+    import torch
+
+    from vfr_tpu_torch.config import get_preset
+    from vfr_tpu_torch.data.loaders import load_datasets
+    from vfr_tpu_torch.models.build import build_model
+    from vfr_tpu_torch.models.mcn import init_model_params
+    from vfr_tpu_torch.train.optim import make_optimizer
+    from vfr_tpu_torch.train.step import _grads, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_preset("didemo_fusion")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, data_dir=os.path.join(workdir, "fusion_nodata"),
+        synthetic_num_videos=FUSION_VIDEOS,
+        synthetic_num_queries=4 * FUSION_VIDEOS, synthetic_seed=seed))
+    tcfg = cfg.train
+    require(tcfg.ema_decay == 0 and tcfg.loss_type == "triplet",
+            "train[didemo_fusion]: the preset keeps an EMA or left the "
+            "margin loss")
+    bundle = load_datasets(cfg.data)
+    model = build_model(cfg)
+    params = init_model_params(torch.Generator().manual_seed(seed + 5),
+                               model, bundle.glove, cfg.data.feature_dim,
+                               device=dev)
+    batches = [{k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in b.items()}
+               for b in bundle.train.train_batches(
+                   tcfg.batch_size, FUSION_STEPS, seed=seed,
+                   with_features=True)]
+    require(tuple(batches[0]["rgb"].shape[::2]) == (tcfg.batch_size, 2048)
+            and "flow" in batches[0],
+            f"train[didemo_fusion]: batch rgb "
+            f"{tuple(batches[0]['rgb'].shape)}, keys {sorted(batches[0])}")
+    scan_model = model._replace(cfg=dataclasses.replace(
+        model.cfg, train_rnn_impl="scan"))
+    _, g_fused = _grads(params, model, tcfg, batches[0], None)
+    _, g_scan = _grads(params, scan_model, tcfg, batches[0], None)
+    errs = _leaf_rel_errors(g_fused, g_scan)
+    worst = max(errs.values())
+    opt = make_optimizer(tcfg, FUSION_STEPS)
+    step = make_train_step(model, tcfg, opt)
+    opt_state = opt.init(params)
+    losses = []
+    reset_counts()
+    for b in batches:
+        params, opt_state, aux = step(params, opt_state, b)
+        losses.append(aux["loss"].detach())
+    losses = torch.stack(losses).float().cpu().numpy()
+    counts = read_counts()
+    rec = dict(preset="didemo_fusion", videos=FUSION_VIDEOS,
+               batch=tcfg.batch_size, steps=len(losses),
+               first_loss=float(losses[0]), last_loss=float(losses[-1]),
+               launches=counts,
+               grad_check=dict(tol=GRAD_TOL, worst=worst, per_leaf=errs))
+    require(bool(np.isfinite(losses).all()), f"train[didemo_fusion]: a loss "
+            f"went non-finite over {len(losses)} steps: {losses.tolist()}")
+    for cell in ("lstm", "gru"):
+        require(counts["variants"][cell]["stepwise"] == 0,
+                f"train[didemo_fusion]: the {cell} recurrence ran "
+                f"{counts['variants'][cell]}")
+    require(worst <= GRAD_TOL, f"train[didemo_fusion]: fused BPTT gradients "
+            f"differ from autograd through the scan twin by {worst} of max "
+            f"|grad| (> {GRAD_TOL})")
+    return rec
+
+
 def phase_train(results, seed: int, workdir: str):
     """``cli train`` of didemo_flagship at full width on a synthetic
     2,000-video fixture (4 epochs of 20 steps, B=128; mining from the
@@ -4083,6 +3738,7 @@ def phase_train(results, seed: int, workdir: str):
     runs, diffs = _corpus_on_checkpoint(
         common, lambda kern: _train_preset(nodata, seed, kern), load,
         bundle.val.num_queries, "train")
+    fusion = _fusion_steps(seed, workdir)
     chunk_ms = [r["step_ms"] for r in tr]
     rec = dict(phase="train", preset="didemo_flagship",
                videos=VIDEOS_TRAIN, train_queries=ds.num_queries,
@@ -4097,7 +3753,8 @@ def phase_train(results, seed: int, workdir: str):
                eval_s=eval_s, final_metrics=final,
                final_loss=tr[-1]["loss"],
                grad_check=dict(tol=GRAD_TOL, worst=worst, per_leaf=errs),
-               max_metric_diff_vs_plain=diffs, runs=runs.runs)
+               max_metric_diff_vs_plain=diffs, runs=runs.runs,
+               fusion=fusion)
     emit(rec)
     results["train"] = rec
 
@@ -5002,8 +4659,61 @@ def _add_counts(total, counts):
                 f[var] = f.get(var, 0) + c
 
 
+def _fixed_batch_checks(model, index, q_params, toks, lens, k: int,
+                        method: str):
+    """One batch (``toks``, ``lens`` on the card) through ``make_retriever``
+    over the fixed ``index``, as the benchmark's batch cells run it: the
+    replay bit-equal to the eager batch on the library select (the
+    long-row select on real scores); the replay and the eager batch under
+    torch's sync debug mode "error" (any host sync fails it); the bf16
+    product held to mm_f32 at the per-stream shape (K = 128,
+    ``fused_corpus_distances``).  Fails or returns the record."""
+    from unittest import mock
+
+    import torch
+
+    from vfr_tpu_torch.eval.corpus import _embed_query_streams, make_retriever
+    from vfr_tpu_torch.ops import topk
+
+    body = make_retriever(model, index, k, topk_method=method)
+    args = (q_params, toks, lens)
+    body(*args)                 # the capture
+    got = body(*args)
+    real = topk.select_route
+    # eager: the patch reaches the route, not a replay
+    with mock.patch.object(topk, "select_route",
+                           lambda device_type, *a: real("none", *a)):
+        ref = body.eager(*args)
+    rec = dict(rows=index.num_rows, queries=int(toks.shape[0]), k=k,
+               bit_equal_to_library_select=_same_bits(got, ref))
+    sync_free = {}
+    with torch.no_grad():
+        for name, fn in (("replay", body), ("eager", body.eager)):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*args)
+                sync_free[name] = True
+            except RuntimeError as e:
+                sync_free[name] = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        qs = _embed_query_streams(q_params, model, toks, lens)
+        rec["bf16_product_per_stream"] = _product_vs_plain(
+            2.0 * qs[0], index.m[0], index.m_sq[0],
+            (qs[0] * qs[0]).sum(-1)[:, None], k, "per-stream")
+    rec["batch_sync_free"] = sync_free
+    require(rec["bit_equal_to_library_select"], "live[fixed index]: the "
+            "replayed answers differ from the library select's")
+    require(sync_free == {"replay": True, "eager": True},
+            f"live[fixed index]: a batch synchronised with the host: "
+            f"{sync_free}")
+    return rec
+
+
 def phase_live(results, seed: int, workdir: str, shards: int = 0):
-    """The live index of preset ``serving_10k`` (bf16 index, last pool,
+    """``_fixed_batch_checks`` on a fixed index of the corpus below; then
+    the live index of preset ``serving_10k`` (bf16 index, last pool,
     top-100): 10,000 videos in a 20,000-video arena (420,000 rows), 4
     appends of 128 videos, a removal of 500, compact, grow to 25,000,
     save -> load; after each, the live retriever at packs of 8 and 256
@@ -5063,6 +4773,11 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
     toks, lens = encode(vocab, make_queries(vocab, 256, T, seed + 13), 256, T)
     toks = torch.from_numpy(toks[0]).to(dev)
     lens = torch.from_numpy(lens[0]).to(dev)
+    fixed = build_moment_index(params, model, ds, index_dtype=idx_dtype)
+    fixed_batch = _fixed_batch_checks(model, fixed, q_params, toks, lens, k,
+                                      method)
+    del fixed
+    torch.cuda.empty_cache()
     feats = {v: (ds.rgb_feats[i], ds.flow_feats[i])
              for i, v in enumerate(ds.video_ids)}
     for ids, src in ((new_ids, dds), (add_ids, fds)):
@@ -5393,7 +5108,8 @@ def phase_live(results, seed: int, workdir: str, shards: int = 0):
     cli = _live_cli(workdir)
     rec = dict(phase="live", preset="serving_10k", videos=LIVE_VIDEOS,
                capacity_videos=LIVE_CAPACITY, grown_to=LIVE_GROW, k=k,
-               setup_s=setup_s, arena_build_s=build_s,
+               setup_s=setup_s, fixed_batch=fixed_batch,
+               arena_build_s=build_s,
                append_s=appends, append_first_s=appends[0],
                append_steady_s=float(np.median(appends[1:])),
                **timings, arena_in_place=in_place, reload_bit_exact=True,
@@ -5474,10 +5190,16 @@ def _product_vs_plain(qc, m, msq, sq, k: int, name: str):
 def _bf16_product_check(model, q_params, m_cat, msq, weights, toks, lens,
                         k: int):
     """``_product_vs_plain`` on the live arena's bf16 operand at packs of
-    8 and 256 queries."""
+    8 and 256 queries; then the arena upcast to f32 under the same bf16
+    compute (rounded back to bf16 in each product, as an f32 arena of a
+    bf16-compute model is) through one operand retriever beside the bf16
+    arena: the answers equal, bit for bit."""
     import torch
 
-    from vfr_tpu_torch.eval.corpus import _embed_query_streams
+    from vfr_tpu_torch.eval.corpus import (
+        _embed_query_streams,
+        make_operand_retriever,
+    )
     from vfr_tpu_torch.parallel.sharding import (
         query_cat_scaled,
         query_sq_const,
@@ -5490,6 +5212,13 @@ def _bf16_product_check(model, q_params, m_cat, msq, weights, toks, lens,
             out[f"q{Q}"] = _product_vs_plain(
                 query_cat_scaled(qs, weights), m_cat, msq,
                 query_sq_const(qs, weights)[:, None], k, f"live Q={Q}")
+    op = make_operand_retriever(model, weights, k)
+    args = (q_params, toks, lens)
+    out["f32_operand_answers_equal"] = all(
+        torch.equal(a, b) for a, b in zip(op(m_cat.float(), msq, *args),
+                                          op(m_cat, msq, *args)))
+    require(out["f32_operand_answers_equal"], "live: the arena upcast to "
+            "f32 under bf16 compute answers otherwise than the bf16 arena")
     return out
 
 
@@ -5687,8 +5416,6 @@ def kernels_line(results):
                                     + tc.get("loop_launches", {}).get(name,
                                                                       0)),
                     devices=results.get("devices", {}).get(
-                        "launches", {}).get(name, 0),
-                    bench=results.get("bench", {}).get(
                         "launches", {}).get(name, 0))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5776,8 +5503,7 @@ def kernels_line(results):
 
 ALL_PHASES = ("kernels", "flagship", "coarse", "devices", "follow", "eval",
               "sharded", "train", "train_charades", "train_dp", "packed",
-              "eval_charades", "serving_10k", "live", "gru", "coarse_2m",
-              "bench")
+              "eval_charades", "serving_10k", "live", "gru", "coarse_2m")
 # the phases whose set-ups the sharded checks ride on
 SHARDED_HOSTS = ("flagship", "eval_charades", "live", "coarse_2m")
 
@@ -5800,10 +5526,6 @@ def main(argv=None) -> int:
                            "trace runs the mesh part of the phases "
                            "given and adds host traces to coarse_2m and "
                            "train_dp")
-    ap.add_argument("--turns", type=int, default=BENCH_TURNS,
-                    help="rounds of E G G E (eager, graphed) of the bench "
-                         "phase's headline turns (default %(default)s: "
-                         "six runs a side)")
     ap.add_argument("--resource-usage", action="store_true",
                     help="print ptxas's registers, shared memory and spills "
                          "of every kernel after the build")
@@ -5916,8 +5638,6 @@ def main(argv=None) -> int:
         phase_coarse_2m(results, SEED, VIDEOS_2M, shards=shards,
                         trace="trace" in phases)
         settle()
-    if "bench" in phases:
-        phase_bench(results, args.turns)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if not set(ALL_PHASES) <= phases:
         emit({"partial": sorted(phases)})

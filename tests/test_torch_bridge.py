@@ -171,7 +171,7 @@ def test_port_imports_nothing_of_jax():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    vfr_tpu_torch.__path__, 'vfr_tpu_torch.')]\n"
         "for m in ('train.loop', 'eval.live', 'data.packed',\n"
-        "          'data.prefetch', 'bench', 'utils.timing'):\n"
+        "          'data.prefetch', 'utils.trace', 'utils.timing'):\n"
         "    assert 'vfr_tpu_torch.' + m in mods, mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"

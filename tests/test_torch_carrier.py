@@ -1,19 +1,25 @@
-"""The score-operand carrier policy (``carrier_dtype``) of the port against
-the JAX package's, on one index shared by both (the JAX build, loaded
-bit-exact into the port) and the same numpy weights (small widths;
-``torch_live_world``), for compute {f32, bf16} x index {f32, bf16} x
-``carrier_dtype`` {"auto", "bfloat16"}.
+"""The port's score operands against the JAX package's carrier policy, on
+one index shared by both (the JAX build, loaded bit-exact into the port)
+and the same numpy weights (small widths; ``torch_live_world``), for
+compute {f32, bf16} x index {f32, bf16}, and the JAX package's carriers
+"auto" and "bfloat16".  The port holds every fixed operand at the index's
+stored dtype.
 
-* ``prep_score_operands``: the operand's dtype is the JAX package's and
-  its bits are too (uint16 for bf16, int32 views for f32).
+* ``prep_score_operands``: the operand is the index's stored dtype and
+  its bits are the JAX package's (uint16 for bf16, int32 views for f32);
+  where the JAX package carries a bf16 index as f32, the port's operand
+  upcast is that carrier bit for bit.
 * ``make_score_topk`` and ``make_stream_retriever`` (M = 2): the JAX
-  package's rows, distances within rtol 1e-5 (atol 1e-6), or the bf16
-  band rtol 8e-3 where the product is bf16.
-* ``make_retriever`` keeps the stored dtype, as the JAX package's.
+  package's rows under either carrier, distances within rtol 1e-5 (atol
+  1e-6), or the bf16 band rtol 8e-3 where the product is bf16.
+* ``make_retriever`` keeps the stored dtype, as the JAX package's, and the
+  three one-device retrievers hand the top-k one operand and return the
+  same answers bit for bit.
 * Over a ``[cpu] * 2`` "corpus" mesh the operands are the JAX package's
-  ``shard_index_operands`` (the stored dtype, no carrier) bit for bit,
-  and the sharded retrievers return the rows of the JAX package's sharded
-  operand retriever over ``devices8[:2]``.
+  ``shard_index_operands`` (the stored dtype) bit for bit, and the sharded
+  retrievers return the rows of the JAX package's sharded operand
+  retriever over ``devices8[:2]`` and of its one-device retriever under
+  either carrier.
 * The live arena stays at its index's dtype through build, append,
   remove, compact, grow, save and load, on one device and on a 2-shard
   mesh; an f32 arena under bf16 compute keeps its unrounded values.
@@ -101,16 +107,19 @@ def test_operands_match_jax(cases, compute, index_dtype, carrier):
     w, jidx, tidx = cases(compute, index_dtype)
     jm, jsq = jcorpus.prep_score_operands(jidx, w.jmodel.compute_dtype,
                                           carrier)
-    tm, tsq = tcorpus.prep_score_operands(tidx, w.tmodel.compute_dtype,
-                                          carrier)
-    assert _name(tm.dtype) == str(jm.dtype)
-    assert tm.element_size() == jm.dtype.itemsize
-    np.testing.assert_array_equal(_bits(tm), _bits(jm))
-    np.testing.assert_array_equal(_bits(tsq), _bits(jsq))
+    tm, tsq = tcorpus.prep_score_operands(tidx)
+    assert _name(tm.dtype) == index_dtype
     f32_carrier = (carrier == "auto" and index_dtype == compute
                    == "bfloat16")
-    assert (tm.dtype == torch.float32) == (f32_carrier
-                                            or index_dtype == "float32")
+    assert str(jm.dtype) == ("float32" if f32_carrier else index_dtype)
+    np.testing.assert_array_equal(_bits(tm.float() if f32_carrier else tm),
+                                  _bits(jm))
+    np.testing.assert_array_equal(_bits(tsq), _bits(jsq))
+
+
+def _stream_queries(tt, tl):
+    """Two batches, the second the first's queries in reverse order."""
+    return torch.stack([tt, tt.flip(0)]), torch.stack([tl, tl.flip(0)])
 
 
 @pytest.mark.parametrize("carrier", CARRIERS)
@@ -124,18 +133,16 @@ def test_score_topk_and_stream_match_jax(cases, compute, index_dtype,
     d_j, r_j = jcorpus.make_score_topk(w.jmodel, jidx, K, "exact",
                                        carrier_dtype=carrier)(
         w.jparams, jt, jl)
-    d_t, r_t = tcorpus.make_score_topk(w.tmodel, tidx, K, "exact",
-                                       carrier_dtype=carrier)(
+    d_t, r_t = tcorpus.make_score_topk(w.tmodel, tidx, K, "exact")(
         w.tparams, tt, tl)
     np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), **tol)
-    # two batches, the second the first's queries in reverse order
-    ts, ls = torch.stack([tt, tt.flip(0)]), torch.stack([tl, tl.flip(0)])
+    ts, ls = _stream_queries(tt, tl)
     d_js, r_js = jcorpus.make_stream_retriever(
         w.jmodel, jidx, K, "exact", carrier_dtype=carrier)(
         w.jparams, jnp.asarray(ts.numpy()), jnp.asarray(ls.numpy()))
     d_ts, r_ts = tcorpus.make_stream_retriever(
-        w.tmodel, tidx, K, "exact", carrier_dtype=carrier)(w.tparams, ts, ls)
+        w.tmodel, tidx, K, "exact")(w.tparams, ts, ls)
     assert r_ts.shape == (2, len(w.toks), K)
     np.testing.assert_array_equal(r_ts.numpy(), np.asarray(r_js))
     np.testing.assert_allclose(d_ts.numpy(), np.asarray(d_js), **tol)
@@ -168,23 +175,59 @@ def test_retriever_keeps_stored_dtype(cases, compute, index_dtype):
                                **_tol(compute, index_dtype))
 
 
+@pytest.mark.parametrize("index_dtype", DTYPES)
+@pytest.mark.parametrize("compute", DTYPES)
+def test_one_device_retrievers_share_one_operand(cases, compute,
+                                                 index_dtype):
+    """``make_retriever`` (exact), ``make_score_topk`` and
+    ``make_stream_retriever`` (M = 2) hand the top-k an operand of the
+    index's stored dtype, and return the same rows and distances bit for
+    bit."""
+    w, _, tidx = cases(compute, index_dtype)
+    tt, tl, _, _ = _queries(w)
+    ts, ls = _stream_queries(tt, tl)
+    seen = []
+    real = tcorpus.corpus_topk_shards
+
+    def spy(q, m_sh, *a, **kw):
+        seen.extend(_name(t.dtype) for t in m_sh)
+        return real(q, m_sh, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcorpus, "corpus_topk_shards", spy)
+        outs = [
+            tcorpus.make_retriever(w.tmodel, tidx, K, "exact")(
+                w.tparams, tt, tl),
+            tcorpus.make_score_topk(w.tmodel, tidx, K, "exact")(
+                w.tparams, tt, tl),
+            *zip(*tcorpus.make_stream_retriever(w.tmodel, tidx, K, "exact")(
+                w.tparams, ts, ls))]
+    assert seen == [index_dtype] * 4
+    for d_t, r_t in outs[1:3]:
+        assert torch.equal(r_t, outs[0][1]) and torch.equal(d_t, outs[0][0])
+    d_f, r_f = tcorpus.make_retriever(w.tmodel, tidx, K, "exact")(
+        w.tparams, ts[1], ls[1])
+    assert torch.equal(outs[3][1], r_f) and torch.equal(outs[3][0], d_f)
+
+
 @pytest.mark.parametrize("carrier", CARRIERS)
 @pytest.mark.parametrize("index_dtype", DTYPES)
 @pytest.mark.parametrize("compute", DTYPES)
 def test_sharded_operands_match_jax(cases, devices8, compute, index_dtype,
                                     carrier):
     """The sharded operands are the JAX package's ``shard_index_operands``
-    (the stored dtype, no carrier), bit for bit, whatever ``carrier_dtype``
-    the sharded ``make_score_topk`` / ``make_stream_retriever`` are given;
-    their rows are those of the JAX package's sharded operand retriever on
-    those operands, and so are ``make_retriever(mesh=)``'s."""
+    (the stored dtype, no carrier), bit for bit; the sharded
+    ``make_score_topk`` / ``make_stream_retriever`` / ``make_retriever``
+    return the rows of the JAX package's sharded operand retriever on
+    those operands, and of its one-device ``make_score_topk`` under
+    either carrier."""
     w, jidx, tidx = cases(compute, index_dtype)
     tol = _tol(compute, index_dtype)
     jmesh = j_make_mesh(("corpus",), devices=devices8[:2])
     tmesh = make_mesh(("corpus",), devices=[CPU] * 2)
     jm, jsq = jcorpus.shard_index_operands(jidx, jmesh)
     assert jm.shape[0] == jidx.num_rows + 1      # padded to the mesh
-    tm, tsq = tcorpus.shard_index_operands(tidx, tmesh)
+    tm, tsq = tcorpus.prep_score_operands(tidx, tmesh)
     assert len(tm) == 2 and all(_name(t.dtype) == index_dtype for t in tm)
     assert str(jm.dtype) == index_dtype
     np.testing.assert_array_equal(_bits(torch.cat(tm)), _bits(jm))
@@ -193,6 +236,10 @@ def test_sharded_operands_match_jax(cases, devices8, compute, index_dtype,
     d_j, r_j = jcorpus.make_sharded_operand_retriever(
         w.jmodel, jidx.weights, K, jmesh, topk_method="exact")(
         jm, jsq, w.jparams, jt, jl)
+    _, r_jc = jcorpus.make_score_topk(w.jmodel, jidx, K, "exact",
+                                      carrier_dtype=carrier)(
+        w.jparams, jt, jl)
+    np.testing.assert_array_equal(np.asarray(r_jc), np.asarray(r_j))
     seen = []
     real = tcorpus.corpus_topk_shards
 
@@ -204,11 +251,10 @@ def test_sharded_operands_match_jax(cases, devices8, compute, index_dtype,
         mp.setattr(tcorpus, "corpus_topk_shards", spy)
         outs = [
             tcorpus.make_score_topk(w.tmodel, tidx, K, "exact",
-                                    carrier_dtype=carrier, mesh=tmesh)(
-                w.tparams, tt, tl),
+                                    mesh=tmesh)(w.tparams, tt, tl),
             [x[0] for x in tcorpus.make_stream_retriever(
-                w.tmodel, tidx, K, "exact", carrier_dtype=carrier,
-                mesh=tmesh)(w.tparams, tt[None], tl[None])],
+                w.tmodel, tidx, K, "exact", mesh=tmesh)(
+                w.tparams, tt[None], tl[None])],
             tcorpus.make_retriever(w.tmodel, tidx, K, "exact", mesh=tmesh)(
                 w.tparams, tt, tl)]
     assert seen == [index_dtype] * 6
@@ -267,7 +313,7 @@ def test_f32_arena_under_bf16_compute_is_unrounded(cases):
     t = tlive.make_live_index(w.tparams, w.tmodel, w.tds, capacity_videos=12)
     idx = tcorpus.build_moment_index(w.tparams, w.tmodel, w.tds,
                                      with_fingerprint=False)
-    m_cat, _ = tcorpus.prep_score_operands(idx, w.tmodel.compute_dtype)
+    m_cat, _ = tcorpus.prep_score_operands(idx)
     assert m_cat.dtype == t.m_cat.dtype == torch.float32
     assert torch.equal(t.m_cat[:idx.num_rows], m_cat)
     assert not torch.equal(m_cat, m_cat.to(torch.bfloat16).float())

@@ -164,8 +164,8 @@ def test_scores_and_distances_match_jax(dtype):
                                              w_np))
     np.testing.assert_allclose(
         tsh.fused_corpus_scores(q_t, mc_t, mf_t, w).numpy(), ref, atol=1e-4)
-    # the f32 carrier (bf16 values upcast once) under compute at the
-    # index's dtype, rounded back in the product, gives the same
+    # an f32 operand holding those values under compute at the index's
+    # dtype, rounded back in the product, gives the same
     np.testing.assert_allclose(
         tsh.fused_corpus_scores(q_t, mc_t.float(), mf_t, w,
                                 compute_dtype=m_t.dtype).numpy(), ref,

@@ -114,7 +114,7 @@ def test_sharded_topk_equals_jax(devices8, n, k):
 @pytest.mark.parametrize("n", NS)
 def test_sharded_topk_cat_on_placed_shards(devices8, n):
     """The one-matmul layout split into shards once (as
-    ``shard_index_operands`` places it) equals the JAX package's
+    ``prep_score_operands`` places it) equals the JAX package's
     ``sharded_corpus_topk_cat``; so does ``corpus_topk_shards`` on those
     shards, and on the whole layout as one shard the single-device
     retrieval (held to the same rows by the merged result)."""

@@ -13,7 +13,9 @@ or three) and to the same returned value, exactly; where a stall hits one
 window, the median of three drops it, even where it ended the
 calibration.  Then the counterpart of
 ``tests/test_timing.py::test_positive_and_scales_with_work`` on the real
-clock."""
+clock; each call of every window given its own index, and the baseline
+refused where it is not below the window; the bound, the larger of the
+bytes' and the operations' time."""
 
 import time
 import types
@@ -140,3 +142,36 @@ def test_positive_and_scales_with_work():
     assert s_small > 0 and s_big > 0
     # 512x the FLOPs; demand at least 2x the time (CPU noise)
     assert s_big > 2 * s_small, (s_small, s_big)
+
+
+@pytest.mark.parametrize("iters", [1, 4])
+def test_device_seconds_per_iter_calls_each_index_once(iters):
+    """``iters`` given, over the largest baseline below it (at most 2):
+    two warm windows of base and base + 1 calls, then 3 repeats of a base
+    and an ``iters`` window; each index once across them all."""
+    seen = []
+
+    def body(i, x):
+        seen.append(i)
+        return x * i
+
+    base = min(2, iters - 1)
+    sec = ttiming.device_seconds_per_iter(body, torch.ones(3), iters,
+                                          base_iters=base)
+    assert sec > 0
+    assert seen == list(range(2 * base + 1 + 3 * (base + iters)))
+    for bad in (dict(iters=iters, base_iters=iters), dict(iters=-1),
+                dict(iters=iters, base_iters=-1)):
+        with pytest.raises(ValueError, match="base_iters"):
+            ttiming.device_seconds_per_iter(body, torch.ones(3), **bad)
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    assert ttiming.bound(ttiming.H100_BYTES_PER_S, 0.0, "bfloat16") == (
+        1e3, "bytes")
+    ms, by = ttiming.bound(0.0, ttiming.PEAK_FLOPS["bfloat16"], "bfloat16")
+    assert (ms, by) == (1e3, "operations")
+    # f32 products: the lesser of f32 FMAs and three TF32 products
+    ms, _ = ttiming.bound(0.0, ttiming.PEAK_FLOPS["float32"], "float32")
+    assert ms == pytest.approx(1e3 * min(1.0, 3 * ttiming.PEAK_FLOPS[
+        "float32"] / ttiming.PEAK_FLOPS["tf32"]))

@@ -24,14 +24,15 @@ request-at-a-time daemon (micro-batched, pipelined), over a fixed index or
 the live arena of ``eval/live.py``, whose retriever is
 ``make_operand_retriever``.
 
-The score operand of ``make_score_topk`` / ``make_stream_retriever``
-follows the JAX package's carrier policy (``carrier_dtype``,
-``prep_score_operands``): "auto" carries a bf16 index as f32 under bf16
-compute (exact, the values stay bf16), and otherwise the index's stored
-dtype is kept, so a bf16 operand takes 2 bytes an element on the card.
-``make_retriever`` and the sharded operands keep the stored dtype, as the
-JAX package's.  The product dtype follows the operand (``parallel.
-sharding.fused_corpus_scores``): bf16 operands multiply into f32 sums.
+Every one-GEMM retriever over a fixed index scores operands of the
+index's stored dtype, built once by ``prep_score_operands``, so a bf16
+operand takes 2 bytes an element on the card.  The JAX package's "auto"
+score carrier (a bf16 index held as f32 under bf16 compute) has no
+counterpart: its answers are the same, XLA hoists its cast back to bf16
+out of the scan, and a graph replayed per batch would repeat that cast on
+every replay.  The product dtype follows the operand
+(``parallel.sharding.fused_corpus_scores``): bf16 operands multiply into
+f32 sums.
 
 On one card a retriever serves a batch (encode, score, select) as one
 CUDA graph replay, the counterpart of the JAX package's jitted program
@@ -40,7 +41,7 @@ shape, params tree and operand buffer); sharded and coarse retrieval run
 eagerly.
 
 With a ``mesh`` (``parallel/mesh.py``) the index rows are split over its
-"corpus" axis (``shard_index_operands``; the mining refresh's stream
+"corpus" axis (``prep_score_operands``; the mining refresh's stream
 retriever over the axis it names) and every retriever, the GT ranker
 and the live arena run the hierarchical top-k of ``parallel/sharding.py``:
 each shard scores and selects its own rows, the candidates are merged on
@@ -314,11 +315,11 @@ def make_retriever(
     """``(params, tokens [Q, T], lengths [Q]) -> (dists [Q, k], rows [Q, k])``.
 
     ``topk_method="fused"`` runs the distance+selection kernel over the
-    per-stream index and an exact top-k over its candidates; otherwise the
-    one-GEMM score path over the index's stored dtype, as the JAX
-    package's (no carrier).  With ``mesh`` the index is split over its
-    "corpus" axis once (``shard_index_operands``) and every call runs the
-    sharded top-k ("fused" raises there, as in the JAX package).
+    per-stream index and an exact top-k over its candidates; otherwise
+    ``make_score_topk``: the one-GEMM score path over the index's stored
+    dtype.  With ``mesh`` the index is split over its "corpus" axis once
+    (``prep_score_operands``) and every call runs the sharded top-k
+    ("fused" raises there, as in the JAX package).
 
     On one card a batch is one CUDA graph replay (``utils/graphs.py``; the
     fused graph reads ``index.m`` / ``index.m_sq`` in place): the retriever
@@ -328,13 +329,8 @@ def make_retriever(
     (K2 under "fused", else the GEMM), then select."""
     _check_distance(model)
     if topk_method != "fused" or mesh is not None:
-        if mesh is None:
-            with trace.setup("setup.operands"):
-                ops = fuse_index_cat(index.m, index.m_sq, index.weights)
-        else:
-            ops = shard_index_operands(index, mesh)
-        return _bind_operands(model, index, k, topk_method, approx_recall,
-                              rnn_kernel, *ops)
+        return make_score_topk(model, index, k, topk_method, approx_recall,
+                               rnn_kernel, mesh=mesh)
     w = [float(x) for x in model.cfg.stream_weights]
     bin_size = fused_bin_size(index.num_rows, k)
 
@@ -362,20 +358,21 @@ def make_retriever(
     return retrieve
 
 
-def prep_score_operands(index: MomentIndex, compute_dtype: torch.dtype,
-                        carrier_dtype: str = "auto"):
-    """(m_cat [N, S*d], msq_fused [N]): the one-GEMM score operands under
-    the JAX package's carrier policy.  ``"auto"`` carries a bf16 index as
-    f32 when compute is bf16: exact, and the product rounds it back to
-    bf16 on every call (``parallel.sharding.fused_corpus_scores``).
-    Otherwise, and under any other ``carrier_dtype``, the stored dtype is
-    kept.  The set-up span ``setup.operands``."""
+def prep_score_operands(index: MomentIndex, mesh=None,
+                        axis: str = "corpus"):
+    """(m_cat, msq_fused): a fixed index's one-GEMM score operands at its
+    stored dtype, built once, under the set-up span ``setup.operands``.
+    With no mesh, ``m_cat [N, S*d]`` and ``msq_fused [N]``
+    (``parallel.sharding.fuse_index_cat``); with one, both padded to its
+    ``axis`` and split over its devices (``parallel.sharding.shard_rows``):
+    the shard lists of ``make_operand_retriever``."""
     with trace.setup("setup.operands"):
-        m_cat, msq_fused = fuse_index_cat(index.m, index.m_sq, index.weights)
-        if (carrier_dtype == "auto" and m_cat.dtype == torch.bfloat16
-                and compute_dtype == torch.bfloat16):
-            m_cat = m_cat.float()
-        return m_cat, msq_fused
+        if mesh is None:
+            return fuse_index_cat(index.m, index.m_sq, index.weights)
+        devices = mesh.axis_devices(axis)
+        m, m_sq = pad_index(index.m, index.m_sq, len(devices))
+        m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
+        return shard_rows(m_cat, devices), shard_rows(msq_fused, devices)
 
 
 def make_operand_retriever(model: Model, weights, k: int,
@@ -386,7 +383,7 @@ def make_operand_retriever(model: Model, weights, k: int,
     arguments: ``(m_cat, msq_fused, params, tokens, lengths) -> (dists
     [Q, k], rows [Q, k])``.  The operands are whole (``m_cat [N, S*d]``,
     ``msq_fused [N]``) or lists of shards, one per device of a mesh
-    (``shard_index_operands``): the top-k is ``parallel.sharding.
+    (``prep_score_operands``): the top-k is ``parallel.sharding.
     corpus_topk_shards``, a whole tensor being one shard.
     ``make_score_topk`` binds a fixed index to it; the live index
     (``eval/live.py``) passes its arena, whose buffers change in place.
@@ -437,21 +434,18 @@ def make_operand_retriever(model: Model, weights, k: int,
     return retrieve
 
 
-def shard_index_operands(index: MomentIndex, mesh, axis: str = "corpus"):
-    """(m_cat shards, msq_fused shards): the one-GEMM operands at the
-    index's stored dtype, padded to the mesh's ``axis`` and split over its
-    devices (``parallel.sharding.shard_rows``), once: the sharded operands
-    of ``make_operand_retriever`` (the set-up span ``setup.operands``)."""
-    with trace.setup("setup.operands"):
-        devices = mesh.axis_devices(axis)
-        m, m_sq = pad_index(index.m, index.m_sq, len(devices))
-        m_cat, msq_fused = fuse_index_cat(m, m_sq, index.weights)
-        return shard_rows(m_cat, devices), shard_rows(msq_fused, devices)
-
-
-def _bind_operands(model: Model, index: MomentIndex, k: int, topk_method,
-                   approx_recall, rnn_kernel, m_cat, msq_fused):
-    """``make_operand_retriever`` over operands bound once."""
+def make_score_topk(model: Model, index: MomentIndex, k: int,
+                    topk_method: str = "exact", approx_recall: float = 0.95,
+                    rnn_kernel: Optional[str] = None, mesh=None,
+                    axis: str = "corpus"):
+    """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
+    [Q, k], rows [Q, k])``: ``make_operand_retriever`` over operands at
+    the index's stored dtype, prepared once (``prep_score_operands``),
+    split over ``mesh``'s ``axis`` when a mesh is given.  Hand it (and
+    every retriever of this module and of ``eval.coarse``) a tree that
+    went through ``prepare_query_params`` once, as ``serve_queries`` does,
+    and no batch casts the recurrence weights again."""
+    m_cat, msq_fused = prep_score_operands(index, mesh, axis)
     fn = make_operand_retriever(model, index.weights, k, topk_method,
                                 approx_recall, rnn_kernel)
 
@@ -464,46 +458,22 @@ def _bind_operands(model: Model, index: MomentIndex, k: int, topk_method,
     return score_topk
 
 
-def make_score_topk(model: Model, index: MomentIndex, k: int,
-                    topk_method: str = "exact", approx_recall: float = 0.95,
-                    rnn_kernel: Optional[str] = None,
-                    carrier_dtype: str = "auto", mesh=None,
-                    axis: str = "corpus"):
-    """One query batch: ``(params, tokens [Q, T], lengths [Q]) -> (dists
-    [Q, k], rows [Q, k])`` over operands prepared once under
-    ``carrier_dtype`` (``prep_score_operands``).  With ``mesh`` they are
-    split over its ``axis`` at the stored dtype (``shard_index_operands``:
-    the JAX package's sharded operands have no carrier).  Hand it (and
-    every retriever of this module and of ``eval.coarse``) a tree that
-    went through ``prepare_query_params`` once, as ``serve_queries`` does,
-    and no batch casts the recurrence weights again."""
-    if mesh is None:
-        ops = prep_score_operands(index, model.compute_dtype, carrier_dtype)
-    else:
-        ops = shard_index_operands(index, mesh, axis)
-    return _bind_operands(model, index, k, topk_method, approx_recall,
-                          rnn_kernel, *ops)
-
-
 def make_stream_retriever(model: Model, index: MomentIndex, k: int,
                           topk_method: str = "exact",
                           approx_recall: float = 0.95,
                           rnn_kernel: Optional[str] = None,
-                          carrier_dtype: str = "auto",
                           mesh=None, axis: str = "corpus"):
     """Throughput serving: ``(params, tokens [M, Q, T], lengths [M, Q]) ->
     (dists [M, Q, k], rows [M, Q, k])`` over one set of operands prepared
-    once under ``carrier_dtype``.  The JAX package scans the M batches
+    once (``make_score_topk``).  The JAX package scans the M batches
     inside one program; here, on one card, one captured graph of a batch
     (``make_score_topk``'s) is replayed M times, each replay writing its
     batch's rows of the results.  With ``mesh`` the operands are split
-    over its ``axis`` once, at the stored dtype (``make_score_topk``), and
-    every batch runs the sharded top-k eagerly: the JAX package's
-    ``make_sharded_stream_retriever``, the mining refresh's mesh path
-    ("fused" raises there)."""
+    over its ``axis`` once, and every batch runs the sharded top-k
+    eagerly: the JAX package's ``make_sharded_stream_retriever``, the
+    mining refresh's mesh path ("fused" raises there)."""
     score_topk = make_score_topk(model, index, k, topk_method,
-                                 approx_recall, rnn_kernel, carrier_dtype,
-                                 mesh, axis)
+                                 approx_recall, rnn_kernel, mesh, axis)
 
     def retrieve_stream(params, tokens, lengths):
         d0, r0 = score_topk(params, tokens[0], lengths[0])

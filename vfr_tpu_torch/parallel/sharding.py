@@ -157,9 +157,9 @@ def fused_corpus_scores(
     """Scores [Q, N] (higher = closer): 2 sum_s w_s q_s.m_s - msq_fused.
 
     Products run at m's dtype when it is bf16, else ``compute_dtype``
-    (``score_mm``): an f32 operand under bf16 compute (the "auto" carrier
-    of a bf16 index, ``eval.corpus.prep_score_operands``, or an f32 live
-    arena) is rounded on every call, as in the JAX package."""
+    (``score_mm``): an f32 operand under bf16 compute (an f32 live arena
+    of a bf16-compute model) is rounded on every call, as in the JAX
+    package."""
     in_dtype = m_cat.dtype if m_cat.dtype == torch.bfloat16 else compute_dtype
     return (score_mm(query_cat_scaled(q, weights), m_cat.T, in_dtype)
             - msq_fused[None, :])
@@ -296,7 +296,7 @@ def sharded_corpus_topk_cat(
 ):
     """The distributed top-k over the one-matmul layout (``fuse_index_cat``)
     split over ``axis`` once (``shard_rows``, as ``eval.corpus.
-    shard_index_operands`` places it): ``corpus_topk_shards`` on the
+    prep_score_operands`` places it): ``corpus_topk_shards`` on the
     mesh's shards."""
     devices = mesh.axis_devices(axis)
     return corpus_topk_shards(q, _check_shards(m_cat, devices),

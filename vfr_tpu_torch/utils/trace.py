@@ -18,8 +18,7 @@ span's id as its parent, and shares that id when it is given none.
     capture, with the children ``graphs.warm`` (the eager warm-up on a
     side stream) and ``graphs.record`` (the recording into the graph);
   - ``setup.operands``: a retriever's index operands prepared
-    (``eval/corpus.py``: ``fuse_index_cat`` for ``make_retriever``,
-    ``prep_score_operands``, ``shard_index_operands``);
+    (``eval/corpus.py::prep_score_operands``);
   - ``setup.query_params``: the recurrence weights cast once
     (``models/mcn.py::prepare_query_params``).
 
