@@ -8,9 +8,11 @@ Phases, one JSON line each:
   build       nvcc of every kernel source (one process each, in parallel).
   kernel_*    each CUDA kernel against its plain PyTorch version on the
               card at the main path's shapes (max |diff|, kernel / plain /
-              library ms by CUDA events), both variants of each (LSTM / GRU:
-              persistent, stepwise; distance-select / coarse block-max: mma,
-              simt), timed in turns, and at ragged shapes.  K1 / K3 also
+              library ms by CUDA events), every variant of each (LSTM:
+              persistent_bulk, persistent, stepwise, the first on more
+              seeds and at the packs' batches; GRU: persistent, stepwise;
+              distance-select / coarse block-max: mma, simt), timed in
+              turns, and at ragged shapes.  K1 / K3 also
               at B=512 and a ragged B=300 through cuda_lstm / cuda_gru:
               batch chunks (the reference's rule; 256 and 152 rows), one
               persistent launch a chunk and none stepwise, the first
@@ -272,6 +274,8 @@ DP_CHUNK_TOL = 5e-3      # DP vs one-device chunk losses over the cut run:
                          # refresh may mine other near-ties (9.2e-4 measured)
 REFRESH_GAP_TOL = 1e-4   # sharded vs one-device mined distance profiles
 CHUNK_BATCHES = (512, 300)  # rnn: batches one persistent grid cannot hold
+RNN_SEEDS = 4            # rnn: more seeds for K1's bulk variant
+RNN_PACKS = (1, 8, 64, 128)  # rnn: K1 at the daemon packs' batches and more
 SHARDS = (4, 8)          # sharded: 52,500 flagship rows a shard (over the
                          # top-k's KEY_MAX), and 26,250 (under it)
 QUERY_TOL = 2e-3         # flagship bf16 compute: queries through K1a vs
@@ -370,16 +374,31 @@ def _max_diff(got, ref) -> float:
     return max(float((g - r).abs().max()) for g, r in zip(got, ref))
 
 
+def _same_floats(got, ref) -> bool:
+    """f32 tensors pairwise equal bit for bit."""
+    import torch
+
+    return all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+               for g, r in zip(got, ref))
+
+
 def phase_rnn(results, seed: int, cell: str):
-    """K1 (cell="lstm") or K3 (cell="gru"), pooled and hs modes: both
-    kernel variants (persistent, stepwise) against the plain version with
-    bf16 weights, the f32-weight build (stepwise), a ragged shape with
-    zero-length rows, and the times taken in turns (stepwise, persistent,
-    persistent, stepwise) beside cuDNN over a packed batch of the same
-    weights (fp16 operands, the 2-byte type cuDNN's RNN takes, and f32).
-    The persistent variant is also timed with its input product unfused
-    and on the same batch sorted by length (whole 64-row tiles then go
-    dead early and skip their products)."""
+    """K1 (cell="lstm") or K3 (cell="gru"), pooled and hs modes: every
+    kernel variant (K1: persistent_bulk, persistent, stepwise; K3:
+    persistent, stepwise) against the plain version with bf16 weights, the
+    f32-weight build (stepwise), ragged shapes with zero-length rows, and
+    the newest variant's time taken in turns beside the one before it
+    (K1: persistent, persistent_bulk, persistent_bulk, persistent; K3:
+    stepwise, persistent, persistent, stepwise) beside cuDNN over a packed
+    batch of the same weights (fp16 operands, the 2-byte type cuDNN's RNN
+    takes, and f32).  The persistent variant is also timed with its input
+    product unfused and on the same batch sorted by length (whole 64-row
+    tiles then go dead early and skip their products).  K1's bulk variant
+    is held to ``persistent`` bit for bit and to the plain version on
+    RNN_SEEDS more seeds, also with every row cut to T // 3 (a step that
+    read a stale h would show), and timed
+    with ``persistent`` in turns at the daemon packs' batches and more
+    (``RNN_PACKS``)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
@@ -387,6 +406,9 @@ def phase_rnn(results, seed: int, cell: str):
 
     mod_k = gru_kernel if cell == "gru" else lstm_kernel
     gates = 3 if cell == "gru" else 4
+    variants = (("persistent", "stepwise") if cell == "gru"
+                else ("persistent_bulk", "persistent", "stepwise"))
+    new, earlier = variants[0], variants[1]
     B, T, E, H = 256, 24, 300, 1024
     layer, plain, p, args16, args32, lengths_np = _rnn_case(
         cell, seed, B, T, E, H)
@@ -415,8 +437,9 @@ def phase_rnn(results, seed: int, cell: str):
             lib[f"library{tag}_cudnn"] = bool(
                 torch.backends.cudnn.is_acceptable(packed.data))
     # a ragged shape: B, H off the tile sizes, rows of length 0, T = 7;
-    # then T = 1
-    ragged = {}
+    # then T = 1.  K1's two persistent variants sum in the same order, so
+    # their outputs are held equal bit for bit (same_bits)
+    ragged, same_bits = {}, {}
     for rb, rt, re_, rh in ((200, 7, 52, 1000), (70, 1, 300, 1024)):
         r_layer, r_plain, _, r16, _, _ = _rnn_case(cell, seed + 2, rb, rt,
                                                    re_, rh)
@@ -425,19 +448,60 @@ def phase_rnn(results, seed: int, cell: str):
         r16 = (r16[0], r_len, *r16[2:])
         for pool in ("mean", "none"):
             ref = r_plain(*r16, pool=pool)
-            for variant in ("persistent", "stepwise"):
-                got = r_layer(*r16, pool=pool, variant=variant)
+            r_outs = {}
+            for variant in variants:
+                got = r_outs[variant] = r_layer(*r16, pool=pool,
+                                                variant=variant)
                 torch.cuda.synchronize()
                 ragged[f"B{rb}_T{rt}_E{re_}_H{rh}_{pool}_{variant}"] = \
                     _max_diff(got, ref)
+            if cell == "lstm":
+                same_bits[f"B{rb}_T{rt}_{pool}"] = _same_floats(
+                    r_outs["persistent_bulk"], r_outs["persistent"])
     ragged_err = max(ragged.values())
+    # the newest variant on more seeds, and (K1) at the packs' batches
+    seeds, packs = {}, {}
+    if cell == "lstm":
+        for s in range(1, RNN_SEEDS + 1):
+            s_layer, s_plain, _, s16, _, _ = _rnn_case(cell, seed + 100 * s,
+                                                       B, T, E, H)
+            # and the same rows cut to T // 3: every step past the longest
+            # is one the batch groups skip
+            short = (s16[0], s16[1].clamp(max=T // 3), *s16[2:])
+            for tag, a16 in (("", s16), ("_short", short)):
+                for pool in ("mean", "none"):
+                    got = s_layer(*a16, pool=pool, variant=new)
+                    torch.cuda.synchronize()
+                    key = f"seed{seed + 100 * s}{tag}_{pool}"
+                    seeds[key] = _max_diff(got, s_plain(*a16, pool=pool))
+                    same_bits[key] = _same_floats(
+                        got, s_layer(*a16, pool=pool, variant=earlier))
+        for pb in RNN_PACKS:
+            k_layer, k_plain, _, k16, _, _ = _rnn_case(cell, seed + 3, pb,
+                                                       T, E, H)
+            ref = k_plain(*k16, pool="mean")
+            rec, k_outs = {"auto": None}, {}
+            for variant in (earlier, new):
+                k_outs[variant] = k_layer(*k16, pool="mean", variant=variant)
+                rec[f"max_abs_err_{variant}"] = _max_diff(k_outs[variant],
+                                                          ref)
+            same_bits[f"B{pb}"] = _same_floats(k_outs[new], k_outs[earlier])
+            k_layer(*k16, pool="mean")
+            rec["auto"] = mod_k.LAST_PLAN.variant
+            turns = [cuda_ms(lambda: k_layer(*k16, pool="mean",
+                                             variant=v))
+                     for v in (earlier, new, new, earlier)]
+            rec.update({f"{earlier}_ms": (turns[0] + turns[3]) / 2,
+                        f"{new}_ms": (turns[1] + turns[2]) / 2,
+                        "turns_ms": turns})
+            packs[f"B{pb}"] = rec
     for name, pool, out_bytes in (
             (f"{cell}_pooled", "mean", 2 * B * H * 4),
             (f"{cell}_hs", "none", B * H * 4 + B * T * H * 4)):
         ref = plain(*args16, pool=pool)
-        errs, plans = {}, {}
-        for variant in ("persistent", "stepwise"):
-            got = layer(*args16, pool=pool, variant=variant)
+        errs, plans, outs = {}, {}, {}
+        for variant in variants:
+            got = outs[variant] = layer(*args16, pool=pool, variant=variant)
             torch.cuda.synchronize()
             errs[variant] = _max_diff(got, ref)
             plans[variant] = mod_k.LAST_PLAN
@@ -446,6 +510,9 @@ def phase_rnn(results, seed: int, cell: str):
                     f"{plans[variant].variant}")
             require(all(bool(torch.isfinite(g).all()) for g in got),
                     f"{name}[{variant}]: non-finite output")
+        if cell == "lstm":
+            same_bits[name] = _same_floats(outs["persistent_bulk"],
+                                           outs["persistent"])
         # the persistent variant's other forms
         got = layer(*args16, pool=pool, variant="persistent",
                     fuse_input=False)
@@ -461,11 +528,15 @@ def phase_rnn(results, seed: int, cell: str):
         lib_diff = {tag: float((got[0] - lib[f"library{tag}_h_last"])
                                .abs().max()) for tag in ("", "_f32")}
         turns = []
-        for variant in ("stepwise", "persistent", "persistent", "stepwise"):
+        for variant in (earlier, new, new, earlier):
             turns.append(cuda_ms(lambda: layer(*args16, pool=pool,
                                                variant=variant)))
-        stepwise_ms = (turns[0] + turns[3]) / 2
+        earlier_ms = (turns[0] + turns[3]) / 2
         ms = (turns[1] + turns[2]) / 2
+        stepwise_ms = (earlier_ms if earlier == "stepwise" else
+                       cuda_ms(lambda: layer(*args16, pool=pool,
+                                             variant="stepwise")))
+        persistent_ms = (ms if new == "persistent" else earlier_ms)
         unfused_ms = cuda_ms(lambda: layer(*args16, pool=pool,
                                            variant="persistent",
                                            fuse_input=False))
@@ -478,7 +549,7 @@ def phase_rnn(results, seed: int, cell: str):
         ref32 = plain(*args32, pool=pool, weights_dtype=torch.float32)
         err32 = _max_diff(got32, ref32)
         bound_ms, bound_by = bound(w_bytes + out_bytes, flops, "bfloat16")
-        pp = plans["persistent"]
+        pp = plans[new]
         rec = dict(name=name, shape=dict(B=B, T=T, E=E, H=H,
                                          weights="bfloat16"),
                    variant=auto_plan.variant,
@@ -486,13 +557,17 @@ def phase_rnn(results, seed: int, cell: str):
                              grid=list(pp.grid), smem_bytes=pp.smem_bytes,
                              fuse_input=pp.fuse_input),
                    f32_weights_variant=plan32.variant,
-                   max_abs_err=errs["persistent"],
-                   max_abs_err_stepwise=errs["stepwise"],
+                   max_abs_err=errs[new],
+                   max_abs_err_by_variant={v: errs[v] for v in variants},
                    max_abs_err_unfused=errs["persistent_unfused"],
                    max_abs_err_sorted_rows=errs["persistent_sorted_rows"],
                    max_abs_err_f32_weights=err32,
-                   max_abs_err_ragged=ragged_err, ragged=ragged, tol=2e-3,
-                   ms=ms, stepwise_ms=stepwise_ms, turns_ms=turns,
+                   max_abs_err_ragged=ragged_err, ragged=ragged,
+                   max_abs_err_seeds=max(seeds.values(), default=0.0),
+                   seeds=seeds, tol=2e-3, same_bits=same_bits,
+                   ms=ms, earlier_variant=earlier, earlier_ms=earlier_ms,
+                   persistent_ms=persistent_ms, stepwise_ms=stepwise_ms,
+                   turns_ms=turns,
                    persistent_unfused_ms=unfused_ms,
                    persistent_sorted_rows_ms=sorted_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms,
@@ -501,15 +576,21 @@ def phase_rnn(results, seed: int, cell: str):
                    library_is_cudnn=lib["library_cudnn"],
                    library_h_last_max_abs_diff=lib_diff[""],
                    library_f32_h_last_max_abs_diff=lib_diff["_f32"],
-                   live_steps=live_steps)
+                   live_steps=live_steps, packs=packs)
         emit({"phase": f"kernel_{name}", **rec})
-        require(auto_plan.variant == "persistent",
+        require(auto_plan.variant == new,
                 f"{name}: the plan chose {auto_plan.variant} at the "
                 f"flagship shape ({auto_plan.reason})")
-        worst = max(*errs.values(), err32, ragged_err)
+        worst = max(*errs.values(), err32, ragged_err,
+                    *seeds.values(),
+                    *(e for r in packs.values() for k_, e in r.items()
+                      if k_.startswith("max_abs_err")))
         require(worst <= 2e-3,
                 f"{name}: max |diff| vs plain {errs}, f32 weights {err32}, "
-                f"ragged {ragged} > 2e-3")
+                f"ragged {ragged}, seeds {seeds}, packs {packs} > 2e-3")
+        require(all(same_bits.values()),
+                f"{name}: persistent_bulk is not persistent bit for bit: "
+                f"{same_bits}")
         results[name] = rec
 
 
@@ -517,10 +598,11 @@ def phase_rnn_chunks(results, seed: int, cell: str):
     """K1 (cell="lstm") or K3 (cell="gru") at batches one persistent grid
     cannot hold (``CHUNK_BATCHES``: 512, and a ragged 300) through
     ``cuda_lstm`` / ``cuda_gru`` under variant="auto": the reference's
-    batch chunks (``rnn_plan.device_chunk``), one ``persistent`` launch a
-    chunk and no ``stepwise`` one, held against the plain version over the
-    whole batch (2e-3, as ``phase_rnn``), the first chunk's rows equal bit
-    for bit to that chunk run alone.  B=512 is timed chunked against
+    batch chunks (``rnn_plan.device_chunk``), one persistent launch a
+    chunk (K1: ``persistent_bulk``, K3: ``persistent``) and no other, held
+    against the plain version over the whole batch (2e-3, as ``phase_rnn``),
+    the first chunk's rows equal bit for bit to that chunk run alone.
+    B=512 is timed chunked against
     ``stepwise`` in turns (stepwise, chunked, chunked, stepwise)."""
     import torch
 
@@ -549,14 +631,16 @@ def phase_rnn_chunks(results, seed: int, cell: str):
             torch.cuda.synchronize()
             counts = read_counts()
             variants = counts["variants"][cell]
-            require(variants == {"persistent": n_chunks, "stepwise": 0}
+            want = "persistent" if cell == "gru" else "persistent_bulk"
+            require(variants == {**{v: 0 for v in variants},
+                                 want: n_chunks}
                     and counts[name] == n_chunks,
                     f"{name}: B={B} in chunks of {chunk} launched "
                     f"{counts[name]} ({variants}), wanted {n_chunks} "
-                    "persistent")
+                    f"{want}")
             err = _max_diff(got, plain(*args16, pool=pool))
             alone = layer(x[:chunk], lengths[:chunk], *args16[2:],
-                          pool=pool, variant="persistent")
+                          pool=pool, variant=want)
             torch.cuda.synchronize()
             bit_equal = all(torch.equal(g[:chunk], a)
                             for g, a in zip(got, alone))
@@ -582,17 +666,24 @@ def phase_rnn_chunks(results, seed: int, cell: str):
 def phase_steps(seed: int):
     """Where a persistent step's time goes (``--phases steps``; not part of
     the default run): the kernel's own nanosecond stamps from one thread of
-    block (0, 0), K1a and K3a at the flagship shape with the input product
-    fused and unfused.  Medians over steps 1..T-2, in microseconds."""
+    block (0, 0), K1a (persistent_bulk; persistent) and K3a (persistent) at
+    the flagship shape, persistent with the input product fused and
+    unfused.  Medians over steps 1..T-2, in microseconds.  In the bulk
+    variant the next step's input part is its x chunks' products, issued
+    before the grid barrier, and the barrier wait runs until h's first
+    chunk has landed."""
     import torch
 
     B, T, E, H = 256, 24, 300, 1024
     names = ("recurrent_product", "cell_update", "store_and_arrive",
              "next_input_part", "barrier_wait")
+    forms = {"lstm": (("persistent_bulk", True), ("persistent", True),
+                      ("persistent", False)),
+             "gru": (("persistent", True), ("persistent", False))}
     for cell in ("lstm", "gru"):
         layer, _, _, args16, _, _ = _rnn_case(cell, seed, B, T, E, H)
-        for fuse in (True, False):
-            kw = dict(pool="mean", variant="persistent", fuse_input=fuse)
+        for variant, fuse in forms[cell]:
+            kw = dict(pool="mean", variant=variant, fuse_input=fuse)
             for _ in range(3):
                 layer(*args16, **kw)
             tl = torch.zeros(T, 5, dtype=torch.int64, device="cuda")
@@ -603,7 +694,7 @@ def phase_steps(seed: int):
             spans = [st[mid, i + 1] - st[mid, i] for i in range(4)]
             spans.append(st[2:T, 0] - st[1:T - 1, 4])
             emit({"phase": "steps", "kernel": f"{cell}_pooled",
-                  "fuse_input": fuse,
+                  "variant": variant, "fuse_input": fuse,
                   "median_us": {n: float(np.median(s))
                                 for n, s in zip(names, spans)},
                   "step_us": float(np.median(st[2:T, 0] - st[1:T - 1, 0])),
@@ -1411,7 +1502,7 @@ def phase_profile(seed: int):
                     pg["w_hh"].to(torch.bfloat16))
     _device_profile("gru_pooled", lambda: gru_layer(
         x, lengths, gw_ih, gw_hh, pg["b_ih"], pg["b_hh"], pool="mean"))
-    for variant in ("stepwise", "persistent"):
+    for variant in ("stepwise", "persistent", "persistent_bulk"):
         _device_profile(f"lstm_pooled_{variant}", lambda: lstm_layer(
             x, lengths, w_ih, w_hh, p["b"], pool="mean", variant=variant))
     w = _coarse_2m_setup(seed, VIDEOS_2M)
@@ -1527,11 +1618,16 @@ def capture_seconds(g) -> list:
             if name == "graphs.capture" and sid == g.id]
 
 
-def require_persistent(counts, cell: str, what: str) -> None:
+def require_persistent(counts, cell: str, what: str,
+                       want: str = "persistent", only: bool = False) -> None:
+    """The ``cell`` recurrence ran ``want`` (K1 at Q > 64:
+    ``persistent_bulk``), never stepwise, and with ``only`` no other
+    variant."""
     v = counts["variants"][cell]
-    require(v["persistent"] > 0 and v["stepwise"] == 0,
-            f"{what}: the {cell} recurrence ran {v}, expected the "
-            "persistent variant only")
+    require(v[want] > 0 and v["stepwise"] == 0
+            and (not only or sum(v.values()) == v[want]),
+            f"{what}: the {cell} recurrence ran {v}, expected {want}"
+            f"{' only' if only else ''} and never stepwise")
 
 
 def require_row_topk(counts, selects, what: str) -> None:
@@ -1764,7 +1860,8 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     counts = read_counts()
     require(counts["lstm_pooled"] > 0, "flagship: K1a (lstm_pooled) never "
             "launched on the serving path")
-    require_persistent(counts, "lstm", "flagship")
+    require_persistent(counts, "lstm", "flagship", "persistent_bulk",
+                       only=True)
     # one select and one f32 score product a batch, as one K1a a batch
     require_row_topk(counts, counts["lstm_pooled"], "flagship")
     require_score_gemm(counts, counts["lstm_pooled"], "flagship")
@@ -1831,7 +1928,8 @@ def phase_serving(results, seed: int, num_videos: int, workdir: str,
     require(all(_right_answer(c) for c in graphed["vs_plain"]),
             f"flagship: a graphed batch is not a right answer for the "
             f"plain distances: {graphed['vs_plain']}")
-    require_persistent(bf16_counts, "lstm", "flagship[bf16 compute]")
+    require_persistent(bf16_counts, "lstm", "flagship[bf16 compute]",
+                       "persistent_bulk")
     require(all(_right_answer(c) and c["max_query_diff_vs_plain"] <= QUERY_TOL
                 for c in bf16_compute.values()),
             f"flagship[bf16 compute]: not a right answer for the plain "
@@ -2286,7 +2384,8 @@ def phase_sharded(results, ctx, d_coarse: int = 32, C: int = 2048):
         counts = read_counts()
         require(counts["lstm_pooled"] > 0,
                 f"sharded[exact n={n}]: K1a never launched")
-        require_persistent(counts, "lstm", f"sharded[exact n={n}]")
+        require_persistent(counts, "lstm", f"sharded[exact n={n}]",
+                           "persistent_bulk")
         # a shard's rows past KEY_MAX select on the kernel, once a batch on
         # its own card; shorter shards take the 64-bit key
         devs = [str(d) for d in mesh.axis_devices("corpus")]
@@ -2587,7 +2686,7 @@ def phase_eval(results, ctx, d_coarse: int = 32, C: int = 2048):
     require(k_counts["lstm_pooled"] > 0,
             "eval[per-video]: K1a (lstm_pooled) never launched")
     require_persistent(k_counts, "lstm", "eval[per-video, batch "
-                       f"{base.eval_batch_size}]")
+                       f"{base.eval_batch_size}]", "persistent_bulk")
     variants = {"per_video_K1": k_counts["variants"]["lstm"]}
 
     ex, _ = runs("corpus_exact_scan", corpus())
@@ -2759,7 +2858,7 @@ def phase_eval_charades(results, seed: int, num_videos: int,
     require(k_counts["lstm_hs"] > 0,
             "eval_charades[per-video]: K1b (lstm_hs) never launched")
     require_persistent(k_counts, "lstm", "eval_charades[per-video, batch "
-                       f"{base.eval_batch_size}]")
+                       f"{base.eval_batch_size}]", "persistent_bulk")
     variants = {"per_video_K1": k_counts["variants"]["lstm"]}
 
     ex, _ = runs("corpus_exact_scan", corpus())
@@ -3199,7 +3298,8 @@ def phase_serving_10k(results, seed: int, num_videos: int):
     counts = read_counts()
     require(counts["lstm_hs"] > 0, "serving_10k: K1b (lstm_hs) never "
             "launched on the serving path")
-    require_persistent(counts, "lstm", "serving_10k")
+    require_persistent(counts, "lstm", "serving_10k", "persistent_bulk",
+                       only=True)
     require_row_topk(counts, None, "serving_10k")
     # bf16 operands: the library's bf16 GEMM, never the f32 kernel
     require(counts["score_gemm"] == 0 and not counts.get("score.kernel")
@@ -3464,7 +3564,8 @@ def _corpus_on_checkpoint(common, preset_for, load, n_queries: int,
         for name in kernels:
             require(k_counts[name] > 0,
                     f"{what}[corpus {method}]: {name} never launched")
-        require_persistent(k_counts, "lstm", f"{what}[corpus {method}]")
+        require_persistent(k_counts, "lstm", f"{what}[corpus {method}]",
+                           "persistent_bulk")
         if method == "fused":
             require_mma(k_counts, "select", f"{what}[corpus fused]")
     return runs, diffs
@@ -3819,7 +3920,7 @@ def phase_train_charades(results, seed: int, workdir: str,
     require(loop_counts["lstm_hs"] > 0,
             f"{what}: the loop's eval never launched K1b")
     require_persistent(loop_counts, "lstm", f"{what}[loop eval, batch "
-                       f"{preset.eval.eval_batch_size}]")
+                       f"{preset.eval.eval_batch_size}]", "persistent_bulk")
     tr = [r for r in recs if r["tag"] == "train"]
     mine = [r["refresh_s"] for r in recs if r["tag"] == "mine"]
     eval_s = [r["eval_s"] for r in recs if r["tag"] == "eval"]
@@ -3849,7 +3950,7 @@ def phase_train_charades(results, seed: int, workdir: str,
             f"{what}: eval keys {list(k_m)}")
     require(k_counts["lstm_hs"] > 0, f"{what}[eval]: K1b never launched")
     require_persistent(k_counts, "lstm", f"{what}[eval, batch "
-                       f"{preset.eval.eval_batch_size}]")
+                       f"{preset.eval.eval_batch_size}]", "persistent_bulk")
     c_runs, c_diffs = _corpus_on_checkpoint(common, preset_for, load, n_val,
                                             what, k1="lstm_hs")
     diffs.update({f"corpus_{k}": v for k, v in c_diffs.items()})
@@ -4475,6 +4576,7 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
 
     from vfr_tpu_torch.eval.coarse import build_coarse_index
     from vfr_tpu_torch.eval.corpus import serve_follow, serve_queries
+    from vfr_tpu_torch.ops.kernels.rnn_plan import PACK_ROWS
 
     params, model, ds, vocab = (ctx["params"], ctx["model"], ctx["ds"],
                                 ctx["vocab"])
@@ -4524,6 +4626,11 @@ def phase_follow(results, ctx, workdir: str, d_coarse: int = 32,
         for name in kernels[mode]:
             require(counts[name] > 0,
                     f"follow[{tag}]: {name} never launched")
+        # a pack of at most PACK_ROWS queries keeps K1's persistent
+        # variant, a larger one takes the bulk variant
+        require_persistent(counts, "lstm", f"follow[{tag}]",
+                           "persistent" if mb <= PACK_ROWS
+                           else "persistent_bulk", only=mb <= PACK_ROWS)
         if mode == "exact":
             # one select and one f32 score product a pack, as one K1a a pack
             require_row_topk(counts, counts["lstm_pooled"], f"follow[{tag}]")

@@ -38,6 +38,7 @@ from vfr_tpu.ops.pallas import lstm_kernel as jax_lstm_kernel
 from vfr_tpu.ops.pallas.lstm_kernel import batch_chunk as jax_batch_chunk
 from vfr_tpu_torch.ops.kernels import gru_kernel, lstm_kernel, rnn_plan
 from vfr_tpu_torch.ops.kernels.rnn_plan import (
+    PERSISTENT,
     Workspace,
     batch_chunk,
     device_chunk,
@@ -87,7 +88,7 @@ def test_batch_chunk_is_the_jax_rule(n, kind, a, b):
 def test_flagship_plan_chunks(gates, n, want):
     def fits(b):
         return plan_recurrence(b, 1024, gates, H100_SMS, H100_SMEM,
-                               E=300).variant == "persistent"
+                               E=300).variant in PERSISTENT
     assert batch_chunk(n, fits) == want
     assert fits(want)
 

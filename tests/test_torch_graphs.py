@@ -227,6 +227,30 @@ def test_replays_add_the_captured_launches(graph_path):
     assert g.captures == 1
 
 
+def test_replays_add_counts_registered_by_the_warm_up(graph_path,
+                                                      monkeypatch):
+    """A kernel module imported by the batch's first call registers its
+    launch dict during the capture's warm-up: its launches are taken back
+    from the recording and added by every replay as the others are."""
+    monkeypatch.setattr(trace, "_registry", list(trace._registry))
+    late = []
+
+    def first_import_counts(x):
+        if not late:
+            late.append(trace.register("late_kernel.launches", {"k": 0}))
+        late[0]["k"] += 1
+        return x + 1.0
+
+    g = BatchGraphs(first_import_counts, (0,), "a lazily imported kernel")
+    g(torch.zeros(2))
+    launches = trace.counters()["late_kernel.launches.k"]
+    assert launches == 2                  # the warm-up and the replay
+    for i in range(3):
+        g(torch.ones(2))
+    assert trace.counters()["late_kernel.launches.k"] == launches + 3
+    assert g.captures == 1
+
+
 def test_failed_capture_raises_and_caches_nothing(monkeypatch):
     monkeypatch.setattr(BatchGraphs, "_on_card", lambda self, args: True)
 

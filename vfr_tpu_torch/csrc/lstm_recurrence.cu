@@ -14,8 +14,27 @@
 // rate, and a step costs what it has to fetch again and how often the
 // grid has to be launched or synchronised.
 //
-// Design.  Two variants, chosen by the caller's plan (ops/kernels/
+// Design.  Three variants, chosen by the caller's plan (ops/kernels/
 // rnn_plan.py) from shapes and device properties:
+//   persistent_bulk  (bf16 weights, both slices resident;
+//      lstm_persistent_bulk below) replaces `persistent` wherever it fits
+//      past a daemon pack, with the same bits.  `persistent`'s step on an H100 is 8.75 us: the
+//      recurrent product 5.0 of it against 2.28 for the tensor cores alone,
+//      bound by instruction issue (four cp.async a thread and chunk with
+//      their addresses and predicates, 8 warps an SM), and the next step's
+//      x W_ih (1.75 us) between the barrier's arrive and wait.  Here one
+//      thread moves each [128 rows x 64 k] bf16 chunk (16 KB, pre-swizzled
+//      as wgmma reads it) by one bulk copy into a three-stage mbarrier
+//      ring, from an h buffer every block writes chunk-major and from a
+//      chunk-major bf16 copy of x made before the launch.  The block's
+//      [64 gate rows x K] W slice is the wgmma's A operand and the batch
+//      rows its N (two warpgroups of 64 rows; one warpgroup on all 128
+//      measured slower), so a cell's four gates sit in two lanes and meet
+//      by one shuffle.  x_{t+1}'s chunks need no barrier: their products
+//      run while it completes.  What bounds it now is the ring: the 48 KB
+//      of shared memory beside the 168 KB of slices keep two copies in
+//      flight, ~200 ns a chunk against ~140 of tensor-core time (a step
+//      6.25 us).
 //   persistent  (bf16 weights; rnn_common.cuh::rnn_persistent with the
 //      LstmCell below) what the TPU kernel keeps in VMEM stays on chip for
 //      all T steps: a block's [H x 64] slice of W_hh (and of W_ih, when it
@@ -328,6 +347,399 @@ struct LstmCell {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The persistent_bulk variant.  See the header note.
+
+constexpr int BROWS = 128;                 // batch rows of a block
+constexpr int BCHUNK = BROWS * PKC * 2;    // bytes of a [128 x 64] bf16 chunk
+constexpr int BSTAGES = 3;                 // ring stages: 48 KB, all the
+                                           // shared memory beside the slices
+constexpr int BWCH = 4 * PU * PKC * 2;     // bytes of a [64 x 64] W chunk
+constexpr int BN = 64;                     // rows of a consumer warpgroup
+constexpr int BCONS = 2 * 128;             // two consumer warpgroups
+constexpr int BTHREADS = BCONS + 32;       // + the producer warp
+constexpr int BTILE = BROWS * PU * 4;      // bytes of the f32 h staging tile
+
+// Byte offset of (row n, depth k) inside a chunk: 128-byte rows whose
+// 16-byte pieces are swizzled by the row's low 3 bits, the layout wgmma
+// reads with the 128-byte swizzle (address bits 4-6 ^= bits 7-9).
+__device__ __forceinline__ uint32_t chunk_byte(int n, int k) {
+  return n * 128 + (((k >> 3) ^ (n & 7)) << 4) + ((k & 7) << 1);
+}
+
+// Row of the block's W slice (the wgmma's M) that holds gate `gate` (i, f,
+// g, o) of unit `unit` (0..15).  Accumulator row 16w + q + 8rr of a
+// warpgroup lives in warp w, lanes 4q..4q+3, register half rr: so a thread
+// holds gates 2b, 2b+1 (b = q % 2) of unit 4w + q/2 and lane ^ 4 the other
+// two gates of the same unit and batch columns.
+__device__ __forceinline__ int bulk_row(int gate, int unit) {
+  return 16 * (unit >> 2) + 2 * (unit & 3) + (gate >> 1) + 8 * (gate & 1);
+}
+
+__device__ __forceinline__ void consumers_sync() {   // named barrier 1
+  asm volatile("bar.sync 1, %0;\n" ::"n"(BCONS) : "memory");
+}
+
+// x [B, T, E] f32 -> bf16 chunks xc[(t * nbg + g) * nkx + c]: rows 128g..,
+// depth 64c.. of x_t, zero past B and E, swizzled as chunk_byte.  One
+// 16-byte piece per iteration.
+__global__ void to_bf16_chunked(const float* __restrict__ x,
+                                uint4* __restrict__ xc, int B, int T, int E,
+                                int nbg, int nkx) {
+  const size_t n = (size_t)T * nbg * nkx * (BCHUNK / 16);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)((i >> 3) & (BROWS - 1));
+    size_t rest = i >> 10;                   // the chunk
+    const int c = (int)(rest % nkx);
+    rest /= nkx;
+    const int b = (int)(rest % nbg) * BROWS + r;
+    const int t = (int)(rest / nbg);
+    const int k0 = c * PKC + (((int)(i & 7) ^ (r & 7)) << 3);
+    const float* src = x + ((size_t)b * T + t) * E;
+    uint32_t o[4];
+#pragma unroll
+    for (int h2 = 0; h2 < 4; ++h2) {
+      const int k = k0 + 2 * h2;
+      o[h2] = pack_bf16(b < B && k < E ? src[k] : 0.0f,
+                        b < B && k + 1 < E ? src[k + 1] : 0.0f);
+    }
+    xc[i] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// One layer, all T steps.  Grid (ceil(H/16), ceil(B/128)), 288 threads,
+// launched cooperatively.  Thread 256 is the producer: for each live step
+// it copies x_t's chunks into the ring and then, past the grid barrier,
+// h_{t-1}'s.  Threads 0..255 consume, warpgroup wg on rows 64wg..64wg+63
+// of each chunk: four wgmma m64n64k16 a chunk with the W chunk as A and
+// its half of the ring stage as B, x's chunks into an accumulator started
+// at the bias, h's into one started at 0; then the cell update, h_t
+// through a staging tile into the chunk-major hb (and hs), and the arrive
+// at the batch group's barrier.  x_{t+1}'s chunks do not wait for the
+// barrier, so their products run while it completes.  The wait for a
+// chunk and the stage's release carry no branch the compiler sees
+// (mma_common.cuh), and the role and the batch group's length are made
+// warp-uniform by a shuffle: otherwise ptxas serializes the products
+// (C7520).
+__global__ void __launch_bounds__(BTHREADS, 1)
+lstm_persistent_bulk(const PersistentArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t wsm = (raw + 1023u) & ~1023u;
+  unsigned char* wptr = smem_raw + (wsm - raw);
+  const int B = p.B, T = p.T, H = p.H;
+  const size_t GH = 4 * (size_t)H;
+  const int nkx = p.Ep / PKC, nkh = (H + PKC - 1) / PKC;
+  const int nbg = gridDim.y, bg = blockIdx.y;
+  const int j0 = blockIdx.x * PU;
+  const int row0 = bg * BROWS;
+  const uint32_t ring = wsm + (nkx + nkh) * BWCH;
+  float* stile = reinterpret_cast<float*>(wptr + (nkx + nkh) * BWCH +
+                                          BSTAGES * BCHUNK);
+  const uint32_t full = ring + BSTAGES * BCHUNK + BTILE;   // + 8s
+  const uint32_t empty = full + 8 * BSTAGES;               // + 8s
+  const int tid = threadIdx.x;
+
+  // The block's slices of W_ih and W_hh, once, as A: element (m, k) of
+  // chunk c at c*BWCH + chunk_byte(m, k), m = bulk_row(gate, unit).  A
+  // thread reads 8 units of one gate at 8 consecutive k (8 loads of 16
+  // bytes) and stores, per unit, the 16 bytes of its 8 k.
+  for (int i = tid; i < (nkx + nkh) * 8 * 8; i += BTHREADS) {
+    const int kg = i / 8, n8 = i % 8;
+    const int chunk = kg / 8, piece = kg % 8;
+    const int g = n8 / 2, u0 = (n8 % 2) * 8, j = j0 + u0;
+    uint4 v[8];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int k = kg * 8 + kk;               // over [x chunks | h chunks]
+      v[kk] = make_uint4(0u, 0u, 0u, 0u);
+      if (j < H) {
+        if (chunk < nkx) {
+          if (k < p.E)
+            v[kk] = __ldg(reinterpret_cast<const uint4*>(p.w_ih + k * GH +
+                                                         g * H + j));
+        } else if (k - nkx * PKC < H) {
+          v[kk] = __ldg(reinterpret_cast<const uint4*>(
+              p.w_hh + (k - nkx * PKC) * GH + g * H + j));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      uint32_t o[4];
+#pragma unroll
+      for (int h2 = 0; h2 < 4; ++h2) {
+        const uint32_t lo = reinterpret_cast<const uint16_t*>(&v[2 * h2])[u];
+        const uint32_t hi =
+            reinterpret_cast<const uint16_t*>(&v[2 * h2 + 1])[u];
+        o[h2] = lo | (hi << 16);
+      }
+      const int m = bulk_row(g, u0 + u);
+      *reinterpret_cast<uint4*>(wptr + chunk * BWCH + m * 128 +
+                                ((piece ^ (m & 7)) << 4)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  // hb's depth padding [H, 64*nkh) belongs to no block: the last column
+  // group zeroes it in both buffers, before its first barrier arrive
+  const int pad = (nkh * PKC - H) / 8;        // 16-byte pieces a row
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int i = tid; i < 2 * BROWS * pad; i += BTHREADS) {
+      const int par = i / (BROWS * pad), n = (i / pad) % BROWS;
+      const int k = H % PKC + (i % pad) * 8;   // in the last chunk
+      *reinterpret_cast<uint4*>(
+          reinterpret_cast<unsigned char*>(p.hb) +
+          ((size_t)(par * nbg + bg) * nkh + nkh - 1) * BCHUNK +
+          chunk_byte(n, k)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // the batch group's longest row: past it the block skips its products
+  int* s_len = reinterpret_cast<int*>(stile);
+  int tile_len = (tid < BROWS && row0 + tid < B)
+                     ? min(max(p.lengths[row0 + tid], 0), T) : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2)
+    tile_len = max(tile_len, __shfl_xor_sync(0xffffffffu, tile_len, o));
+  if (tid % 32 == 0) s_len[tid / 32] = tile_len;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, BCONS / 32);   // a lane of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  fence_async_smem();
+  __syncthreads();
+  tile_len = __shfl_sync(0xffffffffu, max(max(s_len[0], s_len[1]),
+                                          max(s_len[2], s_len[3])), 0);
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  __syncthreads();          // s_len is read; the staging tile may be written
+  // the barrier of a batch group: its blocks alone exchange h, and they
+  // share its longest row, so a group whose rows have all ended stops
+  // arriving and waiting together
+  const unsigned per_group = gridDim.x;
+
+  if (warp == BCONS / 32) {   // the producer warp
+    if (tid != BCONS) return;
+    const unsigned char* xs = reinterpret_cast<const unsigned char*>(p.xb);
+    const unsigned char* hsrc = reinterpret_cast<const unsigned char*>(p.hb);
+    int stage = 0;
+    uint32_t phase = 0;
+    auto put = [&](const unsigned char* src) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      mbar_expect_tx(full + 8 * stage, BCHUNK);
+      bulk_copy_g2s(ring + stage * BCHUNK, src, BCHUNK, full + 8 * stage);
+      if (++stage == BSTAGES) { stage = 0; phase ^= 1; }
+    };
+    for (int t = 0; t < tile_len; ++t) {
+      const unsigned char* xt = xs + (size_t)(t * nbg + bg) * nkx * BCHUNK;
+      for (int c = 0; c < nkx; ++c) put(xt + (size_t)c * BCHUNK);
+      if (t > 0) {
+        grid_wait(p.counter + bg, per_group * (unsigned)t);
+        fence_async_global();     // the other blocks' h stores, acquired
+        const unsigned char* ht =
+            hsrc + (size_t)((t % 2) * nbg + bg) * nkh * BCHUNK;
+        for (int c = 0; c < nkh; ++c) put(ht + (size_t)c * BCHUNK);
+      }
+    }
+    return;
+  }
+
+  // This thread's cells: unit 4w + q/2 (gates 2b, 2b+1 in its registers,
+  // b = q % 2), batch rows n = 64wg + 8*(2jj + b) + 2*t4 + e of the group
+  // (it keeps the columns of even j8 for b = 0, odd for b = 1, and gives
+  // lane ^ 4 its gates of the others).  Register 4*j8 + 2*rr + e of acc is
+  // D[row 16w + q + 8rr][column 8*j8 + 2*t4 + e] of its warpgroup.
+  const int wg = warp / 4, w = warp % 4, lane = tid % 32, q = lane / 4;
+  const int t4 = lane % 4;
+  const int bsel = q & 1, unit = 4 * w + (q >> 1), j = j0 + unit;
+  const bool unit_ok = j < H;
+  auto col = [&](int ci) {        // the group row of cell ci
+    return BN * wg + 16 * (ci / 2) + 8 * bsel + 2 * t4 + ci % 2;
+  };
+  float bias[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    bias[rr] = unit_ok ? p.b_ih[(2 * bsel + rr) * H + j] : 0.0f;
+  int len[8];
+  float h[8], c[8], sum[8];
+#pragma unroll
+  for (int ci = 0; ci < 8; ++ci) {
+    const int r = row0 + col(ci);
+    len[ci] = r < B ? min(max(p.lengths[r], 0), T) : 0;
+    h[ci] = c[ci] = sum[ci] = 0.0f;
+  }
+  // the input part (from the bias) and the recurrent part (from 0) in
+  // accumulators of their own, summed before the gates as rnn_persistent
+  // sums them: the two variants give the same bits
+  float gi[32], acc[32];
+  int stage = 0;
+  uint32_t phase = 0;
+  const uint64_t dring = smem_desc(ring + wg * BN * 128);
+  // d += the nk chunks of W from `dw` times the ring's next nk chunks
+  auto consume = [&](float (&d)[32], uint64_t dw, int nk) {
+    int prev = 0;
+    for (int kc = 0; kc < nk; ++kc) {
+      mbar_wait_asm(full + 8 * stage, phase);
+      __syncwarp();
+      wgmma_fence();
+      const uint64_t db = dring + stage * (BCHUNK >> 4);
+#pragma unroll
+      for (int k16 = 0; k16 < PKC / 16; ++k16)
+        wgmma_k16(d, dw + 2 * k16, db + 2 * k16);
+      wgmma_commit();
+      wgmma_wait<1>();                      // chunk kc-1 has read its stage
+      mbar_arrive_if(empty + 8 * prev, kc > 0 && lane == 0);
+      prev = stage;
+      if (++stage == BSTAGES) { stage = 0; phase ^= 1; }
+      dw += BWCH >> 4;
+    }
+    wgmma_wait<0>();
+    mbar_arrive_if(empty + 8 * prev, lane == 0);
+  };
+  const uint64_t dwx = smem_desc(wsm), dwh = smem_desc(wsm + nkx * BWCH);
+  const bool pool = p.pool != 0;
+  unsigned char* hb = reinterpret_cast<unsigned char*>(p.hb);
+
+  for (int t = 0; t < T; ++t) {
+    if (t < tile_len) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        gi[i] = bias[(i >> 1) & 1];
+        acc[i] = 0.0f;
+      }
+      consume(gi, dwx, nkx);
+      if (t > 0) {
+        stamp(p, t - 1, 4);
+        mbar_wait_asm(full + 8 * stage, phase);   // past the grid barrier
+      }
+      stamp(p, t, 0);
+      if (t > 0) consume(acc, dwh, nkh);
+      stamp(p, t, 1);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float own[2], other[2];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int ie = 4 * (2 * jj) + 2 * rr + e, io = ie + 4;
+            const float even = gi[ie] + acc[ie], odd = gi[io] + acc[io];
+            own[rr] = bsel ? odd : even;
+            other[rr] = __shfl_xor_sync(0xffffffffu, bsel ? even : odd, 4);
+          }
+          // the gates (i, f, g, o) of cell ci, through LstmCell's update
+          const float z[4] = {bsel ? other[0] : own[0],
+                              bsel ? other[1] : own[1],
+                              bsel ? own[0] : other[0],
+                              bsel ? own[1] : other[1]};
+          const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          const int ci = 2 * jj + e;
+          float c_new = c[ci];
+          const float h_new = LstmCell::update(z, zero, h[ci], c_new);
+          const bool live = t < len[ci];
+          h[ci] = live ? h_new : h[ci];
+          c[ci] = live ? c_new : c[ci];
+          sum[ci] += live ? h[ci] : 0.0f;
+        }
+    }
+    stamp(p, t, 2);
+    // h_t through the staging tile, f32 [128 rows][16 units], 4-unit
+    // groups swizzled by (row / 2) % 4 (2-way bank conflicts on the writes,
+    // none on the reads): a thread then stores a row's 8 units of h_t, 16
+    // bytes of bf16 to hb and (hs mode) 32 bytes of f32 to hs
+#pragma unroll
+    for (int ci = 0; ci < 8; ++ci) {
+      const int n = col(ci);
+      stile[n * PU + ((w ^ t4) << 2) + (q >> 1)] = h[ci];
+    }
+    consumers_sync();
+    {
+      const int n = tid >> 1, hh = tid & 1;
+      const int r = row0 + n, jv = j0 + 8 * hh;
+      if (r < B && jv < H) {
+        const int sw = (n >> 1) & 3;
+        const float4 v0 = *reinterpret_cast<const float4*>(
+            stile + n * PU + (((2 * hh) ^ sw) << 2));
+        const float4 v1 = *reinterpret_cast<const float4*>(
+            stile + n * PU + (((2 * hh + 1) ^ sw) << 2));
+        if (!pool) {
+          float4* dst = reinterpret_cast<float4*>(
+              p.hs + ((size_t)r * T + t) * H + jv);
+          dst[0] = v0;
+          dst[1] = v1;
+        }
+        // only a live next step reads h_t: a step past the group's rows
+        // writes none, so it cannot reach the buffer a block still behind
+        // reads (it passed no barrier)
+        if (t + 1 < tile_len)
+          *reinterpret_cast<uint4*>(
+              hb + ((size_t)(((t + 1) % 2) * nbg + bg) * nkh + jv / PKC) *
+                       BCHUNK +
+              chunk_byte(n, jv % PKC)) =
+              make_uint4(pack_bf16(v0.x, v0.y), pack_bf16(v0.z, v0.w),
+                         pack_bf16(v1.x, v1.y), pack_bf16(v1.z, v1.w));
+      }
+    }
+    if (t + 1 < T) {
+      consumers_sync();        // every h_t store, and the tile read
+      if (tid == 0 && t + 1 < tile_len) grid_arrive(p.counter + bg);
+    }
+    stamp(p, t, 3);
+  }
+#pragma unroll
+  for (int ci = 0; ci < 8; ++ci) {
+    const int r = row0 + col(ci);
+    if (r >= B || !unit_ok) continue;
+    const size_t o = (size_t)r * H + j;
+    p.h_last[o] = h[ci];
+    if (pool) p.pooled[o] = sum[ci] * (1.0f / fmaxf((float)len[ci], 1.0f));
+  }
+}
+
+// Host side of one persistent_bulk layer: x's chunk-major bf16 copy, then
+// one cooperative launch.  What the device cannot run is refused with an
+// error code, never rerouted.
+int launch_persistent_bulk(const float* x, PersistentArgs a, Bf16* xc,
+                           int grid_x, int grid_y, int smem,
+                           cudaStream_t stream) {
+  const int nkx = a.Ep / PKC, nkh = (a.H + PKC - 1) / PKC;
+  const size_t need = 1024 + (size_t)(nkx + nkh) * BWCH +
+                      BSTAGES * BCHUNK + BTILE + 16 * BSTAGES;
+  if (a.H % 8 != 0 || a.Ep % PKC != 0 || (size_t)smem < need ||
+      grid_x != (a.H + PU - 1) / PU || grid_y != (a.B + BROWS - 1) / BROWS)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  const void* kernel = reinterpret_cast<const void*>(lstm_persistent_bulk);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      BTHREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm * sms < grid_x * grid_y)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  to_bf16_chunked<<<1024, 256, 0, stream>>>(
+      x, reinterpret_cast<uint4*>(xc), a.B, a.T, a.E, grid_y, nkx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  a.xb = xc;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid_x, grid_y),
+                                    dim3(BTHREADS), params, (size_t)smem,
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One LSTM layer, persistent variant (bf16 weights, H % 8 == 0).  x
@@ -362,6 +774,35 @@ extern "C" int vfr_lstm_layer_persistent(
   return launch_persistent<LstmCell>(x, a, static_cast<Bf16*>(xb), gx, nwg,
                                      fuse, grid_x, grid_y, smem,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// One LSTM layer, persistent_bulk variant (bf16 weights, H % 8 == 0, both
+// slices resident).  Arguments as vfr_lstm_layer_persistent's; scratch: xc
+// bf16 [T * grid_y * nkx chunks of 128 x 64] (nkx = ceil(E / 64)) and hb
+// bf16 [2 * grid_y * ceil(H / 64) chunks of 128 x 64], both written by the
+// launch; counter, grid_y zeroed uint32s.  Grid (ceil(H / 16),
+// ceil(B / 128)).
+extern "C" int vfr_lstm_layer_persistent_bulk(
+    const float* x, const void* w_ih, const void* w_hh, const float* b,
+    const int* lengths, void* xc, void* hb, unsigned* counter, float* hs,
+    float* h_last, float* pooled, int B, int T, int E, int H, int pool,
+    int grid_x, int grid_y, int smem, void* stream, long long* timeline) {
+  PersistentArgs a{};
+  a.w_ih = static_cast<const Bf16*>(w_ih);
+  a.w_hh = static_cast<const Bf16*>(w_hh);
+  a.b_ih = b;
+  a.lengths = lengths;
+  a.hb = static_cast<Bf16*>(hb);
+  a.hs = hs;
+  a.h_last = h_last;
+  a.pooled = pooled;
+  a.counter = counter;
+  a.B = B; a.T = T; a.E = E; a.Ep = (E + PKC - 1) / PKC * PKC; a.H = H;
+  a.pool = pool;
+  a.timeline = timeline;
+  return launch_persistent_bulk(x, a, static_cast<Bf16*>(xc), grid_x,
+                                grid_y, smem,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // One LSTM layer, stepwise variant.  x [B, T, E] f32; w_ih [E, 4H], w_hh

@@ -1,5 +1,6 @@
 // Pieces shared by every kernel source of the port: the asynchronous copy
-// (cp.async) helpers that feed the shared-memory rings, the shared-memory
+// (cp.async) helpers that feed the shared-memory rings, the bulk copies and
+// mbarriers of the LSTM's persistent_bulk ring, the shared-memory
 // descriptor and fences of the warpgroup products (wgmma), and the warp-level
 // tensor-core instructions (ldmatrix, mma.sync) of the distance-select (K2)
 // and coarse block-max (K4) kernels.  Included by each kernel source (each
@@ -64,6 +65,89 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Orders this thread's view of device memory, generic stores of other
+// threads included once acquired, before its later bulk copies read it.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Bulk asynchronous copies (one thread moves a contiguous run of bytes,
+// a multiple of 16, global -> shared) that report to an mbarrier, an
+// 8-byte barrier in shared memory given by its address.  A barrier's
+// phase completes when its arrivals are counted and the bytes it was told
+// to expect have landed; mbar_wait(bar, parity) waits for the phase of
+// that parity (0 for the first) and traps after about a second.
+// mbar_wait_asm's loop and mbar_arrive_if's predicate live inside the
+// asm, so the compiler sees no branch where they sit between a
+// warpgroup's asynchronous products (a branch there makes ptxas
+// serialize them).
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > 2000000000LL) __trap();
+}
+// The same wait with its loop inside the asm.
+__device__ __forceinline__ void mbar_wait_asm(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra MBAR_DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 2000000000;\n"
+      "@p trap;\n"
+      "bra MBAR_WAIT;\n"
+      "MBAR_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              unsigned bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 // Four (two) 8x8 matrices of 16-bit elements from shared memory: lane l
 // gives the address of row l % 8 of matrix l / 8 (16 bytes); the thread

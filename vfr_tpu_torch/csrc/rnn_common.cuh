@@ -279,17 +279,20 @@ constexpr int PSTAGES = 3;        // ring stages of one warpgroup (6 measured
 
 struct PersistentArgs {
   const float* gx;        // [B*T, G*H] f32, x W_ih + b_ih (unfused input)
-  const Bf16* xb;         // [B*T, Ep] bf16, zero padded   (fused input)
+  const Bf16* xb;         // [B*T, Ep] bf16, zero padded   (fused input;
+                          //  persistent_bulk: chunk-major)
   const Bf16* w_ih;       // [E, G*H]
   const Bf16* w_hh;       // [H, G*H]
   const float* b_ih;      // [G*H] (the LSTM's single bias)
   const float* b_hh;      // [G*H], null for the LSTM
   const int* lengths;     // [B]
-  Bf16* hb;               // [2, B, H] scratch
+  Bf16* hb;               // [2, B, H] scratch (persistent_bulk:
+                          //  chunk-major)
   float* hs;              // [B, T, H] (hs mode)
   float* h_last;          // [B, H]
   float* pooled;          // [B, H] (pool mode)
-  unsigned* counter;      // zeroed: the grid barrier
+  unsigned* counter;      // zeroed: the grid barrier (persistent_bulk:
+                          //  one a batch group)
   int B, T, E, Ep, H;
   int pool;               // 1: pooled mode (fused mean), 0: hs mode
   long long* timeline;    // null, or [T, 5] %globaltimer stamps (see stamp)
@@ -299,7 +302,9 @@ struct PersistentArgs {
 // writes the nanosecond timer after (0) the barrier wait, (1) the recurrent
 // product, (2) the cell update, (3) the h stores and the barrier arrive,
 // (4) the next step's input part.  Off (one predictable branch) when
-// `timeline` is null.
+// `timeline` is null.  The LSTM's persistent_bulk variant
+// (lstm_recurrence.cu) stamps the same slots, (0) when h's first chunk has
+// landed, and reuses PersistentArgs and the grid barrier below.
 __device__ __forceinline__ void stamp(const PersistentArgs& p, int t,
                                       int slot) {
   if (p.timeline != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&

@@ -134,39 +134,6 @@ __device__ __forceinline__ uint32_t lo_of(uint32_t x) {
   return (__float_as_uint(lo) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
-                                                  uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// until the phase of parity `parity` of `bar` has completed; a wait of
-// ~1 s (2e9 cycles) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > 2000000000LL) __trap();
-}
-
 // the registers r as the compiler sees them: no use of them is moved above
 // this point, nor any write below it
 template <int N>

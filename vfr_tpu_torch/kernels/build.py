@@ -46,6 +46,7 @@ SIGNATURES = {
     "lstm_recurrence": {
         "vfr_lstm_layer": [_P] * 15 + [_I] * 6 + [_P],
         "vfr_lstm_layer_persistent": [_P] * 12 + [_I] * 10 + [_P, _P],
+        "vfr_lstm_layer_persistent_bulk": [_P] * 11 + [_I] * 8 + [_P, _P],
     },
     "gru_recurrence": {
         "vfr_gru_layer": [_P] * 15 + [_I] * 6 + [_P],

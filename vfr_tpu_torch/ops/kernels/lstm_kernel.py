@@ -6,8 +6,10 @@ lstm_recurrence.cu``), the port of the JAX package's Pallas
 raises); on a CPU tensor it runs ``lstm_recurrence_plain``, the same
 arithmetic step by step in PyTorch.  ``cuda_lstm`` chains layers like
 ``pallas_lstm``: inner layers emit hs, the last one pools when
-``pool="mean"``.  The kernel has two variants, ``persistent`` (W_hh
-resident in shared memory, one cooperative launch per layer) and
+``pool="mean"``.  The kernel has three variants, ``persistent_bulk`` and
+``persistent`` (W_hh resident in shared memory, one cooperative launch per
+layer; the first fed by bulk copies, with the second's bits, wherever it
+fits past a daemon pack) and
 ``stepwise`` (one launch per step); ``rnn_plan.plan_recurrence`` picks one
 from shapes and device properties, and ``variant=`` holds a call to one.
 Nothing falls back: a variant that cannot run raises.
@@ -29,7 +31,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from vfr_tpu_torch.ops.kernels.rnn_plan import (
+    BULK_ROWS,
     CHUNK,
+    PERSISTENT,
     RecurrencePlan,
     Workspace,
     chain_layers,
@@ -41,8 +45,9 @@ from vfr_tpu_torch.utils import trace
 
 LAUNCHES = trace.register("lstm_kernel.launches",
                           {"lstm_pooled": 0, "lstm_hs": 0})
-VARIANT_LAUNCHES = trace.register("lstm_kernel.variant_launches",
-                                  {"persistent": 0, "stepwise": 0})
+VARIANT_LAUNCHES = trace.register(
+    "lstm_kernel.variant_launches",
+    {"persistent_bulk": 0, "persistent": 0, "stepwise": 0})
 # the same launches by device
 DEVICE_LAUNCHES: Dict[str, int] = trace.register(
     "lstm_kernel.device_launches", {})
@@ -98,11 +103,12 @@ def lstm_layer(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  Same results as ``lstm_recurrence_plain``.  ``variant``
-    ("auto", "persistent", "stepwise") holds the call to one kernel variant
-    ("persistent" raises where the plan refuses it); ``fuse_input`` forces
-    the persistent variant's resident W_ih on or off; ``timeline``, a CUDA
-    int64 tensor [T, 5], receives the persistent kernel's per-step time
-    stamps (``csrc/rnn_common.cuh::stamp``).  ``out`` / ``h_last_out``
+    ("auto", "persistent_bulk", "persistent", "stepwise") holds the call to
+    one kernel variant (either persistent one raises where the plan refuses
+    it); ``fuse_input`` forces the persistent variants' resident W_ih on or
+    off (off: never ``persistent_bulk``); ``timeline``, a CUDA int64 tensor
+    [T, 5], receives a persistent kernel's per-step time stamps
+    (``csrc/rnn_common.cuh::stamp``).  ``out`` / ``h_last_out``
     (CUDA tensors only) receive the results in place (a batch chunk's rows
     of the chain's output); ``workspace`` lends the persistent variant its work buffers.
     The kernel launches on the CUDA device of ``x``, which every operand
@@ -156,7 +162,7 @@ def lstm_layer(
                   else torch.empty(B, H, **f32))
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = load("lstm_recurrence")
-        if plan.variant == "persistent":
+        if plan.variant in PERSISTENT:
             timeline_ptr = 0
             if timeline is not None:
                 if (timeline.device != dev or timeline.dtype != torch.int64
@@ -168,6 +174,25 @@ def lstm_layer(
             if out is None:
                 out = torch.empty((B, H) if pooled else (B, T, H), **f32)
             ws = workspace if workspace is not None else Workspace(dev)
+            # the grid barrier's counters, zeroed for each launch: one a
+            # batch group (persistent_bulk; persistent counts in the first)
+            counter = ws.take("counter", (plan.grid[1],),
+                              torch.int32).zero_()
+        if plan.variant == "persistent_bulk":
+            # x and the h ping-pong, chunk-major: [chunks, 128 rows, 64]
+            groups = plan.grid[1]
+            xc = ws.take("xb", (T * groups * -(-E // CHUNK), BULK_ROWS,
+                                CHUNK), torch.bfloat16)
+            hb = ws.take("hb", (2 * groups * -(-H // CHUNK), BULK_ROWS,
+                                CHUNK), torch.bfloat16)
+            err = lib.vfr_lstm_layer_persistent_bulk(
+                x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+                lengths.data_ptr(), xc.data_ptr(), hb.data_ptr(),
+                counter.data_ptr(), 0 if pooled else out.data_ptr(),
+                h_last.data_ptr(), out.data_ptr() if pooled else 0, B, T, E,
+                H, int(pooled), plan.grid[0], plan.grid[1], plan.smem_bytes,
+                stream, timeline_ptr)
+        elif plan.variant == "persistent":
             if plan.fuse_input:
                 xb = ws.take("xb", (B * T, -(-E // CHUNK) * CHUNK),
                              torch.bfloat16)
@@ -177,8 +202,6 @@ def lstm_layer(
                 gx_ptr = ws.take("gx", (B, T, 4 * H), torch.float32
                                  ).data_ptr()
             hb = ws.take("hb", (2, B, H), torch.bfloat16)
-            # the grid barrier's counter, zeroed for each launch
-            counter = ws.take("counter", (1,), torch.int32).zero_()
             err = lib.vfr_lstm_layer_persistent(
                 x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
                 lengths.data_ptr(), xb.data_ptr(), gx_ptr, hb.data_ptr(),

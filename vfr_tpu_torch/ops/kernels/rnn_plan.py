@@ -4,6 +4,17 @@ once-per-tree weight preparation.
 
 Variants of ``csrc/lstm_recurrence.cu`` / ``csrc/gru_recurrence.cu``:
 
+``persistent_bulk``  the LSTM's, with ``persistent``'s bits, wherever it
+    fits and the batch is more than a daemon pack (``PACK_ROWS``): one
+    cooperative launch per layer, a block owns 16 hidden units x
+    4 gates x one group of 128 rows; its W_hh and W_ih slices stay in
+    shared memory as the wgmma's A operand (the gate rows as M = 64), and
+    h_{t-1} and x_t reach it as bulk copies of 16 KB chunks through a ring
+    of ``BULK_STAGES`` stages, from buffers stored chunk-major and
+    pre-swizzled.  Needs 4 gates, bf16 weights, ``hidden % 8 == 0``, both
+    slices, the ring and an f32 staging tile within the block's shared
+    memory, and a grid of at most one block per SM.  The GRU's 3 x 16 gate
+    rows do not fill M = 64, so the GRU never takes it.
 ``persistent``  one cooperative launch per layer.  A block owns ``u = 16``
     hidden units x all gates x one batch group of 64 or 128 rows and keeps
     its slice of W_hh (and of W_ih when it fits: ``fuse_input``) in shared
@@ -39,12 +50,19 @@ STAGE_BYTES = TILE_ROWS * CHUNK * 2
 ALIGN_SLACK = 1024      # the kernel aligns its tiles to 1024 bytes itself
 STAGES = 3              # ring stages per warpgroup (rnn_common.cuh PSTAGES)
 MAX_WARPGROUPS = 2
-VARIANTS = ("auto", "persistent", "stepwise")
+BULK_ROWS = 128         # rows of a persistent_bulk block (lstm_recurrence.cu
+BULK_STAGES = 3         # BROWS) and its ring's stages (BSTAGES), of one
+BULK_STAGE_BYTES = BULK_ROWS * CHUNK * 2    # [128 x 64] bf16 chunk each
+BULK_TILE_BYTES = BULK_ROWS * UNITS * 4     # the f32 h staging tile
+BULK_BARRIER_BYTES = 16 * BULK_STAGES       # a full and an empty mbarrier
+PACK_ROWS = 8           # batches of at most this many rows keep persistent
+VARIANTS = ("auto", "persistent_bulk", "persistent", "stepwise")
+PERSISTENT = ("persistent_bulk", "persistent")   # one launch per layer
 
 
 @dataclasses.dataclass(frozen=True)
 class RecurrencePlan:
-    variant: str                 # "persistent" | "stepwise"
+    variant: str                 # "persistent_bulk" | "persistent" | "stepwise"
     reason: str                  # why, in words
     u: int = 0                   # hidden units per block
     batch_group: int = 0         # rows per block
@@ -54,7 +72,35 @@ class RecurrencePlan:
 
     @property
     def warpgroups(self) -> int:
+        """Warpgroups of a ``persistent`` block, one 64-row tile each."""
         return self.batch_group // TILE_ROWS
+
+
+def bulk_smem(E: int, H: int) -> int:
+    """Dynamic shared memory of one ``persistent_bulk`` block."""
+    depth = _round_up(H, CHUNK) + _round_up(E, CHUNK)
+    return (ALIGN_SLACK + depth * UNITS * 4 * 2
+            + BULK_STAGES * BULK_STAGE_BYTES + BULK_TILE_BYTES
+            + BULK_BARRIER_BYTES)
+
+
+def _bulk_refusal(B: int, H: int, gates: int, sm_count: int,
+                  smem_bytes: int, E: Optional[int],
+                  fuse_input: Optional[bool]) -> Optional[str]:
+    """Why ``persistent_bulk`` cannot run this layer; None when it can."""
+    if gates != 4:
+        return (f"{gates} x {UNITS} gate rows do not fill a wgmma's M of "
+                f"{4 * UNITS}")
+    if E is None or fuse_input is False:
+        return "needs W_ih's slice resident"
+    grid = (-(-H // UNITS), -(-B // BULK_ROWS))
+    if grid[0] * grid[1] > sm_count:
+        return (f"grid {grid[0]}x{grid[1]} of {BULK_ROWS}-row blocks "
+                f"exceeds {sm_count} SMs")
+    if bulk_smem(E, H) > smem_bytes:
+        return (f"W_ih and W_hh slices, a {BULK_STAGES}-stage ring and the "
+                f"staging tile exceed {smem_bytes} bytes of shared memory")
+    return None
 
 
 def _round_up(n: int, m: int) -> int:
@@ -64,12 +110,21 @@ def _round_up(n: int, m: int) -> int:
 def plan_recurrence(B: int, H: int, gates: int, sm_count: int,
                     smem_bytes: int, E: Optional[int] = None,
                     weights_bf16: bool = True,
-                    fuse_input: Optional[bool] = None) -> RecurrencePlan:
+                    fuse_input: Optional[bool] = None,
+                    bulk: Optional[bool] = None) -> RecurrencePlan:
     """The variant and launch geometry for one layer of ``B`` rows, hidden
     size ``H``, ``gates`` gate columns per unit (LSTM 4, GRU 3) on a device
     with ``sm_count`` SMs and ``smem_bytes`` of shared memory per block.
     ``E`` (the input width) lets W_ih's slice be held beside W_hh's;
-    ``fuse_input`` forces that on or off (None: when it fits)."""
+    ``fuse_input`` forces that on or off (None: when it fits).
+
+    ``persistent_bulk`` is taken where it can run (``_bulk_refusal``) and
+    ``B > PACK_ROWS``.  It gives ``persistent``'s bits, so the rule moves
+    only time: measured on an H100 (``chip_smoke.py --phases rnn``, in
+    turns) it is 10-15% faster from 64 rows on, but at a daemon's packs of
+    1 and 8 rows it read from 4% faster to 9% slower by run, so packs keep
+    ``persistent``.  ``bulk`` True holds a call to it at any B (stepwise
+    with the reason where it cannot run), False to the others."""
     def stepwise(reason):
         return RecurrencePlan("stepwise", reason)
 
@@ -79,6 +134,16 @@ def plan_recurrence(B: int, H: int, gates: int, sm_count: int,
         return stepwise("empty batch or hidden size")
     if H % 8:
         return stepwise("hidden % 8 != 0")
+    if bulk is not False:
+        why = _bulk_refusal(B, H, gates, sm_count, smem_bytes, E, fuse_input)
+        if why is None and (bulk or B > PACK_ROWS):
+            return RecurrencePlan(
+                "persistent_bulk", "slices resident, operands by bulk copy",
+                u=UNITS, batch_group=BULK_ROWS,
+                grid=(-(-H // UNITS), -(-B // BULK_ROWS)),
+                smem_bytes=bulk_smem(E, H), fuse_input=True)
+        if bulk:
+            return stepwise(why)
     cols = UNITS * gates
     col_groups = -(-H // UNITS)
     for nwg in range(1, MAX_WARPGROUPS + 1):
@@ -111,22 +176,30 @@ def plan_recurrence(B: int, H: int, gates: int, sm_count: int,
                           smem_bytes=smem, fuse_input=fused)
 
 
+def _bulk_of(variant: str) -> Optional[bool]:
+    """``plan_recurrence``'s ``bulk`` for a variant asked for."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    return {"persistent_bulk": True, "persistent": False}.get(variant)
+
+
 def device_plan(device: torch.device, B: int, E: int, H: int, gates: int,
                 weights_bf16: bool, variant: str = "auto",
                 fuse_input: Optional[bool] = None) -> RecurrencePlan:
     """``plan_recurrence`` on ``device``'s properties, held to ``variant``:
-    "persistent" raises where the plan says stepwise."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
-                         f"{variant!r}")
+    "persistent_bulk" or "persistent" raises where the plan cannot give
+    it."""
+    bulk = _bulk_of(variant)
     if variant == "stepwise":
         return RecurrencePlan("stepwise", "asked for")
     props = torch.cuda.get_device_properties(device)
     plan = plan_recurrence(B, H, gates, props.multi_processor_count,
                            props.shared_memory_per_block_optin, E=E,
-                           weights_bf16=weights_bf16, fuse_input=fuse_input)
-    if variant == "persistent" and plan.variant != "persistent":
-        raise ValueError(f"persistent recurrence refused: {plan.reason}")
+                           weights_bf16=weights_bf16, fuse_input=fuse_input,
+                           bulk=bulk)
+    if variant != "auto" and plan.variant != variant:
+        raise ValueError(f"{variant} recurrence refused: {plan.reason}")
     return plan
 
 
@@ -144,12 +217,11 @@ def device_chunk(device: torch.device, B: int,
                  weights_bf16: bool, variant: str = "auto") -> Optional[int]:
     """The batch chunk a chain of layers (``layer_shapes``: (E, H) each)
     runs in on ``device``: the largest ``batch_chunk`` at which every layer
-    plans ``persistent`` on that device's properties; B when the whole
-    batch does, and None when no chunk does, ``variant`` is "stepwise" or
-    the device is not CUDA (the chain then runs unchunked)."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
-                         f"{variant!r}")
+    plans one of ``PERSISTENT`` (as ``variant`` allows) on that device's
+    properties; B when the whole batch does, and None when no chunk does,
+    ``variant`` is "stepwise" or the device is not CUDA (the chain then
+    runs unchunked)."""
+    bulk = _bulk_of(variant)
     if variant == "stepwise" or B < 1 or device.type != "cuda":
         return None
     props = torch.cuda.get_device_properties(device)
@@ -158,7 +230,7 @@ def device_chunk(device: torch.device, B: int,
         return all(plan_recurrence(
             b, H, gates, props.multi_processor_count,
             props.shared_memory_per_block_optin, E=E,
-            weights_bf16=weights_bf16).variant == "persistent"
+            weights_bf16=weights_bf16, bulk=bulk).variant in PERSISTENT
             for E, H in layer_shapes)
     return batch_chunk(B, fits)
 

@@ -203,7 +203,7 @@ class BatchGraphs:
         with trace.setup("graphs.capture", self.id), self._device(args):
             static = {i: args[i].clone() for i in self.batch_args}
             call = [static.get(i, a) for i, a in enumerate(args)]
-            counters = trace.counter_dicts()
+            counters: List[Dict] = []
             snap: Optional[List[Dict]] = None
             stages: List = []
 
@@ -212,10 +212,12 @@ class BatchGraphs:
                     return self.eager(*call)
 
             def record():
-                nonlocal snap, stages
+                nonlocal counters, snap, stages
                 with trace.setup("graphs.record"):
                     # the counts the capture moves are taken back: nothing
-                    # ran
+                    # ran.  The dicts are listed after the warm-up, which
+                    # registers those of kernel modules it imports first.
+                    counters = trace.counter_dicts()
                     snap = [dict(c) for c in counters]
                     with trace.capturing(self.id, self.name) as stages:
                         return self.eager(*call)
