@@ -2,10 +2,12 @@
 
 A cell is ``workloads/<cell>.json``: its configuration's name, its traffic
 mix's name, the chips it needs, why it exists and the limits of its check.
-A configuration is ``configs/<config>.json``, a traffic mix
+A configuration is ``configs/<config>.json`` (whose ``tower`` names
+``towers/<tower>.py``, ``mcn`` where it names none), a traffic mix
 ``traffic/<traffic>.json`` (whose ``driver`` names ``drivers/<driver>.py``)
 and a metric ``metrics/<metric>.py``.  Adding a cell, a configuration, a
-traffic mix or a metric is adding files; nothing here lists them.
+query tower, a traffic mix or a metric is adding files; nothing here lists
+them.
 """
 
 from __future__ import annotations
@@ -19,13 +21,14 @@ from typing import Dict, List, Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(ROOT)
-SECTIONS = ("data", "model", "train", "eval")
+DEFAULT_TOWER = "mcn"
+CODE = ("metrics", "drivers", "towers")
 
 
 def names(kind: str, root: str = ROOT) -> List[str]:
     """The names of ``kind``'s files (configs, traffic, workloads: .json;
-    metrics, drivers: .py), sorted."""
-    ext = ".py" if kind in ("metrics", "drivers") else ".json"
+    metrics, drivers, towers: .py), sorted."""
+    ext = ".py" if kind in CODE else ".json"
     folder = os.path.join(root, kind)
     if not os.path.isdir(folder):
         return []
@@ -60,6 +63,7 @@ class Cell:
     cell: Dict
     config: Dict
     traffic: Dict
+    root: str = ROOT
 
     @property
     def limits(self) -> Dict[str, float]:
@@ -69,26 +73,40 @@ class Cell:
     def driver(self) -> str:
         return self.traffic["driver"]
 
+    @property
+    def tower(self) -> str:
+        return self.config.get("tower", DEFAULT_TOWER)
+
 
 def cell(name: str, root: str = ROOT) -> Cell:
     c = load_json("workloads", name, root)
     return Cell(name, c, load_json("configs", c["config"], root),
-                load_json("traffic", c["traffic"], root))
+                load_json("traffic", c["traffic"], root), root)
+
+
+def tower(name: Optional[str] = None, root: str = ROOT) -> ModuleType:
+    """The query tower ``towers/<name>.py`` (``mcn`` for None): its sizes,
+    its check of a configuration, its seeded weights, its query stages'
+    precisions, its plain reference and its encode's work."""
+    return load_module("towers", name or DEFAULT_TOWER, root)
 
 
 def experiment(config: Dict):
     """The port's ``ExperimentConfig`` of a configuration file: its preset
-    with every section key of the file set.  A key that differs from the
-    preset and is not listed in ``reduced`` raises: the file is the
-    configuration as it is run, and says what it changed."""
+    with every key set of each section the file gives (each field of the
+    ``ExperimentConfig`` that is itself a dataclass).  A key that differs
+    from the preset and is not listed in ``reduced`` raises: the file is
+    the configuration as it is run, and says what it changed."""
     from vfr_tpu_torch.config import get_preset
 
     cfg = get_preset(config["preset"])
     reduced = set(config.get("reduced", []))
     parts = {}
-    for sec in SECTIONS:
+    for sec in (f.name for f in dataclasses.fields(cfg)):
         base = getattr(cfg, sec)
-        want = dict(config.get(sec, {}))
+        if sec not in config or not dataclasses.is_dataclass(base):
+            continue
+        want = dict(config[sec])
         for key, value in want.items():
             have = getattr(base, key)
             if isinstance(have, tuple):

@@ -1,8 +1,9 @@
 """Bulk retrieval: a closed loop of query batches through one retriever.
 
-Set-up builds the configuration's model, seeded weights and the index as
-a saved one loads, then ``make_retriever`` over it (one CUDA graph replay
-a batch on the card) and warms it: the first call captures the batch's
+Set-up builds the configuration's model, its query tower's seeded weights
+(``towers/<tower>.py``, named by the configuration) and the index as a
+saved one loads, then ``make_retriever`` over it (one CUDA graph replay a
+batch on the card) and warms it: the first call captures the batch's
 graph.  The window dispatches batch after batch, each a different batch
 of a pool drawn from the seed, and copies each batch's distances and rows
 to pinned host memory, at most ``results_in_flight`` batches behind: a
@@ -21,7 +22,7 @@ from types import SimpleNamespace
 
 import torch
 
-from vfrbench import inputs
+from vfrbench import catalog, inputs
 from vfrbench.drivers import _common
 from vfrbench.reference import judge, mcn
 
@@ -32,10 +33,12 @@ def setup(cell, cfg, seed: int, seconds: float, dev):
     from vfr_tpu_torch.models.mcn import prepare_query_params
 
     tr = cell.traffic
-    s = _common.sizes(cell, cfg)
-    _common.check_model(s, cfg)
+    tower = catalog.tower(cell.tower, cell.root)
+    s = {**_common.sizes(cell, cfg), **tower.sizes(cell, cfg),
+         "tower": cell.tower}
+    tower.check(s, cfg)
     model = build_model(cfg)
-    params = inputs.make_params(s, seed, dev)
+    params = tower.make_params(s, seed, dev)
     index = _common.make_index(s, cfg, seed, dev)
     Q, k = int(tr["query_batch"]), int(tr["topk"])
     toks, lens = inputs.token_batches(int(tr["distinct_batches"]), Q, s["T"],
@@ -49,8 +52,9 @@ def setup(cell, cfg, seed: int, seconds: float, dev):
         retrieve(qp, toks[i], lens[i])
     _common.sync(dev)
     return SimpleNamespace(cell=cell, cfg=cfg, seed=seed, dev=dev, s=s,
-                           params=params, index=index, toks=toks, lens=lens,
-                           retrieve=retrieve, qp=qp, Q=Q, k=k, kept=None)
+                           tower=tower, params=params, index=index,
+                           toks=toks, lens=lens, retrieve=retrieve, qp=qp,
+                           Q=Q, k=k, kept=None)
 
 
 def window(st, seconds: float, tracer):
@@ -117,6 +121,12 @@ def release(st) -> None:
         torch.cuda.empty_cache()
 
 
+def _plan(st):
+    """The stated precisions: the tower's query stages', then the score's."""
+    return {**st.tower.plan(st.cfg, st.dev),
+            "score": _common.serving_plan(st.cfg, st.dev)["score"]}
+
+
 def _queries(st, plan):
     """The reference's query embeddings of the kept batches, stacked
     [S, kept * Q, d], with the kept answers [kept * Q, k]."""
@@ -124,8 +134,8 @@ def _queries(st, plan):
         qs, ds, rs = [], [], []
         for i, (d, r) in st.kept:
             b = i % st.toks.shape[0]
-            qs.append(mcn.retrieval_queries(st.params, st.s, st.toks[b],
-                                            st.lens[b], plan))
+            qs.append(st.tower.reference_queries(st.params, st.s, st.toks[b],
+                                                 st.lens[b], plan))
             ds.append(d.to(st.dev))
             rs.append(r.to(st.dev))
         return torch.cat(qs, 1), torch.cat(ds), torch.cat(rs)
@@ -137,7 +147,7 @@ def check(st, control=False, fault=""):
     ``control`` names) stands in for the port's answers; with ``fault``
     the reference at the stated precisions with that select fault
     (``mcn.SELECT_FAULTS``)."""
-    plan = _common.serving_plan(st.cfg, st.dev)
+    plan = _plan(st)
     corpus = mcn.Corpus(st.index.m, st.index.weights)
     q, d, r = _queries(st, plan)
     with mcn.f32_only(), torch.no_grad():
@@ -146,7 +156,7 @@ def check(st, control=False, fault=""):
             qc = _queries(st, low)[0] if control else q
             d, r = mcn.top_k(corpus, qc, st.k, low["score"], fault=fault)
         q_lower = {stage: _queries(st, mcn.lower(plan, {stage}))[0]
-                   for stage in mcn.QUERY_STAGES}
+                   for stage in st.tower.STAGES}
         return judge.retrieval_readings(corpus, q, d, r, plan["score"],
                                         q_lower)
 

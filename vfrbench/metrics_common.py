@@ -4,9 +4,9 @@ Each returns None where its record has nothing to read, never 0."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
-from vfrbench import trace, work
+from vfrbench import catalog, trace, work
 
 
 def idle_share(rec: Dict, kind: str) -> Optional[float]:
@@ -28,15 +28,27 @@ def mean_stages(rec: Dict) -> Optional[Dict[str, float]]:
     return {k: sum(s[k] for s in split) / len(split) for k in split[0]}
 
 
-_WORK = {"encode": work.encode_work, "score": work.score_work,
-         "select": work.select_work}
+_WORK = {"score": work.score_work, "select": work.select_work}
+
+
+def stage_work(rec: Dict, stage: str) -> Tuple[float, Dict[str, float]]:
+    """(bytes, operations by dtype) of one batch's ``stage`` from the
+    window's shapes: the encode's as the query tower the shapes name counts
+    it (``mcn`` where they name none), the score's and the select's as
+    ``work.py`` does."""
+    shapes = rec["window"]["shapes"]
+    if stage == "encode":
+        tower = catalog.tower(shapes.get("tower"),
+                              rec.get("root", catalog.ROOT))
+        return tower.encode_work(shapes)
+    return _WORK[stage](shapes)
 
 
 def roofline(rec: Dict, stage: str) -> Optional[float]:
     stages = mean_stages(rec)
     if not stages or stages[stage] <= 0:
         return None
-    bytes_, ops = _WORK[stage](rec["window"]["shapes"])
+    bytes_, ops = stage_work(rec, stage)
     least, _ = work.bound(bytes_, ops)
     return 100.0 * least / stages[stage]
 
@@ -48,8 +60,7 @@ def batch_mfu(rec: Dict) -> Optional[float]:
     n = len(trace.replays(t["kernels"]))
     if n == 0:
         return None
-    shapes = rec["window"]["shapes"]
-    ops = work.add(work.encode_work(shapes)[1], work.score_work(shapes)[1])
+    ops = work.add(stage_work(rec, "encode")[1], stage_work(rec, "score")[1])
     return 100.0 * work.seconds_at_peak(ops) / (t["window_s"] / n)
 
 

@@ -13,10 +13,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from vfrbench import trace, work
+from vfrbench.metrics_common import stage_work
 
 SETUP_SPANS = ("kernels.load", "graphs.capture")   # and every "setup.*"
-_WORK = {"encode": work.encode_work, "score": work.score_work,
-         "select": work.select_work}
 
 
 def snapshot() -> Optional[Dict]:
@@ -72,8 +71,8 @@ def stage_split(kernels: Sequence, maps: Sequence[Dict]
 
 
 def stage_roofline(rec: Dict, stage: str) -> Optional[float]:
-    """The stage's least time (``work.py``) over its mean device time a
-    replay, the replays split by the port's stage maps."""
+    """The stage's least time (``metrics_common.stage_work``) over its mean
+    device time a replay, the replays split by the port's stage maps."""
     t = rec.get("trace")
     snap = snapshot()
     if rec["kind"] != "batch" or not t or not snap:
@@ -82,7 +81,7 @@ def stage_roofline(rec: Dict, stage: str) -> Optional[float]:
     times = [s[stage] for s in split if stage in s]
     if not times or sum(times) <= 0:
         return None
-    bytes_, ops = _WORK[stage](rec["window"]["shapes"])
+    bytes_, ops = stage_work(rec, stage)
     least, _ = work.bound(bytes_, ops)
     return 100.0 * least / (sum(times) / len(times))
 

@@ -68,7 +68,7 @@ def run_cell(cell: "catalog.Cell", seed: int, seconds: float, traced: bool,
     ok, rows = judge.verdict(readings, cell.limits)
     failed = int(win.get("failed", 0))
     record = {"kind": cell.driver, "setup_s": setup_s, "window": win,
-              "trace": tr}
+              "trace": tr, "root": root}
     modules = catalog.metric_modules(root)
     wanted = catalog.cell_metrics(
         bench, cell.name, traced,

@@ -1,6 +1,7 @@
 """Tiny cells for the CPU tests: the real configurations with their widths
 cut (every cut listed in ``reduced``), written with traffic and cells into
-a root of their own beside links to the real drivers and metrics."""
+a root of their own beside links to the real drivers, towers and
+metrics."""
 
 from __future__ import annotations
 
@@ -56,17 +57,20 @@ def write(root: str, kind: str, name: str, obj: dict) -> None:
         json.dump(obj, f)
 
 
-def make_root(root: str, metrics: str = "link") -> str:
-    """A root holding the tiny cells; ``metrics`` "link" points at the real
-    readers, "copy" copies them (so that a test can add one)."""
+def make_root(root: str, metrics: str = "link", towers: str = "link") -> str:
+    """A root holding the tiny cells; ``metrics`` and ``towers`` "link"
+    point at the real readers and towers, "copy" copies them (so that a
+    test can add one)."""
     os.makedirs(root, exist_ok=True)
     os.symlink(os.path.join(catalog.ROOT, "drivers"),
                os.path.join(root, "drivers"))
-    src = os.path.join(catalog.ROOT, "metrics")
-    if metrics == "copy":
-        shutil.copytree(src, os.path.join(root, "metrics"))
-    else:
-        os.symlink(src, os.path.join(root, "metrics"))
+    for kind, how in (("metrics", metrics), ("towers", towers)):
+        src = os.path.join(catalog.ROOT, kind)
+        if how == "copy":
+            shutil.copytree(src, os.path.join(root, kind),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+        else:
+            os.symlink(src, os.path.join(root, kind))
     write(root, "configs", "tiny_s10k", tiny_config("serving_10k"))
     write(root, "configs", "tiny_flagship", tiny_config("didemo_flagship"))
     for name, t in TRAFFIC.items():

@@ -14,16 +14,19 @@ from vfrbench.tests import _tiny
 
 CELLS = ["flagship-batch", "flagship-daemon", "flagship-train", "s10k-batch"]
 E2E = ["queries_per_s", "request_p95_ms", "setup_s", "train_queries_per_s"]
-PER_LAYER = ["encode_roofline.batch", "idle_share.batch",
+PER_LAYER = ["dispatch_host_us.batch", "encode_roofline.batch",
+             "encode_stage_roofline.batch", "idle_share.batch",
              "idle_share.daemon", "idle_share.train", "mfu.batch",
-             "mfu.train", "request_p50_ms.daemon", "score_roofline.batch",
-             "select_roofline.batch"]
+             "mfu.train", "port_setup_s.batch", "request_p50_ms.daemon",
+             "score_roofline.batch", "score_stage_roofline.batch",
+             "select_roofline.batch", "select_stage_roofline.batch"]
 
 
 def test_names_are_files():
     assert catalog.names("workloads") == CELLS
     assert catalog.names("configs") == ["didemo_flagship", "serving_10k"]
     assert catalog.names("drivers") == ["batch", "daemon", "train"]
+    assert catalog.names("towers") == ["mcn"]
     assert catalog.names("metrics") == sorted(E2E + PER_LAYER)
 
 

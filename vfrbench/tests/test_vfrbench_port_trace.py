@@ -68,8 +68,10 @@ def test_replays_split_by_the_map(snap):
     assert left == 1                       # the group of five
     assert split == [{"encode": 600e-9, "score": 2000e-9,
                       "select": 200e-9}] * 2
+    counts = {"encode": work.encode_work, "score": work.score_work,
+              "select": work.select_work}
     for stage, secs in split[0].items():
-        least, _ = work.bound(*port_trace._WORK[stage](SHAPES))
+        least, _ = work.bound(*counts[stage](SHAPES))
         got = _read(f"{stage}_stage_roofline.batch", rec)
         assert got == pytest.approx(100.0 * least / secs)
 
