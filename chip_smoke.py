@@ -1217,6 +1217,73 @@ def phase_score_gemm(results, seed: int):
     results["score_gemm"] = dict(times=recs, second_card=second)
 
 
+# (B, T, H, P, G, N, largest dt): the published widths at a short and a
+# long decay, then other head and state widths and a second staged chunk
+MAMBA2_CASES = ((64, 24, 64, 64, 8, 128, 0.1), (64, 24, 64, 64, 8, 128, 1.0),
+                (5, 40, 8, 16, 2, 16, 1.0), (3, 7, 4, 32, 2, 32, 1.0))
+# of the largest |y|: f32 sums in another order (1.7e-7 measured)
+MAMBA2_TOL = 1e-5
+
+
+def phase_mamba2_scan(results, seed: int):
+    """The Mamba-2 scan kernel (``csrc/mamba2_scan.cu``, the Nemotron-H
+    tower's) against its plain version (``ssd_scan_plain``, the step
+    recurrence) over ``MAMBA2_CASES`` at random lengths, to
+    ``MAMBA2_TOL``; then its time at the cell's shape (256 queries of
+    4-24 tokens, 64 heads of 64, 8 groups of 128) beside its bound (5 P N
+    f32 operations a live token and head; x, B, C, dt read and y written
+    once) and the plain version's."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import mamba2_kernel as mk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+
+    def inputs(Bsz, T, H, P, G, N, dt_max, lo=1):
+        xbc = torch.randn(Bsz, T, H * P + 2 * G * N, generator=gen,
+                          device=dev)
+        dt = torch.rand(Bsz, T, H, generator=gen, device=dev) * dt_max
+        A = -1.0 - 15.0 * torch.rand(H, generator=gen, device=dev)
+        D = 0.5 + torch.rand(H, generator=gen, device=dev)
+        lens = torch.randint(lo, T + 1, (Bsz,), generator=gen, device=dev)
+        return xbc, dt + 1e-3, A, D, lens
+
+    def plain(xbc, dt, A, D, lens, H, P, G, N):
+        Bsz, T, _ = xbc.shape
+        di = H * P
+        return mk.ssd_scan_plain(
+            xbc[..., :di].reshape(Bsz, T, H, P), dt, A,
+            xbc[..., di:di + G * N].reshape(Bsz, T, G, N),
+            xbc[..., di + G * N:].reshape(Bsz, T, G, N), D, lens)
+
+    checks = []
+    for Bsz, T, H, P, G, N, dt_max in MAMBA2_CASES:
+        xbc, dt, A, D, lens = inputs(Bsz, T, H, P, G, N, dt_max)
+        got = mk.ssd_scan(xbc, dt, A, D, lens, H, P, G, N)
+        want = plain(xbc, dt, A, D, lens, H, P, G, N)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        checks.append(dict(shape=[Bsz, T, H, P, G, N], dt_max=dt_max,
+                           rel_err=err))
+        require(err <= MAMBA2_TOL, f"mamba2_rnn_scan {checks[-1]}")
+    emit({"phase": "kernel_mamba2_scan_checks", "cases": checks})
+    H, P, G, N = 64, 64, 8, 128
+    xbc, dt, A, D, lens = inputs(256, 24, H, P, G, N, 0.1, lo=4)
+    live = float(lens.sum())
+    flops = 5.0 * P * N * H * live
+    nbytes = (live * (H * P + 2 * G * N + H) + 256 * 24 * H * P) * 4
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    rec = dict(
+        name="mamba2_rnn_scan", shape=[256, 24, H, P, G, N],
+        ms=cuda_ms(lambda: mk.ssd_scan(xbc, dt, A, D, lens, H, P, G, N)),
+        plain_ms=cuda_ms(lambda: plain(xbc, dt, A, D, lens, H, P, G, N),
+                         iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by)
+    emit({"phase": "kernel_mamba2_scan_time", **rec})
+    results["mamba2_scan"] = dict(checks=checks, time=rec)
+
+
 def _k2_library(q, m, m_sq, w, bin_size, block_n):
     """One PyTorch formulation of the same selection (timing yardstick,
     never used by the port): batched matmul, then amin over the strided
@@ -5627,7 +5694,8 @@ def main(argv=None) -> int:
                            "K1 / K3 kernel checks alone, select the K2 and "
                            "coarse_kernel the K4 checks, row_topk the "
                            "long-row top-k's, score_gemm the score "
-                           "GEMM's, steps prints the "
+                           "GEMM's, mamba2_scan the Nemotron-H tower's "
+                           "scan kernel's, steps prints the "
                            "persistent kernels' per-step time split, "
                            "wgmma_rate the tensor cores' own time for it, "
                            "trace runs the mesh part of the phases "
@@ -5695,6 +5763,9 @@ def main(argv=None) -> int:
         settle()
     if phases & {"kernels", "score_gemm"}:
         phase_score_gemm(results, SEED)
+        settle()
+    if phases & {"kernels", "mamba2_scan"}:
+        phase_mamba2_scan(results, SEED)
         settle()
     with tempfile.TemporaryDirectory() as workdir:
         if "flagship" in phases:

@@ -171,12 +171,22 @@ def test_fixture_and_dataset_byte_identical():
 
 
 def test_config_copy_matches_jax():
+    """Every preset of the JAX package is the port's, field for field, in
+    its repr and its JSON; the port adds only its decoder-LM query tower
+    (``ExperimentConfig.decoder``: out of both when None) and the presets
+    that use it."""
     from vfr_tpu.config import PRESETS as JPRESETS
     from vfr_tpu_torch.config import PRESETS
 
-    assert sorted(PRESETS) == sorted(JPRESETS)
-    for name, cfg in PRESETS.items():
+    rnn = {n for n, c in PRESETS.items() if c.decoder is None}
+    assert sorted(rnn) == sorted(JPRESETS)
+    assert sorted(set(PRESETS) - rnn) == ["nemotron3_nano_serving"]
+    for name in rnn:
+        cfg = PRESETS[name]
         assert repr(cfg) == repr(JPRESETS[name])
         assert cfg.to_json() == JPRESETS[name].to_json()
         assert [f.name for f in dataclasses.fields(cfg.model)] == \
             [f.name for f in dataclasses.fields(JPRESETS[name].model)]
+    dec = PRESETS["nemotron3_nano_serving"]
+    again = type(dec).from_json(dec.to_json())
+    assert again == dec and again.decoder == dec.decoder

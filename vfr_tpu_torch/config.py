@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -104,6 +104,66 @@ class ModelConfig:
     # (tests/test_lstm_fused.py); default follows the step-time measurement
     # in docs/DESIGN.md.
     train_rnn_impl: str = "fused"
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    """A Nemotron-H decoder LM as a query tower, by the keys of its
+    published ``config.json`` (defaults: NVIDIA-Nemotron-3-Nano-30B-A3B,
+    https://huggingface.co/nvidia/NVIDIA-Nemotron-3-Nano-30B-A3B-BF16).
+    ``hybrid_override_pattern`` gives each block's mixer: M Mamba-2, E a
+    mixture of experts, * attention.  Keys that shape no inference step
+    (initialisation, RoPE, which no mixer of the published code applies,
+    the LM head, which an embedder drops) are kept so that the
+    configuration reads as published; ``models/nemotron_h.py::check``
+    refuses values whose mathematics the port does not implement."""
+    attention_bias: bool = False
+    chunk_size: int = 128
+    conv_kernel: int = 4
+    expand: int = 2
+    head_dim: int = 128
+    hidden_size: int = 2688
+    hybrid_override_pattern: str = (
+        "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME")
+    intermediate_size: int = 1856
+    layer_norm_epsilon: float = 1e-05
+    mamba_head_dim: int = 64
+    mamba_hidden_act: str = "silu"
+    mamba_num_heads: int = 64
+    mamba_proj_bias: bool = False
+    max_position_embeddings: int = 262144
+    mlp_bias: bool = False
+    mlp_hidden_act: str = "relu2"
+    model_type: str = "nemotron_h"
+    moe_intermediate_size: int = 1856
+    moe_shared_expert_intermediate_size: int = 3712
+    n_group: int = 1
+    n_groups: int = 8
+    n_routed_experts: int = 128
+    n_shared_experts: int = 1
+    norm_eps: float = 1e-05
+    norm_topk_prob: bool = True
+    num_attention_heads: int = 32
+    num_experts_per_tok: int = 6
+    num_hidden_layers: int = 52
+    num_key_value_heads: int = 2
+    num_logits_to_keep: int = 1
+    partial_rotary_factor: float = 1.0
+    rescale_prenorm_residual: bool = True
+    residual_in_fp32: bool = False
+    rope_theta: float = 10000.0
+    routed_scaling_factor: float = 2.5
+    sliding_window: Optional[int] = None
+    ssm_state_size: int = 128
+    tie_word_embeddings: bool = False
+    time_step_floor: float = 0.0001
+    time_step_max: float = 0.1
+    time_step_min: float = 0.001
+    topk_group: int = 1
+    use_bias: bool = False
+    use_conv_bias: bool = True
+    use_mamba_kernels: bool = True
+    vocab_size: int = 131072
 
 
 @dataclass(frozen=True)
@@ -333,19 +393,30 @@ class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    # the decoder LM that is the query tower in place of the LSTM or GRU
+    # (models/nemotron_h.py); None for the RNN towers.  The port alone has
+    # it: out of the repr (the index fingerprint hashes repr(cfg), and a
+    # query tower leaves the moment rows alone) and, at None, out of
+    # ``to_json``, so the JAX package's presets read the same in both
+    decoder: Optional[DecoderConfig] = field(default=None, repr=False)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        d = dataclasses.asdict(self)
+        if self.decoder is None:
+            del d["decoder"]
+        return json.dumps(d, indent=2, sort_keys=True)
 
     @staticmethod
     def from_json(s: str) -> "ExperimentConfig":
         d = json.loads(s)
+        dec = d.get("decoder")
         return ExperimentConfig(
             name=d["name"],
             data=DataConfig(**_tuplify(DataConfig, d["data"])),
             model=ModelConfig(**_tuplify(ModelConfig, d["model"])),
             train=TrainConfig(**_tuplify(TrainConfig, d["train"])),
             eval=EvalConfig(**_tuplify(EvalConfig, d["eval"])),
+            decoder=None if dec is None else DecoderConfig(**dec),
         )
 
     def replace(self, **kw) -> "ExperimentConfig":
@@ -434,6 +505,22 @@ _register(ExperimentConfig(
                     # distance stage; ranking parity vs f32 is gated by
                     # tests/test_corpus.py::TestIndexDtype
                     index_dtype="bfloat16"),
+))
+
+
+# 5b. The serving_10k deployment with a decoder LM as the query tower:
+#     NVIDIA-Nemotron-3-Nano-30B-A3B (Mamba-2, a 128-expert MoE with a
+#     shared expert, GQA) at its published widths, stopped at the final
+#     norm, its last live token projected to the joint space; bf16
+#     weights.  The port alone has it (no counterpart in the JAX package).
+_register(ExperimentConfig(
+    name="nemotron3_nano_serving",
+    data=PRESETS["serving_10k"].data,
+    model=dataclasses.replace(PRESETS["serving_10k"].model,
+                              param_dtype="bfloat16"),
+    train=TrainConfig(),
+    eval=PRESETS["serving_10k"].eval,
+    decoder=DecoderConfig(),
 ))
 
 

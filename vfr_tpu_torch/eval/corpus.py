@@ -278,9 +278,15 @@ def load_index(path: str, device=None) -> MomentIndex:
 
 def _embed_query_streams(params, model: Model, tokens, lengths,
                          rnn_kernel=None) -> torch.Tensor:
-    """[S, Q, d]; cosine mode normalizes (+1e-8) like the index rows."""
-    qs = embed_queries_multi(params, model, tokens, lengths, inference=True,
-                             rnn_kernel=rnn_kernel)
+    """[S, Q, d]; cosine mode normalizes (+1e-8) like the index rows.  A
+    decoder LM tower (``model.decoder``) is imported here, at its first
+    batch, so that an RNN tower's process never loads it."""
+    if model.decoder is not None:
+        from vfr_tpu_torch.models.nemotron_h import embed_queries_multi as emb
+        qs = emb(params, model, tokens, lengths)
+    else:
+        qs = embed_queries_multi(params, model, tokens, lengths,
+                                 inference=True, rnn_kernel=rnn_kernel)
     if model.cfg.distance == "cosine":
         qs = qs / (torch.linalg.norm(qs, dim=-1, keepdim=True) + 1e-8)
     return qs

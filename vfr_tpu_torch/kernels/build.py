@@ -68,6 +68,9 @@ SIGNATURES = {
     "score_gemm": {
         "vfr_score_gemm": [_P] * 3 + [_I] * 8 + [_P],
     },
+    "mamba2_scan": {
+        "vfr_mamba2_scan": [_P] * 8 + [_I] * 7 + [_P],
+    },
 }
 
 # host libraries (csrc/host/<name>.cc), built with g++

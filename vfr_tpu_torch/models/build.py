@@ -34,4 +34,5 @@ def build_model(cfg: ExperimentConfig, dataset=None) -> Model:
                           np.float32)
         tef = np.asarray(
             temporal_endpoint_features(spans, cfg.data.num_clips), np.float32)
-    return Model(cfg=mcfg, streams=streams, pool_matrix=pool, tef=tef)
+    return Model(cfg=mcfg, streams=streams, pool_matrix=pool, tef=tef,
+                 decoder=cfg.decoder)

@@ -47,6 +47,9 @@ class Model(NamedTuple):
     pool_matrix: np.ndarray           # [P, C] mean-pooling matrix
     tef: Optional[np.ndarray]         # [P, 2] static TEF or None
     freeze_embeddings: bool = True
+    # the decoder LM (config.DecoderConfig) of a "nemotron_h" query tower
+    # (models/nemotron_h.py); None for the RNN towers
+    decoder: Optional[object] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -88,6 +91,11 @@ def init_model_params(
     weights in the two packages; carry weights across with
     ``bridge.params_from_numpy``."""
     cfg = model.cfg
+    if model.decoder is not None:
+        raise NotImplementedError(
+            "init_model_params seeds the RNN towers' trees; a decoder-LM "
+            "tower's tree has its own layout (models/nemotron_h.py::"
+            "leaf_shapes)")
     dtype = torch_dtype(cfg.param_dtype)
     init_rnn = init_gru_params if cfg.rnn_cell == "gru" else init_lstm_params
     params: Dict = {
@@ -133,10 +141,21 @@ def prepare_query_params(params: Dict, model: Model,
     device decide, as in ``_query_hidden``).  Results are those of the
     unprepared tree: the kernel and its plain version round to bf16
     themselves.  Every other path (the f32 scan twin, training) needs the
-    original tree.  The cast is the set-up span ``setup.query_params``."""
+    original tree.  The cast is the set-up span ``setup.query_params``.
+
+    A decoder LM's tree (``model.decoder``) is checked (every leaf's shape
+    and dtype, ``models/nemotron_h.py::check_params``) and handed back as
+    it is: its weights are stored at the dtypes its products read, and a
+    copy of tens of GB would not fit beside it."""
     from vfr_tpu_torch.ops.kernels.rnn_plan import prepare_rnn_weights
 
     cfg = model.cfg
+    if model.decoder is not None:
+        from vfr_tpu_torch.models import nemotron_h
+
+        with trace.setup("setup.query_params"):
+            nemotron_h.check_params(params, model.decoder)
+            return params
     if rnn_kernel is None:
         want = use_pallas(cfg, params["embeddings"].device)
     else:

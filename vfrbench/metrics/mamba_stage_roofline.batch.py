@@ -1,0 +1,30 @@
+"""mamba_stage_roofline.batch: the Mamba-2 blocks' least time on the card
+(in_proj, the convolution, the scan, out_proj), over their device time a
+replay: the larger of their bytes over the HBM rate and their operations
+over their peaks (the window's query tower's ``stage_work``), over the mean
+device time of the nodes the port marked ``encode.mamba`` when it captured
+the graph (``port_trace.stage_split``).  None where the tower counts no
+such stage or the port marked none."""
+
+from vfrbench import catalog, port_trace, work
+
+UNIT = "%"
+TRACED = True
+STAGE, MARK = "mamba", "encode.mamba"
+
+
+def read(rec):
+    t = rec.get("trace")
+    if rec["kind"] != "batch" or not t:
+        return None
+    shapes = rec["window"]["shapes"]
+    tower = catalog.tower(shapes.get("tower"), rec.get("root", catalog.ROOT))
+    snap = port_trace.snapshot()
+    if not hasattr(tower, "stage_work") or not snap:
+        return None
+    split, _ = port_trace.stage_split(t["kernels"], snap["stages"])
+    times = [s[MARK] for s in split if MARK in s]
+    if not times or sum(times) <= 0:
+        return None
+    least, _ = work.bound(*tower.stage_work(shapes, STAGE))
+    return 100.0 * least / (sum(times) / len(times))
