@@ -1217,69 +1217,135 @@ def phase_score_gemm(results, seed: int):
     results["score_gemm"] = dict(times=recs, second_card=second)
 
 
-# (B, T, H, P, G, N, largest dt): the published widths at a short and a
-# long decay, then other head and state widths and a second staged chunk
-MAMBA2_CASES = ((64, 24, 64, 64, 8, 128, 0.1), (64, 24, 64, 64, 8, 128, 1.0),
-                (5, 40, 8, 16, 2, 16, 1.0), (3, 7, 4, 32, 2, 32, 1.0))
-# of the largest |y|: f32 sums in another order (1.7e-7 measured)
-MAMBA2_TOL = 1e-5
+# (B, T, H, P, G, N, largest dt, zxd's dtype): the published widths at a
+# short and a long decay and at the bulk cells' batch, then other head and
+# state widths: a group's share of B and C too narrow for 16-byte loads, the
+# tiny test world (rows not 16-byte aligned), T past the kernel's chunk of
+# 32 (one and two carries of the state), and f32
+MAMBA2_CASES = (
+    (64, 24, 64, 64, 8, 128, 0.1, "bfloat16"),
+    (64, 24, 64, 64, 8, 128, 1.0, "bfloat16"),
+    (256, 24, 64, 64, 8, 128, 0.1, "bfloat16"),
+    (5, 40, 8, 16, 2, 16, 1.0, "bfloat16"),
+    (6, 8, 4, 16, 2, 16, 1.0, "bfloat16"),
+    (3, 7, 4, 32, 2, 32, 1.0, "bfloat16"),
+    (4, 70, 4, 128, 1, 64, 0.5, "bfloat16"),
+    (16, 24, 64, 64, 8, 128, 1.0, "float32"),
+)
+# of the largest |y|, against the f32 chain: the kernel rounds each element
+# once to its dtype (bf16: at most half an ulp of the largest element, 2^-8
+# of it; 2.4e-3 to 3.1e-3 seen on the CPU's plain chain), and its f32 sums
+# in another order add ~1e-6; 2^-7 is one bf16 ulp of the output's scale
+MAMBA2_TOL = 2.0 ** -7
+
+
+def _mamba2_inputs(Bsz, T, H, P, G, N, dt_max, dtype, gen, dev, lo=0):
+    """zxd [Bsz, T, 2 H P + 2 G N + H] and a Mamba-2 layer's leaves: dt
+    after its softplus in (1e-3, dt_max) through dt_bias, A in -1..-16, D in
+    0.5..1.5, lengths in [lo, T]."""
+    import torch
+
+    di, conv = H * P, H * P + 2 * G * N
+    zxd = torch.randn(Bsz, T, di + conv + H, generator=gen, device=dev)
+    zxd[..., di + conv:] *= 0.5
+    dt0 = 1e-3 + (dt_max - 1e-3) * torch.rand(H, generator=gen, device=dev)
+    leaves = dict(
+        conv_w=(0.5 * torch.randn(conv, 4, generator=gen, device=dev)
+                ).to(dtype),
+        conv_b=(0.1 * torch.randn(conv, generator=gen, device=dev)).to(dtype),
+        dt_bias=dt0 + torch.log(-torch.expm1(-dt0)),
+        A_log=torch.log(1.0 + 15.0 * torch.rand(H, generator=gen,
+                                                device=dev)),
+        D=0.5 + torch.rand(H, generator=gen, device=dev),
+        norm_w=(1.0 + 0.1 * torch.randn(di, generator=gen, device=dev)
+                ).to(dtype))
+    lens = torch.randint(lo, T + 1, (Bsz,), generator=gen, device=dev)
+    return zxd.to(dtype), lens, leaves
 
 
 def phase_mamba2_scan(results, seed: int):
-    """The Mamba-2 scan kernel (``csrc/mamba2_scan.cu``, the Nemotron-H
-    tower's) against its plain version (``ssd_scan_plain``, the step
-    recurrence) over ``MAMBA2_CASES`` at random lengths, to
-    ``MAMBA2_TOL``; then its time at the cell's shape (256 queries of
-    4-24 tokens, 64 heads of 64, 8 groups of 128) beside its bound (5 P N
-    f32 operations a live token and head; x, B, C, dt read and y written
-    once) and the plain version's."""
+    """The fused Mamba-2 kernel (``csrc/mamba2_scan.cu``, the Nemotron-H
+    tower's: conv, SiLU, dt, the scan, the D skip and the gated norm)
+    against the chain's plain version in f32 (``mamba2_chain_plain``) over
+    ``MAMBA2_CASES`` at random lengths (0 included), to ``MAMBA2_TOL``,
+    rows past each length exactly 0; a CUDA graph's replay bit-equal to
+    the eager call; then its time at the cell's shape (256 queries of 4-24
+    tokens, 64 heads of 64, 8 groups of 128) beside its bound (zxd's live
+    rows read once, y written once; the matrix form's f32 operations), the
+    PyTorch passes it replaced (conv, SiLU, softplus, gated norm; the
+    scan-only kernel of before is not among them) and the plain chain."""
     import torch
+    import torch.nn.functional as F
 
     from vfr_tpu_torch.ops.kernels import mamba2_kernel as mk
+    from vfr_tpu_torch.ops.mamba2 import causal_conv, gated_rmsnorm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    eps = 1e-5
 
-    def inputs(Bsz, T, H, P, G, N, dt_max, lo=1):
-        xbc = torch.randn(Bsz, T, H * P + 2 * G * N, generator=gen,
-                          device=dev)
-        dt = torch.rand(Bsz, T, H, generator=gen, device=dev) * dt_max
-        A = -1.0 - 15.0 * torch.rand(H, generator=gen, device=dev)
-        D = 0.5 + torch.rand(H, generator=gen, device=dev)
-        lens = torch.randint(lo, T + 1, (Bsz,), generator=gen, device=dev)
-        return xbc, dt + 1e-3, A, D, lens
-
-    def plain(xbc, dt, A, D, lens, H, P, G, N):
-        Bsz, T, _ = xbc.shape
-        di = H * P
-        return mk.ssd_scan_plain(
-            xbc[..., :di].reshape(Bsz, T, H, P), dt, A,
-            xbc[..., di:di + G * N].reshape(Bsz, T, G, N),
-            xbc[..., di + G * N:].reshape(Bsz, T, G, N), D, lens)
+    def run(zxd, lens, p, G, fn=mk.mamba2_chain, norm_w=None):
+        return fn(zxd, lens, p["conv_w"], p["conv_b"], p["dt_bias"],
+                  p["A_log"], p["D"], p["norm_w"] if norm_w is None
+                  else norm_w, G, eps)
 
     checks = []
-    for Bsz, T, H, P, G, N, dt_max in MAMBA2_CASES:
-        xbc, dt, A, D, lens = inputs(Bsz, T, H, P, G, N, dt_max)
-        got = mk.ssd_scan(xbc, dt, A, D, lens, H, P, G, N)
-        want = plain(xbc, dt, A, D, lens, H, P, G, N)
+    for Bsz, T, H, P, G, N, dt_max, dtype in MAMBA2_CASES:
+        zxd, lens, p = _mamba2_inputs(Bsz, T, H, P, G, N, dt_max,
+                                      getattr(torch, dtype), gen, dev)
+        got = run(zxd, lens, p, G).float()
+        want = run(zxd, lens, p, G, mk.mamba2_chain_plain,
+                   p["norm_w"].float())
         torch.cuda.synchronize()
         err = float((got - want).abs().max() / want.abs().max())
+        dead = torch.arange(T, device=dev)[None, :] >= lens[:, None]
         checks.append(dict(shape=[Bsz, T, H, P, G, N], dt_max=dt_max,
-                           rel_err=err))
-        require(err <= MAMBA2_TOL, f"mamba2_rnn_scan {checks[-1]}")
+                           dtype=dtype, rel_err=err,
+                           dead_rows=int(dead.sum()),
+                           dead_zero=not bool(got[dead].any())))
+        require(err <= MAMBA2_TOL and checks[-1]["dead_zero"],
+                f"mamba2_rnn_scan {checks[-1]}")
     emit({"phase": "kernel_mamba2_scan_checks", "cases": checks})
-    H, P, G, N = 64, 64, 8, 128
-    xbc, dt, A, D, lens = inputs(256, 24, H, P, G, N, 0.1, lo=4)
-    live = float(lens.sum())
-    flops = 5.0 * P * N * H * live
-    nbytes = (live * (H * P + 2 * G * N + H) + 256 * 24 * H * P) * 4
+
+    Bsz, T, H, P, G, N = 256, 24, 64, 64, 8, 128
+    zxd, lens, p = _mamba2_inputs(Bsz, T, H, P, G, N, 0.1, torch.bfloat16,
+                                  gen, dev, lo=4)
+    eager = run(zxd, lens, p, G)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(zxd, lens, p, G)                        # the warm-up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = run(zxd, lens, p, G)
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(out, eager), "mamba2_rnn_scan: the graph's replay "
+            "differs from the eager call")
+
+    di, conv = H * P, H * P + 2 * G * N
+    y32 = torch.randn(Bsz, T, di, generator=gen, device=dev)
+
+    def passes():
+        F.silu(causal_conv(zxd[..., di:di + conv], p["conv_w"], p["conv_b"]))
+        F.softplus(zxd[..., di + conv:].float() + p["dt_bias"]).contiguous()
+        return gated_rmsnorm(y32, zxd[..., :di], p["norm_w"], di // G, eps)
+
+    n = lens.double()
+    live = float(n.sum())
+    pairs = float((n * (n + 1) / 2).sum())
+    flops = 2.0 * live * conv * 4 + 2.0 * pairs * (G * N + H * P)
+    nbytes = (live * (2 * di + 2 * G * N + H) + Bsz * T * di) * 2
     bound_ms, bound_by = bound(nbytes, flops, "float32")
     rec = dict(
-        name="mamba2_rnn_scan", shape=[256, 24, H, P, G, N],
-        ms=cuda_ms(lambda: mk.ssd_scan(xbc, dt, A, D, lens, H, P, G, N)),
-        plain_ms=cuda_ms(lambda: plain(xbc, dt, A, D, lens, H, P, G, N),
+        name="mamba2_rnn_scan", shape=[Bsz, T, H, P, G, N],
+        ms=cuda_ms(lambda: run(zxd, lens, p, G)),
+        passes_ms=cuda_ms(passes),
+        plain_ms=cuda_ms(lambda: run(zxd, lens, p, G, mk.mamba2_chain_plain),
                          iters=3, warmup=1),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by,
+        recurrent_ops_ms=bound(0.0, 5.0 * P * N * H * live, "float32")[0],
+        graph_bit_equal=True)
     emit({"phase": "kernel_mamba2_scan_time", **rec})
     results["mamba2_scan"] = dict(checks=checks, time=rec)
 
@@ -5695,7 +5761,7 @@ def main(argv=None) -> int:
                            "coarse_kernel the K4 checks, row_topk the "
                            "long-row top-k's, score_gemm the score "
                            "GEMM's, mamba2_scan the Nemotron-H tower's "
-                           "scan kernel's, steps prints the "
+                           "fused Mamba-2 kernel's, steps prints the "
                            "persistent kernels' per-step time split, "
                            "wgmma_rate the tensor cores' own time for it, "
                            "trace runs the mesh part of the phases "

@@ -1,8 +1,9 @@
 """The Nemotron-H query tower of the port (``models/nemotron_h.py``,
 ``ops/moe.py``, ``ops/mamba2.py``) against the benchmark's plain reference
 (``vfrbench/reference/nemotron_h.py``) at a tiny size on the CPU: the
-retriever's answers, the Mamba-2 scan (the plain version of its CUDA
-kernel, which runs on the card alone), the expert route, the independence
+retriever's answers, the Mamba-2 chain (the plain version of its fused
+CUDA kernel, which runs on the card alone, the kernel's matrix form of the
+scan and its shape gate), the expert route, the independence
 of a query from its padding and its neighbours, and a tiny cell that the
 harness judges ``correct``, and not so under each fault planted in the
 reference.  An MCN retriever's process loads none of the tower's modules."""
@@ -18,6 +19,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vfr_tpu_torch.config import DecoderConfig, get_preset
 from vfr_tpu_torch.eval.corpus import make_retriever
@@ -26,6 +28,7 @@ from vfr_tpu_torch.models.build import build_model
 from vfr_tpu_torch.models.mcn import prepare_query_params
 from vfr_tpu_torch.ops import moe
 from vfr_tpu_torch.ops.kernels import mamba2_kernel
+from vfr_tpu_torch.ops.mamba2 import causal_conv, gated_rmsnorm
 from vfr_tpu_torch.utils import trace
 from vfr_tpu_torch.utils.graphs import BatchGraphs
 from vfrbench import catalog, run
@@ -119,7 +122,7 @@ def test_prepared_tree_is_the_tree_and_is_checked(world):
 
 @pytest.mark.parametrize("T", [1, 5, 24])
 def test_scan_is_the_closed_form(T):
-    """The scan's plain version (the kernel's recurrence) equals the SSD's
+    """The scan's plain version (the step recurrence) equals the SSD's
     closed form, y_t = sum_{s <= t} exp(cs_t - cs_s) (C_t . B_s) dt_s x_s
     + D x_t with cs the running sum of dt A, dt large enough that the state
     carries; 0 past each length."""
@@ -142,10 +145,131 @@ def test_scan_is_the_closed_form(T):
                     dt[b, :t + 1, h]
                 want[b, t, h] = (w[:, None] * x[b, :t + 1, h]).sum(0) + \
                     D[h] * x[b, t, h]
-    xbc = torch.cat([x.reshape(B, T, H * P), Bm.reshape(B, T, G * N),
-                     Cm.reshape(B, T, G * N)], -1)
-    got = mamba2_kernel.ssd_scan(xbc, dt, A, D, lens, H, P, G, N)
+    got = mamba2_kernel.ssd_scan_plain(x, dt, A, Bm, Cm, D, lens)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _chain_inputs(T, dtype, seed=0, Bsz=5):
+    """zxd [Bsz, T, ld] (two spare columns past dt) and the tiny world's
+    Mamba-2 leaves, lengths 0, 1, T and two between."""
+    g = torch.Generator().manual_seed(seed)
+    H, P, G, N, K = 4, 16, 2, 16, 4
+    di, conv = H * P, H * P + 2 * G * N
+    zxd = torch.randn(Bsz, T, di + conv + H + 2, generator=g).to(dtype)
+    leaves = dict(
+        conv_w=(torch.randn(conv, K, generator=g) * 0.5).to(dtype),
+        conv_b=(torch.randn(conv, generator=g) * 0.1).to(dtype),
+        dt_bias=torch.randn(H, generator=g),
+        A_log=torch.rand(H, generator=g) * 2,
+        D=torch.rand(H, generator=g),
+        norm_w=(1 + 0.1 * torch.randn(di, generator=g)).to(dtype))
+    lens = torch.tensor([0, 1, T, max(T // 2, 1), max(T - 3, 1)])[:Bsz]
+    return zxd, lens, leaves, G
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [8, mamba2_kernel.CHUNK + 8])
+def test_chain_on_the_cpu_is_the_composition(T, dtype):
+    """``mamba2_chain`` on CPU tensors is conv, SiLU, softplus, the plain
+    scan and the gated norm as the mixer composed them, bit for bit, from
+    a zxd wider than z, xBC and dt, at lengths 0, 1 and T, and at a T
+    past the kernel's chunk (the conv's window then crosses a chunk)."""
+    zxd, lens, p, G = _chain_inputs(T, dtype, seed=T)
+    H, di = 4, 64
+    N = 16
+    got = mamba2_kernel.mamba2_chain(
+        zxd, lens, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+        p["D"], p["norm_w"], G, 1e-5)
+    z, xbc, dt = zxd[..., :-2].split([di, di + 2 * G * N, H], dim=-1)
+    xbc = F.silu(causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    x, Bm, Cm = xbc.split([di, G * N, G * N], dim=-1)
+    y = mamba2_kernel.ssd_scan_plain(
+        x.reshape(5, T, H, di // H), dt, -torch.exp(p["A_log"]),
+        Bm.reshape(5, T, G, N), Cm.reshape(5, T, G, N), p["D"], lens)
+    want = gated_rmsnorm(y.reshape(5, T, di), z, p["norm_w"], di // G, 1e-5)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert not got[0].any() and not got[1, 1:].any()
+    assert got[2, -1].abs().min() > 0
+
+
+def _matrix_form(x, dt, A, Bm, Cm, D, lens, chunk, shares):
+    """The kernel's scan (``csrc/mamba2_scan.cu``) in PyTorch: chunks of
+    ``chunk`` tokens, each y_t = sum_{s <= t} exp(sum_{s < u <= t} dt_u A)
+    (C_t . B_s) dt_s x_s + exp(sum_{u <= t} dt_u A) C_t h + D x_t with
+    C_t . B_s summed over ``shares`` slices of the state (a cluster's
+    blocks), and the state h carried to the next chunk."""
+    Bsz, T, H, P = x.shape
+    G, N = Bm.shape[2:]
+    rep = H // G
+    y = torch.zeros(Bsz, T, H, P)
+    for b in range(Bsz):
+        n_all = int(lens[b])
+        for hd in range(H):
+            gr = hd // rep
+            h = torch.zeros(P, N)
+            for t0 in range(0, n_all, chunk):
+                n = min(chunk, n_all - t0)
+                sl = slice(t0, t0 + n)
+                da = dt[b, sl, hd] * A[hd]
+                cb = sum(Cm[b, sl, gr, k::shares] @ Bm[b, sl, gr,
+                                                        k::shares].T
+                         for k in range(shares))
+                seg = torch.zeros(n, n)
+                for t in range(n):
+                    for s in range(t + 1):
+                        seg[t, s] = da[s + 1:t + 1].sum()
+                w = torch.exp(seg).tril() * cb * dt[b, sl, hd][None]
+                ein = torch.exp(torch.cumsum(da, 0))
+                xs = x[b, sl, hd]
+                y[b, sl, hd] = (w @ xs + ein[:, None] * (Cm[b, sl, gr] @ h.T)
+                                + D[hd] * xs)
+                wl = torch.exp(seg[-1]) * dt[b, sl, hd]
+                h = ein[-1] * h + (wl[:, None] * xs).T @ Bm[b, sl, gr]
+    return y
+
+
+@pytest.mark.parametrize("T,chunk", [(8, 32), (40, 32), (23, 5)])
+def test_the_kernels_matrix_form_is_the_recurrence(T, chunk):
+    """The scan as the fused kernel computes it (the matrix form over
+    chunks, the C . B dot split over a cluster's blocks, the state carried
+    between chunks) equals the plain step recurrence to f32 rounding."""
+    g = torch.Generator().manual_seed(T)
+    B, H, P, G, N = 3, 4, 8, 2, 16
+    x = torch.randn(B, T, H, P, generator=g)
+    dt = torch.rand(B, T, H, generator=g) + 0.05
+    A = -torch.rand(H, generator=g) * 2 - 0.1
+    Bm, Cm = (torch.randn(B, T, G, N, generator=g) for _ in range(2))
+    D = torch.rand(H, generator=g)
+    lens = torch.tensor([T, max(T - 7, 1), 1])
+    want = mamba2_kernel.ssd_scan_plain(x, dt, A, Bm, Cm, D, lens)
+    got = _matrix_form(x, dt, A, Bm, Cm, D, lens, chunk, shares=H // G)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,why", [
+    (dict(H=32, G=2), "at most 8 heads a group"),
+    (dict(H=6, G=4), "H a multiple of G"),
+    (dict(N=12), "N a multiple of H / G"),
+    (dict(P=24), "P a power of two"),
+    (dict(P=256), "P a power of two"),
+    (dict(K=9), "conv taps"),
+    (dict(ld=-1), "columns"),
+])
+def test_the_kernel_refuses_shapes_it_does_not_take(shape, why):
+    """``check_shapes`` (the CUDA wrapper's gate, run without a card)
+    accepts the published widths and the tiny world's, and refuses H / G
+    past the cluster limit, P off the powers of two, and a zxd short of z,
+    xBC and dt's columns."""
+    cell = dict(H=64, P=64, G=8, N=128, K=4)
+    for ok in (cell, dict(H=4, P=16, G=2, N=16, K=4)):
+        mamba2_kernel.check_shapes(2 * ok["H"] * ok["P"] + 2 * ok["G"] *
+                                   ok["N"] + ok["H"], **ok)
+    dims = {**cell, **{k: v for k, v in shape.items() if k != "ld"}}
+    ld = 2 * dims["H"] * dims["P"] + 2 * dims["G"] * dims["N"] + dims["H"]
+    with pytest.raises(ValueError, match=why):
+        mamba2_kernel.check_shapes(ld + shape.get("ld", 0), **dims)
 
 
 def test_mamba_mixer_matches_the_reference_recurrence(world):

@@ -69,7 +69,7 @@ SIGNATURES = {
         "vfr_score_gemm": [_P] * 3 + [_I] * 8 + [_P],
     },
     "mamba2_scan": {
-        "vfr_mamba2_scan": [_P] * 8 + [_I] * 7 + [_P],
+        "vfr_mamba2_chain": [_P] * 9 + [_I] * 9 + [_F, _P],
     },
 }
 

@@ -8,9 +8,12 @@ Blocks, by ``hybrid_override_pattern``:
 
 * ``M``, a Mamba-2 mixer: in_proj -> (z, xBC, dt); xBC through the causal
   depthwise conv and SiLU -> (x, B, C); dt = softplus(dt + dt_bias),
-  A = -exp(A_log); the SSD scan with the D skip (on the card the kernel
-  ``csrc/mamba2_scan.cu``, ``ops/kernels/mamba2_kernel.py``); the gated
-  group RMSNorm (``ops/mamba2.py``); out_proj.
+  A = -exp(A_log); the SSD scan with the D skip; the gated group RMSNorm;
+  out_proj.  Everything between the two GEMMs is one call,
+  ``ops/kernels/mamba2_kernel.py::mamba2_chain``: on the card one kernel
+  (``csrc/mamba2_scan.cu``) that reads in_proj's product in place and
+  writes out_proj's operand, on the CPU the PyTorch passes
+  (``ops/mamba2.py``).
 * ``E``, a mixture of experts with a shared expert (``ops/moe.py``).
 * ``*``, causal GQA attention with no position encoding (the published
   mixer applies no RoPE: the Mamba blocks carry order) and no biases.
@@ -36,12 +39,10 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from vfr_tpu_torch.config import DecoderConfig
 from vfr_tpu_torch.device import mm_f32
-from vfr_tpu_torch.ops.kernels.mamba2_kernel import ssd_scan
-from vfr_tpu_torch.ops.mamba2 import causal_conv, gated_rmsnorm
+from vfr_tpu_torch.ops.kernels.mamba2_kernel import mamba2_chain
 from vfr_tpu_torch.ops.moe import moe_block
 from vfr_tpu_torch.utils import trace
 
@@ -140,20 +141,12 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def mamba_mixer(h: torch.Tensor, p: Dict, dec: DecoderConfig,
                 lengths: torch.Tensor) -> torch.Tensor:
-    """h [B, T, D] -> [B, T, D] (the scan's output 0 past ``lengths``)."""
-    Bsz, T, _ = h.shape
-    di, conv, _ = mamba_widths(dec)
-    H, P = dec.mamba_num_heads, dec.mamba_head_dim
-    G, N = dec.n_groups, dec.ssm_state_size
-    zxd = h @ p["in_proj"]
-    z, xbc, dt = zxd.split([di, conv, H], dim=-1)
-    xbc = F.silu(causal_conv(xbc, p["conv_w"],
-                             p["conv_b"] if dec.use_conv_bias else None))
-    dt = F.softplus(dt.float() + p["dt_bias"]).contiguous()
-    y = ssd_scan(xbc, dt, -torch.exp(p["A_log"]), p["D"], lengths, H, P, G,
-                 N)
-    y = gated_rmsnorm(y.reshape(Bsz, T, di), z, p["gate_norm"], di // G,
-                      dec.layer_norm_epsilon)
+    """h [B, T, D] -> [B, T, D] (the scan's output 0 past ``lengths``):
+    in_proj, the fused chain, out_proj."""
+    y = mamba2_chain(h @ p["in_proj"], lengths, p["conv_w"],
+                     p["conv_b"] if dec.use_conv_bias else None,
+                     p["dt_bias"], p["A_log"], p["D"], p["gate_norm"],
+                     dec.n_groups, dec.layer_norm_epsilon)
     return y.to(h.dtype) @ p["out_proj"]
 
 

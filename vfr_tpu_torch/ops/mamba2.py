@@ -1,10 +1,10 @@
 """The elementwise operations of a Mamba-2 mixer (Dao & Gu 2024,
 "Transformers are SSMs", arXiv:2405.21060), as the published Nemotron-H
 mixer runs them: the causal depthwise convolution and the gated group
-RMSNorm, in f32.  The SSD scan between them is
-``ops/kernels/mamba2_kernel.py``: its recurrent form, since a query of at
-most 24 tokens lies inside one chunk (128) of the chunked algorithm.
-Right padding is inert: every output reads its own and earlier tokens.
+RMSNorm, in f32.  They are the plain version's passes
+(``ops/kernels/mamba2_kernel.py::mamba2_chain_plain``, with the SSD scan
+between them); on the card one kernel fuses them with the scan.  Right
+padding is inert: every output reads its own and earlier tokens.
 """
 
 from __future__ import annotations
