@@ -1350,6 +1350,130 @@ def phase_mamba2_scan(results, seed: int):
     results["mamba2_scan"] = dict(checks=checks, time=rec)
 
 
+# (B, T, H, D, qkv's dtype, shortest length): the Kimi Linear cell's shape
+# (256 queries of 4-24 tokens, 32 heads of 128) at bf16 and f32, then one
+# whole chunk of 64 tokens, a single token, and the other head widths the
+# kernel takes (lengths from 0)
+KDA_CASES = (
+    (256, 24, 32, 128, "bfloat16", 4),
+    (64, 24, 32, 128, "float32", 4),
+    (5, 64, 4, 128, "bfloat16", 0),
+    (3, 1, 2, 32, "bfloat16", 0),
+    (7, 37, 3, 64, "float32", 0),
+    (2, 17, 1, 96, "bfloat16", 0),
+)
+# of the largest |o|, against the plain recurrence in f32 from the same
+# rounded inputs: both f32 throughout, the kernel's sums (the pairs' dots,
+# the solve, the read-out) in another order than the step recurrence's
+KDA_TOL = 1e-4
+
+
+def _kda_inputs(B, T, H, D, dtype, lo, gen, dev):
+    """qkv [B, T, 3 H D + 5] (spare columns past v), per-channel log decays
+    -exp(U(-7, 2)) (some channels keep the state, some forget it within a
+    token), beta in (0, 1) and lengths in [lo, T]."""
+    import torch
+
+    HD = H * D
+    qkv = torch.randn(B, T, 3 * HD + 5, generator=gen, device=dev).to(dtype)
+    g = -torch.exp(torch.empty(B, T, HD, device=dev).uniform_(
+        -7.0, 2.0, generator=gen))
+    beta = torch.rand(B, T, H, generator=gen, device=dev)
+    lens = torch.randint(lo, T + 1, (B,), generator=gen, device=dev)
+    return qkv, g, beta, lens
+
+
+def phase_kda_chunk(results, seed: int):
+    """The KDA kernel (``csrc/kda_chunk.cu``, the Kimi Linear tower's: the
+    gated delta rule of one chunk in its matrix form, q and k L2-normed in
+    it) against the plain recurrence in f32 (``kda_recurrence_plain``)
+    over ``KDA_CASES`` at random lengths, to ``KDA_TOL``, rows past each
+    length exactly 0; a CUDA graph's replay bit-equal to the eager call; a
+    sequence past one chunk refused; then its time at the cell's shape
+    beside its bound (q, k, v's live rows, g and beta read once, o written
+    once; the form's f32 operations, as ``vfrbench/towers/kimi_linear.py``
+    counts them) and the plain recurrence's."""
+    import torch
+
+    from vfr_tpu_torch.ops.kernels import kda_kernel as kk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    eps = 1e-6
+
+    def plain(qkv, g, beta, lens, H, fn=kk.kda_recurrence_plain):
+        B, T, _ = qkv.shape
+        HD = g.shape[-1]
+        q, k, v = (qkv[..., i * HD:(i + 1) * HD].float().reshape(
+            B, T, H, HD // H) for i in range(3))
+        return fn(q, k, v, g.reshape(B, T, H, HD // H), beta, lens,
+                  (HD // H) ** -0.5, eps)
+
+    checks = []
+    for B, T, H, D, dtype, lo in KDA_CASES:
+        qkv, g, beta, lens = _kda_inputs(B, T, H, D, getattr(torch, dtype),
+                                         lo, gen, dev)
+        got = kk.kda_attend(qkv, g, beta, lens, H, D ** -0.5, eps)
+        want = plain(qkv, g, beta, lens, H)
+        chunk = plain(qkv, g, beta, lens, H, kk.kda_chunk_plain)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        dead = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+        checks.append(dict(
+            shape=[B, T, H, D], dtype=dtype, rel_err=err,
+            chunk_form_rel_err=float((chunk - want).abs().max()) / scale,
+            dead_rows=int(dead.sum()), dead_zero=not bool(got[dead].any())))
+        require(err <= KDA_TOL and checks[-1]["dead_zero"],
+                f"kda_rnn_chunk {checks[-1]}")
+    emit({"phase": "kernel_kda_chunk_checks", "cases": checks})
+
+    qkv, g, beta, lens = _kda_inputs(2, kk.CHUNK + 1, 2, 32, torch.bfloat16,
+                                     0, gen, dev)
+    try:
+        kk.kda_attend(qkv, g, beta, lens, 2, 32 ** -0.5, eps)
+        require(False, "kda_rnn_chunk took a sequence past one chunk")
+    except ValueError:
+        pass
+
+    B, T, H, D = 256, 24, 32, 128
+    qkv, g, beta, lens = _kda_inputs(B, T, H, D, torch.bfloat16, 4, gen,
+                                     dev)
+
+    def run():
+        return kk.kda_attend(qkv, g, beta, lens, H, D ** -0.5, eps)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                       # the warm-up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(out, eager), "kda_rnn_chunk: the graph's replay "
+            "differs from the eager call")
+
+    n = lens.double()
+    live = float(n.sum())
+    pairs = float((n * (n + 1) / 2).sum())
+    HD = H * D
+    flops = HD * (7.0 * pairs + 2.0 * (pairs - live) + 2.0 * pairs
+                  + 4.0 * live)
+    nbytes = live * (3 * HD * 2 + HD * 4 + H * 4) + B * T * HD * 4
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    rec = dict(
+        name="kda_rnn_chunk", shape=[B, T, H, D],
+        ms=cuda_ms(run),
+        plain_ms=cuda_ms(lambda: plain(qkv, g, beta, lens, H), iters=3,
+                         warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, graph_bit_equal=True)
+    emit({"phase": "kernel_kda_chunk_time", **rec})
+    results["kda_chunk"] = dict(checks=checks, time=rec)
+
+
 def _k2_library(q, m, m_sq, w, bin_size, block_n):
     """One PyTorch formulation of the same selection (timing yardstick,
     never used by the port): batched matmul, then amin over the strided
@@ -5761,7 +5885,8 @@ def main(argv=None) -> int:
                            "coarse_kernel the K4 checks, row_topk the "
                            "long-row top-k's, score_gemm the score "
                            "GEMM's, mamba2_scan the Nemotron-H tower's "
-                           "fused Mamba-2 kernel's, steps prints the "
+                           "fused Mamba-2 kernel's, kda_chunk the Kimi "
+                           "Linear tower's KDA kernel's, steps prints the "
                            "persistent kernels' per-step time split, "
                            "wgmma_rate the tensor cores' own time for it, "
                            "trace runs the mesh part of the phases "
@@ -5832,6 +5957,9 @@ def main(argv=None) -> int:
         settle()
     if phases & {"kernels", "mamba2_scan"}:
         phase_mamba2_scan(results, SEED)
+        settle()
+    if phases & {"kernels", "kda_chunk"}:
+        phase_kda_chunk(results, SEED)
         settle()
     with tempfile.TemporaryDirectory() as workdir:
         if "flagship" in phases:

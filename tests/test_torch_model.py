@@ -180,13 +180,15 @@ def test_config_copy_matches_jax():
 
     rnn = {n for n, c in PRESETS.items() if c.decoder is None}
     assert sorted(rnn) == sorted(JPRESETS)
-    assert sorted(set(PRESETS) - rnn) == ["nemotron3_nano_serving"]
+    assert sorted(set(PRESETS) - rnn) == ["kimi_linear_serving",
+                                          "nemotron3_nano_serving"]
     for name in rnn:
         cfg = PRESETS[name]
         assert repr(cfg) == repr(JPRESETS[name])
         assert cfg.to_json() == JPRESETS[name].to_json()
         assert [f.name for f in dataclasses.fields(cfg.model)] == \
             [f.name for f in dataclasses.fields(JPRESETS[name].model)]
-    dec = PRESETS["nemotron3_nano_serving"]
-    again = type(dec).from_json(dec.to_json())
-    assert again == dec and again.decoder == dec.decoder
+    for name in set(PRESETS) - rnn:
+        dec = PRESETS[name]
+        again = type(dec).from_json(dec.to_json())
+        assert again == dec and again.decoder == dec.decoder

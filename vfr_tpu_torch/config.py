@@ -167,6 +167,99 @@ class DecoderConfig:
 
 
 @dataclass(frozen=True)
+class LinearAttnConfig:
+    """Kimi Linear's ``linear_attn_config``: which layers (counted from 1)
+    are KDA and which full attention (MLA), and the KDA heads."""
+    full_attn_layers: Tuple[int, ...] = (4, 8, 12, 16, 20, 24, 27)
+    head_dim: int = 128
+    kda_layers: Tuple[int, ...] = (1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15,
+                                   17, 18, 19, 21, 22, 23, 25, 26)
+    num_heads: int = 32
+    short_conv_kernel_size: int = 4
+
+
+@dataclass(frozen=True)
+class KimiLinearConfig:
+    """A Kimi Linear decoder LM as a query tower (Kimi Linear,
+    arXiv:2510.26692), by the keys of its published ``config.json``
+    (defaults: Kimi-Linear-48B-A3B-Instruct, https://huggingface.co/
+    moonshotai/Kimi-Linear-48B-A3B-Instruct): KDA token mixers and NoPE MLA
+    ones by ``linear_attn_config``, a dense SwiGLU MLP in the first
+    ``first_k_dense_replace`` layers and a sigmoid-routed SwiGLU MoE with
+    shared experts after.  Keys naming no inference step (RoPE, which
+    ``mla_use_nope`` turns off, the context length, the LM head) are kept
+    so that the configuration reads as published;
+    ``models/kimi_linear.py::check`` refuses values whose mathematics the
+    port does not implement.
+
+    ``held_experts`` is the port's own key: (the first expert id, the
+    count) that this card holds of every MoE layer, the router still
+    choosing over all ``num_experts``; None holds them all."""
+    first_k_dense_replace: int = 1
+    head_dim: int = 72
+    hidden_act: str = "silu"
+    hidden_size: int = 2304
+    intermediate_size: int = 9216
+    kv_lora_rank: int = 512
+    linear_attn_config: LinearAttnConfig = field(
+        default_factory=LinearAttnConfig)
+    mla_use_nope: bool = True
+    model_max_length: int = 1048576
+    model_type: str = "kimi_linear"
+    moe_intermediate_size: int = 1024
+    moe_layer_freq: int = 1
+    moe_renormalize: bool = True
+    moe_router_activation_func: str = "sigmoid"
+    num_attention_heads: int = 32
+    num_expert_group: int = 1
+    num_experts: int = 256
+    num_experts_per_token: int = 8
+    num_hidden_layers: int = 27
+    num_key_value_heads: int = 32
+    num_nextn_predict_layers: int = 0
+    num_shared_experts: int = 1
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    rms_norm_eps: float = 1e-05
+    rope_scaling: Optional[Dict[str, Any]] = None
+    rope_theta: float = 10000.0
+    routed_scaling_factor: float = 2.446
+    tie_word_embeddings: bool = False
+    topk_group: int = 1
+    use_grouped_topk: bool = True
+    v_head_dim: int = 128
+    vocab_size: int = 163840
+    held_experts: Optional[Tuple[int, int]] = None
+
+    def __post_init__(self):
+        # a section read from JSON (a file's decoder keys) gives the nested
+        # config as a dict and tuples as lists
+        lac = self.linear_attn_config
+        if isinstance(lac, dict):
+            object.__setattr__(self, "linear_attn_config", LinearAttnConfig(
+                **_tuplify(LinearAttnConfig, lac)))
+        if isinstance(self.held_experts, list):
+            object.__setattr__(self, "held_experts",
+                               tuple(self.held_experts))
+
+
+# the decoder sections, by their published ``model_type``
+DECODERS = {"nemotron_h": DecoderConfig, "kimi_linear": KimiLinearConfig}
+
+
+def decoder_from_dict(d: Dict[str, Any]):
+    """The decoder section of a JSON dict, its class picked by
+    ``model_type``."""
+    kind = d.get("model_type")
+    if kind not in DECODERS:
+        raise ValueError(f"no decoder section of model_type {kind!r} "
+                         f"(have {sorted(DECODERS)})")
+    cls = DECODERS[kind]
+    return cls(**_tuplify(cls, d))
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 64
     num_epochs: int = 30
@@ -394,11 +487,12 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     # the decoder LM that is the query tower in place of the LSTM or GRU
-    # (models/nemotron_h.py); None for the RNN towers.  The port alone has
-    # it: out of the repr (the index fingerprint hashes repr(cfg), and a
-    # query tower leaves the moment rows alone) and, at None, out of
-    # ``to_json``, so the JAX package's presets read the same in both
-    decoder: Optional[DecoderConfig] = field(default=None, repr=False)
+    # (a section of ``DECODERS``, by its ``model_type``); None for the RNN
+    # towers.  The port alone has it: out of the repr (the index
+    # fingerprint hashes repr(cfg), and a query tower leaves the moment
+    # rows alone) and, at None, out of ``to_json``, so the JAX package's
+    # presets read the same in both
+    decoder: Optional[Any] = field(default=None, repr=False)
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
@@ -416,7 +510,7 @@ class ExperimentConfig:
             model=ModelConfig(**_tuplify(ModelConfig, d["model"])),
             train=TrainConfig(**_tuplify(TrainConfig, d["train"])),
             eval=EvalConfig(**_tuplify(EvalConfig, d["eval"])),
-            decoder=None if dec is None else DecoderConfig(**dec),
+            decoder=None if dec is None else decoder_from_dict(dec),
         )
 
     def replace(self, **kw) -> "ExperimentConfig":
@@ -521,6 +615,21 @@ _register(ExperimentConfig(
     train=TrainConfig(),
     eval=PRESETS["serving_10k"].eval,
     decoder=DecoderConfig(),
+))
+
+# 5c. The serving_10k deployment with Kimi-Linear-48B-A3B-Instruct as the
+#     query tower (KDA, NoPE MLA, a 256-expert SwiGLU MoE with a shared
+#     expert) at its published widths, bf16 weights, as one card of a
+#     deployment that shares every MoE layer's experts over two cards by
+#     expert parallelism: this card holds experts 0-127 of 256.
+_register(ExperimentConfig(
+    name="kimi_linear_serving",
+    data=PRESETS["serving_10k"].data,
+    model=dataclasses.replace(PRESETS["serving_10k"].model,
+                              param_dtype="bfloat16"),
+    train=TrainConfig(),
+    eval=PRESETS["serving_10k"].eval,
+    decoder=KimiLinearConfig(held_experts=(0, 128)),
 ))
 
 

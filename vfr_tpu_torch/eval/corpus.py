@@ -64,6 +64,7 @@ from vfr_tpu_torch.data.glove import tokenize
 from vfr_tpu_torch.device import resolve_device
 from vfr_tpu_torch.models.mcn import (
     Model,
+    decoder_module,
     embed_moments,
     embed_queries_multi,
     prepare_query_params,
@@ -280,10 +281,11 @@ def _embed_query_streams(params, model: Model, tokens, lengths,
                          rnn_kernel=None) -> torch.Tensor:
     """[S, Q, d]; cosine mode normalizes (+1e-8) like the index rows.  A
     decoder LM tower (``model.decoder``) is imported here, at its first
-    batch, so that an RNN tower's process never loads it."""
+    batch, by its ``model_type`` (``models/mcn.py::decoder_module``), so
+    that an RNN tower's process never loads it."""
     if model.decoder is not None:
-        from vfr_tpu_torch.models.nemotron_h import embed_queries_multi as emb
-        qs = emb(params, model, tokens, lengths)
+        qs = decoder_module(model.decoder).embed_queries_multi(
+            params, model, tokens, lengths)
     else:
         qs = embed_queries_multi(params, model, tokens, lengths,
                                  inference=True, rnn_kernel=rnn_kernel)

@@ -71,6 +71,9 @@ SIGNATURES = {
     "mamba2_scan": {
         "vfr_mamba2_chain": [_P] * 9 + [_I] * 9 + [_F, _P],
     },
+    "kda_chunk": {
+        "vfr_kda_chunk": [_P] * 5 + [_I] * 6 + [_F, _F, _P],
+    },
 }
 
 # host libraries (csrc/host/<name>.cc), built with g++

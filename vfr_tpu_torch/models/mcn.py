@@ -39,6 +39,23 @@ from vfr_tpu_torch.ops.lstm import (
 from vfr_tpu_torch.utils import trace
 
 
+# the module of each decoder-LM tower, by its decoder's ``model_type``
+DECODER_MODULES = {"nemotron_h": "vfr_tpu_torch.models.nemotron_h",
+                   "kimi_linear": "vfr_tpu_torch.models.kimi_linear"}
+
+
+def decoder_module(dec):
+    """The module of the decoder-LM tower ``dec`` (its ``embed_queries_multi``,
+    ``check_params``, ``leaf_shapes``), imported at the first call, so that
+    an RNN tower's process never loads one."""
+    import importlib
+
+    if dec.model_type not in DECODER_MODULES:
+        raise ValueError(f"no decoder-LM tower of model_type "
+                         f"{dec.model_type!r} (have {sorted(DECODER_MODULES)})")
+    return importlib.import_module(DECODER_MODULES[dec.model_type])
+
+
 class Model(NamedTuple):
     """Static model context: config + constant tables, passed alongside
     params.  The tables stay numpy (moved to the params' device on use)."""
@@ -47,8 +64,9 @@ class Model(NamedTuple):
     pool_matrix: np.ndarray           # [P, C] mean-pooling matrix
     tef: Optional[np.ndarray]         # [P, 2] static TEF or None
     freeze_embeddings: bool = True
-    # the decoder LM (config.DecoderConfig) of a "nemotron_h" query tower
-    # (models/nemotron_h.py); None for the RNN towers
+    # the decoder LM of a decoder-LM query tower (a section of
+    # config.DECODERS; its module ``decoder_module``); None for the RNN
+    # towers
     decoder: Optional[object] = None
 
     @property
@@ -93,9 +111,9 @@ def init_model_params(
     cfg = model.cfg
     if model.decoder is not None:
         raise NotImplementedError(
-            "init_model_params seeds the RNN towers' trees; a decoder-LM "
-            "tower's tree has its own layout (models/nemotron_h.py::"
-            "leaf_shapes)")
+            "init_model_params seeds the RNN towers' trees; a decoder LM's "
+            "tree has its own layout (its module's leaf_shapes: "
+            f"{DECODER_MODULES.get(model.decoder.model_type)})")
     dtype = torch_dtype(cfg.param_dtype)
     init_rnn = init_gru_params if cfg.rnn_cell == "gru" else init_lstm_params
     params: Dict = {
@@ -144,17 +162,15 @@ def prepare_query_params(params: Dict, model: Model,
     original tree.  The cast is the set-up span ``setup.query_params``.
 
     A decoder LM's tree (``model.decoder``) is checked (every leaf's shape
-    and dtype, ``models/nemotron_h.py::check_params``) and handed back as
-    it is: its weights are stored at the dtypes its products read, and a
-    copy of tens of GB would not fit beside it."""
+    and dtype, its module's ``check_params``) and handed back as it is:
+    its weights are stored at the dtypes its products read, and a copy of
+    tens of GB would not fit beside it."""
     from vfr_tpu_torch.ops.kernels.rnn_plan import prepare_rnn_weights
 
     cfg = model.cfg
     if model.decoder is not None:
-        from vfr_tpu_torch.models import nemotron_h
-
         with trace.setup("setup.query_params"):
-            nemotron_h.check_params(params, model.decoder)
+            decoder_module(model.decoder).check_params(params, model.decoder)
             return params
     if rnn_kernel is None:
         want = use_pallas(cfg, params["embeddings"].device)
